@@ -1,0 +1,32 @@
+"""Connected Components via HCC label propagation (paper §5.1).
+
+Sub-graph centric: each superstep propagates the largest vertex id through the
+entire sub-graph (local fixpoint), so supersteps = meta-graph diameter + O(1)
+instead of vertex diameter + O(1) — the paper's 554 -> 7 result on RN.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from repro_torch.algorithms._common import check_options
+from repro_torch.core import GopherEngine, SemiringProgram, init_max_vertex
+from repro_torch.gofs.formats import PartitionedGraph
+
+
+def connected_components(pg: PartitionedGraph, mode: str = "subgraph",
+                         backend: str = "local", mesh=None,
+                         spmv_backend: Optional[str] = None,
+                         max_local_iters: Optional[int] = None,
+                         device="cuda"):
+    """Returns (labels (P, v_max) int64 — component id = max global vertex id
+    in the component, -1 on pad slots —, num_components, Telemetry)."""
+    check_options(mode, spmv_backend)
+    prog = SemiringProgram(semiring="max_first", init_fn=init_max_vertex,
+                           max_local_iters=max_local_iters)
+    eng = GopherEngine(pg, prog, backend=backend, mesh=mesh, device=device)
+    state, tele = eng.run()
+    labels = np.where(pg.vmask, state["x"], -1).astype(np.int64)
+    ncc = len(np.unique(labels[pg.vmask]))
+    return labels, ncc, tele

@@ -1,0 +1,14 @@
+"""Gopher: the sub-graph centric BSP engine (the paper's core contribution)."""
+from repro_torch.core.blocks import (device_block, graph_block,
+                                     host_graph_block)
+from repro_torch.core.engine import GopherEngine, Telemetry, resolve_device
+from repro_torch.core.programs import (PageRankProgram, SemiringProgram,
+                                       init_max_vertex, make_bfs_init,
+                                       make_sssp_init)
+
+__all__ = [
+    "GopherEngine", "Telemetry", "resolve_device", "graph_block",
+    "host_graph_block", "device_block",
+    "SemiringProgram", "PageRankProgram",
+    "init_max_vertex", "make_sssp_init", "make_bfs_init",
+]

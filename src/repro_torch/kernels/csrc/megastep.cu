@@ -1,0 +1,311 @@
+// K3: one fused superstep of a scalar idempotent-semiring program over flat
+// (n = P·v_max) state: gated mailbox delivery, inbox ⊕-combine, the masked
+// local fixpoint, the new send set and per-partition sweep counts.
+//
+// Replaces: the JAX package's Pallas kernel `megastep_semiring_pallas`
+// (src/repro/kernels/megastep.py, body `_megastep_kernel`). Outputs match
+// it, and the plain `megastep_semiring_ref`, bit for bit:
+//   x2 (n) f32, changed2 (n) bool, frontier_left (n) bool, liters (P) i32.
+//
+// What bounds it on an H100: memory, per sweep of the fixpoint. A sweep
+// reads the PAD-filled adjacency once, n·D·4 B of nbr (plus n·D·4 B of wgt
+// for min_plus), and n·(4+1) of state, and writes n·(4+1); the gathered x
+// and frontier stay in the 50 MB L2 at the main path's size. The superstep costs that times its sweep
+// count, which the data decides (road networks take hundreds of sweeps).
+//
+// What the design does about it: the TPU kernel ran grid=(1,) with the
+// whole problem in VMEM; one SM's 227 KB cannot hold a road network, so
+// this kernel spreads the rows over every SM. It is ONE cooperative launch
+// per superstep with at most as many blocks as can be co-resident; rows are
+// walked grid-stride and `grid.sync()` separates the phases, so the
+// fixpoint loop never returns to the host. A row whose in-neighbours are all
+// outside the frontier skips the x gather (the frontier pass reads 1 byte a
+// lane), which is most rows once a region settles.
+//
+// Places where bit identity with the JAX kernel is easily lost:
+//  * Sweeps are Jacobi: each reads (xc, fc) and writes (xn, fn) in separate
+//    buffers, swapped after the barrier. Updating in place (Gauss-Seidel)
+//    reaches the same fixpoint but changes liters, changed_hist and the
+//    superstep count.
+//  * The "any f" flags live in a ring of three (P+1)-int slots: sweep k
+//    writes slot (k+1)%3 and clears slot (k+2)%3, the slot every block
+//    finished reading before the previous barrier. With two slots a fast
+//    block would clear a flag a slow block has not read yet.
+//  * `act` follows megastep.py's sweep_flat: a row with no active
+//    in-neighbour yields the identity, not its recomputed value.
+//  * The identities are ±inf and `x2 != xc` is a float compare; min/max are
+//    plain compares (no NaN reaches them), and the only arithmetic on an
+//    identity is inf + w in min_plus, which stays inf. `__fadd_rn` keeps
+//    nvcc from contracting anything.
+//  * Mutable buffers (xc, fc, flags) are read with `__ldcg` (L2, not the
+//    non-coherent L1), so a row sees what other SMs wrote before the
+//    barrier. Read-only inputs use `__ldg`.
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxIt = 1 << 30;
+constexpr int kMaxDevices = 64;
+
+struct Args {
+  const float* x;
+  const uint8_t* changed;
+  const uint8_t* frontier;
+  const uint8_t* vmask;
+  const int* nbr;  // flat state indices, PAD (-1) lanes kept
+  const float* wgt;
+  const int* lo_src;
+  const uint8_t* lo_ok;
+  const float* lo_w;
+  const int* hub_src;
+  const uint8_t* hub_ok;
+  const float* hub_w;
+  const int* hub_row;
+  const uint8_t* hub_row_ok;
+  float* x_out;
+  uint8_t* ch_out;
+  uint8_t* fr_out;
+  int* liters;
+  float* x_tmp;
+  uint8_t* f_tmp;
+  int* flags;  // 3 slots of (P+1): per-partition "any f", then global
+  int n, d, m_lo, m_hi, num_parts, v_max, unroll;
+};
+
+template <bool MINP>
+__device__ __forceinline__ float ident() {
+  return MINP ? INFINITY : -INFINITY;
+}
+
+template <bool MINP>
+__device__ __forceinline__ float oplus(float a, float b) {
+  return MINP ? (b < a ? b : a) : (b > a ? b : a);
+}
+
+// ⊕ over one feed row: lanes whose feed is valid AND whose source vertex is
+// in the previous round's send set; min_plus adds the edge weight
+template <bool MINP>
+__device__ __forceinline__ float reduce_feeds(const Args& a, const int* src,
+                                              const uint8_t* ok,
+                                              const float* w, int64_t base,
+                                              int m) {
+  float acc = ident<MINP>();
+  for (int k = 0; k < m; ++k) {
+    const int64_t i = base + k;
+    if (!__ldg(ok + i)) continue;
+    const int s = __ldg(src + i);
+    if (!__ldg(a.changed + s)) continue;
+    float g = __ldg(a.x + s);
+    if (MINP) g = __fadd_rn(g, __ldg(w + i));
+    acc = oplus<MINP>(acc, g);
+  }
+  return acc;
+}
+
+__device__ __forceinline__ void mark(int* sflag, const Args& a, int64_t v) {
+  sflag[v / a.v_max] = 1;
+  sflag[a.num_parts] = 1;
+}
+
+__device__ __forceinline__ void clear_block_flags(int* sflag, int p1) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < p1; i += blockDim.x) sflag[i] = 0;
+  __syncthreads();
+}
+
+__device__ __forceinline__ void flush_block_flags(const int* sflag, int* g,
+                                                  int p1) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < p1; i += blockDim.x)
+    if (sflag[i]) g[i] = 1;  // every writer stores 1: a benign race
+}
+
+// one Jacobi row update of the masked sweep (megastep.py sweep_flat)
+template <bool MINP>
+__device__ __forceinline__ void sweep_row(const Args& a, int64_t v,
+                                          const float* xc, const uint8_t* fc,
+                                          float* xn, uint8_t* fn,
+                                          int* sflag) {
+  const int64_t base = v * a.d;
+  bool act = false;
+  for (int j = 0; j < a.d && !act; ++j) {
+    const int s = __ldg(a.nbr + base + j);
+    act = s >= 0 && __ldcg(fc + s);
+  }
+  const float xv = __ldcg(xc + v);
+  float x2 = xv;
+  if (act) {
+    float y = ident<MINP>();
+    for (int j = 0; j < a.d; ++j) {
+      const int64_t i = base + j;
+      const int s = __ldg(a.nbr + i);
+      if (s < 0) continue;
+      float g = __ldcg(xc + s);
+      if (MINP) g = __fadd_rn(g, __ldg(a.wgt + i));
+      y = oplus<MINP>(y, g);
+    }
+    x2 = oplus<MINP>(xv, y);
+  }
+  const bool f2 = (x2 != xv) && __ldg(a.vmask + v);
+  xn[v] = x2;
+  fn[v] = f2;
+  if (f2) mark(sflag, a, v);
+}
+
+template <bool MINP>
+__global__ void __launch_bounds__(kThreads) megastep_kernel(Args a) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ int sflag[];
+  const int P = a.num_parts;
+  const int p1 = P + 1;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+
+  // phases 1-2: delivery, inbox combine, the fixpoint's starting frontier
+  clear_block_flags(sflag, p1);
+  if (blockIdx.x == 0)
+    for (int p = threadIdx.x; p < P; p += blockDim.x) a.liters[p] = 0;
+  for (int64_t v = first; v < a.n; v += stride) {
+    float inbox = reduce_feeds<MINP>(a, a.lo_src, a.lo_ok, a.lo_w,
+                                     v * a.m_lo, a.m_lo);
+    // each vertex has at most one hub feed row: a gather, no scatter
+    if (__ldg(a.hub_row_ok + v)) {
+      const int64_t r = __ldg(a.hub_row + v);
+      inbox = oplus<MINP>(inbox, reduce_feeds<MINP>(a, a.hub_src, a.hub_ok,
+                                                    a.hub_w, r * a.m_hi,
+                                                    a.m_hi));
+    }
+    const float xv = __ldg(a.x + v);
+    const float x1 = oplus<MINP>(xv, inbox);
+    const bool f0 = __ldg(a.frontier + v) || ((x1 != xv) && __ldg(a.vmask + v));
+    a.x_out[v] = x1;
+    a.fr_out[v] = f0;
+    if (f0) mark(sflag, a, v);
+  }
+  flush_block_flags(sflag, a.flags, p1);  // slot 0
+  grid.sync();
+
+  // phase 3: the masked local fixpoint (megastep.py's while_loop)
+  float* xc = a.x_out;
+  uint8_t* fc = a.fr_out;
+  float* xn = a.x_tmp;
+  uint8_t* fn = a.f_tmp;
+  int slot = 0;
+  for (int it = 0;; it += a.unroll) {
+    const int* cur = a.flags + slot * p1;
+    if (!__ldcg(cur + P) || it >= kMaxIt) break;  // same value grid-wide
+    if (blockIdx.x == 0)
+      for (int p = threadIdx.x; p < P; p += blockDim.x)
+        a.liters[p] += a.unroll * (__ldcg(cur + p) != 0);
+    for (int u = 0; u < a.unroll; ++u) {
+      const int next = (slot + 1) % 3;
+      if (blockIdx.x == 0) {
+        int* stale = a.flags + ((slot + 2) % 3) * p1;
+        for (int i = threadIdx.x; i < p1; i += blockDim.x) stale[i] = 0;
+      }
+      clear_block_flags(sflag, p1);
+      for (int64_t v = first; v < a.n; v += stride)
+        sweep_row<MINP>(a, v, xc, fc, xn, fn, sflag);
+      flush_block_flags(sflag, a.flags + next * p1, p1);
+      grid.sync();
+      float* xt = xc; xc = xn; xn = xt;
+      uint8_t* ft = fc; fc = fn; fn = ft;
+      slot = next;
+    }
+  }
+
+  // phase 4: outputs (each row reads and writes only itself: no barrier)
+  for (int64_t v = first; v < a.n; v += stride) {
+    const float x2 = __ldcg(xc + v);
+    const uint8_t fl = __ldcg(fc + v);
+    a.x_out[v] = x2;
+    a.ch_out[v] = (x2 != __ldg(a.x + v)) && __ldg(a.vmask + v);
+    a.fr_out[v] = fl;
+  }
+}
+
+template <bool MINP>
+cudaError_t launch(const Args& a, int device, cudaStream_t stream) {
+  static int sms[kMaxDevices] = {0};
+  static int per_sm[kMaxDevices] = {0};
+  const size_t smem = sizeof(int) * (size_t)(a.num_parts + 1);
+  cudaError_t err;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (sms[device] == 0) {
+    err = cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err != cudaSuccess) return err;
+  }
+  // occupancy depends on smem (P); recompute when it changes
+  static size_t per_sm_smem[kMaxDevices] = {0};
+  if (per_sm[device] == 0 || per_sm_smem[device] != smem) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm[device], megastep_kernel<MINP>, kThreads, smem);
+    if (err != cudaSuccess) return err;
+    per_sm_smem[device] = smem;
+  }
+  if (per_sm[device] < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const int64_t want = ((int64_t)a.n + kThreads - 1) / kThreads;
+  int64_t blocks = (int64_t)per_sm[device] * sms[device];
+  if (want < blocks) blocks = want;
+  if (blocks < 1) blocks = 1;
+  Args local = a;
+  void* params[] = {(void*)&local};
+  return cudaLaunchCooperativeKernel((void*)megastep_kernel<MINP>,
+                                     dim3((unsigned)blocks), dim3(kThreads),
+                                     params, smem, stream);
+}
+
+}  // namespace
+
+extern "C" int megastep_semiring_launch(
+    const void* x, const void* changed, const void* frontier,
+    const void* vmask, const void* nbr, const void* wgt,
+    const void* lo_src, const void* lo_ok, const void* lo_w,
+    const void* hub_src, const void* hub_ok, const void* hub_w,
+    const void* hub_row, const void* hub_row_ok, void* x_out, void* ch_out,
+    void* fr_out, void* liters, void* x_tmp, void* f_tmp, void* flags, int n,
+    int d, int m_lo, int m_hi, int num_parts, int v_max, int unroll,
+    int min_plus, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Args a;
+  a.x = (const float*)x;
+  a.changed = (const uint8_t*)changed;
+  a.frontier = (const uint8_t*)frontier;
+  a.vmask = (const uint8_t*)vmask;
+  a.nbr = (const int*)nbr;
+  a.wgt = (const float*)wgt;
+  a.lo_src = (const int*)lo_src;
+  a.lo_ok = (const uint8_t*)lo_ok;
+  a.lo_w = (const float*)lo_w;
+  a.hub_src = (const int*)hub_src;
+  a.hub_ok = (const uint8_t*)hub_ok;
+  a.hub_w = (const float*)hub_w;
+  a.hub_row = (const int*)hub_row;
+  a.hub_row_ok = (const uint8_t*)hub_row_ok;
+  a.x_out = (float*)x_out;
+  a.ch_out = (uint8_t*)ch_out;
+  a.fr_out = (uint8_t*)fr_out;
+  a.liters = (int*)liters;
+  a.x_tmp = (float*)x_tmp;
+  a.f_tmp = (uint8_t*)f_tmp;
+  a.flags = (int*)flags;
+  a.n = n;
+  a.d = d;
+  a.m_lo = m_lo;
+  a.m_hi = m_hi;
+  a.num_parts = num_parts;
+  a.v_max = v_max;
+  a.unroll = unroll;
+  cudaStream_t s = (cudaStream_t)stream;
+  err = min_plus ? launch<true>(a, device, s) : launch<false>(a, device, s);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}

@@ -1,0 +1,345 @@
+"""The fused superstep over flat (P·v_max,) state, and kernel K3.
+
+The port of the JAX package's ``kernels/megastep.py`` for scalar programs:
+
+- :func:`compose_mailbox` folds the graph block's three routing hops
+  (remote edge -> outbox slot via ``ob_inv``, slot -> wire, wire -> inbox
+  feed via ``ib_lo``/``ib_hub``) into direct gather maps from each
+  destination vertex's feed lanes to the SOURCE vertex's flat state index,
+  once per run. It also flattens the local adjacency once: ``nbr`` holds
+  flat state indices with PAD lanes kept PAD, read by the masked sweep
+  (with ``wgt``) and by PageRank's pull through ``ops`` (with the unit
+  weights of :func:`unit_weights`, made only when PageRank asks).
+- :func:`megastep_semiring` runs one superstep: frontier-gated mailbox
+  delivery, inbox ⊕-combine, the masked local fixpoint and the new send
+  set. On a CUDA tensor it is ONE launch of kernel K3
+  (``csrc/megastep.cu``, :func:`megastep_semiring_cuda`); on a CPU tensor
+  it is the plain :func:`megastep_semiring_ref`, a Python ``while`` over
+  :func:`sweep_flat`.
+- :func:`megastep_pagerank` is one PageRank superstep; its pull is
+  ``ops.semiring_spmv(..., "plus_times")``, kernel K1 on the card.
+
+Exactness: for idempotent ⊕ (min/max) every value is a ⊕-fold of the same
+multiset of path sums, and float32 min/max are order-independent, so the
+kernel, the plain version and the JAX package agree bit for bit. PageRank's
+⊕ = sum folds in another association, so its parity class is allclose.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.gofs.formats import PAD
+from repro_torch.kernels import _build, ops
+
+INF = float("inf")
+_IDENT = {"min": INF, "max": -INF, "sum": 0.0}
+_KIDENT = {"min_plus": INF, "max_first": -INF}
+_MAX_IT = 2 ** 30
+
+
+def _reduce(combine: str, t: torch.Tensor, dim: int) -> torch.Tensor:
+    if combine == "sum":
+        return t.sum(dim=dim)
+    return t.amin(dim=dim) if combine == "min" else t.amax(dim=dim)
+
+
+def _ew(combine: str, a, b):
+    if combine == "sum":
+        return a + b
+    return torch.minimum(a, b) if combine == "min" else torch.maximum(a, b)
+
+
+def _combine_of(semiring: str) -> str:
+    if semiring not in _KIDENT:
+        raise ValueError(f"megastep needs an idempotent semiring, got "
+                         f"{semiring}")
+    return "min" if semiring == "min_plus" else "max"
+
+
+# ---------------- composed routing maps ----------------
+
+def compose_mailbox(gb: dict) -> dict:
+    """Fold the staged mailbox's three routing hops into direct gather maps
+    (the JAX package's ``compose_mailbox`` with ``adjacency='full'``).
+
+    For destination vertex (p, v), feed lane m of ``ib_lo[p, v]`` names a
+    received slot ``src * cap + slot``; that slot's value on the staged path
+    is ``x[src][re_src[src, ob_inv[src, p*cap + slot]]]`` (⊗ the edge
+    weight) when the source vertex is in the send set. Composing the maps
+    once per run yields, per feed lane: the source's FLAT state index, a
+    validity mask and the edge weight. Also composed: the vertex-level slot
+    map ``vdst`` and per-vertex edge counts ``edge_cnt`` that give a round's
+    per-pair counts and message count (:func:`round_stats`).
+    """
+    ob_inv = gb["ob_inv"]
+    dev = ob_inv.device
+    P = ob_inv.shape[0]
+    cap = ob_inv.shape[1] // P
+    vmask = gb["vmask"]
+    v_max = vmask.shape[1]
+    n = P * v_max
+    re_src = gb["re_src"].long()
+    re_wgt = gb["re_wgt"]
+    parts = torch.arange(P, device=dev)
+    p1 = parts[:, None]
+
+    def feed_maps(feeds):
+        # feeds (P, ..., m): flat received positions src*cap + slot per
+        # destination-partition row; returns (src_flat, ok, w) same shape
+        valid = feeds != PAD
+        ms = torch.where(valid, feeds, 0).long()
+        src = ms // cap
+        slot = ms % cap
+        pidx = parts.reshape((P,) + (1,) * (feeds.dim() - 1))
+        e = ob_inv[src, pidx * cap + slot]
+        ev = e != PAD
+        es = torch.where(ev, e, 0).long()
+        s_local = re_src[src, es]
+        sv = s_local != PAD
+        ok = valid & ev & sv
+        src_flat = torch.where(ok, src * v_max + torch.where(sv, s_local, 0),
+                               0)
+        return src_flat.int(), ok, re_wgt[src, es]
+
+    lo_src, lo_ok, lo_w = feed_maps(gb["ib_lo"])           # (P, v_max, m_lo)
+    m_lo = lo_src.shape[-1]
+    hub_src, hub_ok, hub_w = feed_maps(gb["ib_hub"])       # (P, hr_max, m_hi)
+    hr_max, m_hi = hub_src.shape[1], hub_src.shape[2]
+
+    # inverse of ib_hub_idx: flat vertex -> its row in the flattened hub
+    # feed table (each vertex receives through EITHER ib_lo or ONE hub row,
+    # never both), so the hub merge is a pure gather
+    hidx = gb["ib_hub_idx"].long()                         # (P, hr_max)
+    hv = hidx != PAD
+    tgt = torch.where(hv, p1 * v_max + hidx, n).reshape(-1)
+    hub_row = torch.full((n + 1,), PAD, dtype=torch.int32, device=dev)
+    hub_row[tgt] = torch.arange(P * hr_max, dtype=torch.int32, device=dev)
+    hub_row = hub_row[:n]
+    hub_row_ok = hub_row != PAD
+    hub_row = torch.where(hub_row_ok, hub_row, 0)
+
+    # vdst[v, j] = 1 iff vertex v occupies an outbox slot to partition j
+    # (at most one: the outbox dedupes per pair), so a round's per-pair
+    # counts are one contraction over the send set
+    ov = ob_inv != PAD
+    o_local = re_src[p1, torch.where(ov, ob_inv, 0).long()]
+    slot_ok = ov & (o_local != PAD)
+    slot_src = torch.where(slot_ok, p1 * v_max + torch.where(
+        o_local != PAD, o_local, 0), n)
+    dst_col = parts.repeat_interleave(cap).repeat(P, 1)
+    vdst = torch.zeros((n + 1, P), dtype=torch.float32, device=dev)
+    vdst.index_put_((slot_src.reshape(-1), dst_col.reshape(-1)),
+                    torch.ones(slot_src.numel(), device=dev), accumulate=True)
+    vdst = vdst[:n]
+
+    # edge_cnt[v] = how many remote edges vertex v sources (messages_sent)
+    e_ok = re_src != PAD
+    edge_cnt = torch.bincount((p1 * v_max + re_src)[e_ok],
+                              minlength=n).float()
+
+    # the local adjacency as flat state indices; PAD lanes stay PAD (every
+    # reader tests idx >= 0), so one array serves the sweep and the pull
+    nbr = gb["nbr"]
+    flat = torch.where(nbr != PAD, parts[:, None, None].int() * v_max + nbr,
+                       PAD).reshape(n, -1)
+    return {
+        "num_parts": P, "v_max": v_max, "cap": cap, "n": n,
+        "vmask": vmask.reshape(-1).contiguous(),
+        "lo_src": lo_src.reshape(n, m_lo).contiguous(),
+        "lo_ok": lo_ok.reshape(n, m_lo).contiguous(),
+        "lo_w": lo_w.reshape(n, m_lo).contiguous(),
+        "hub_src": hub_src.reshape(P * hr_max, m_hi).contiguous(),
+        "hub_ok": hub_ok.reshape(P * hr_max, m_hi).contiguous(),
+        "hub_w": hub_w.reshape(P * hr_max, m_hi).contiguous(),
+        "hub_row": hub_row.contiguous(), "hub_row_ok": hub_row_ok,
+        "vdst": vdst.contiguous(), "edge_cnt": edge_cnt,
+        "nbr": flat.int().contiguous(),
+        "wgt": gb["wgt"].reshape(n, -1).contiguous(),
+    }
+
+
+def unit_weights(cm: dict) -> torch.Tensor:
+    """Unit edge weights over the flat adjacency, for PageRank's pull: made
+    on first use and kept with the mailbox, so the semiring programs never
+    hold them."""
+    if "ones" not in cm:
+        cm["ones"] = torch.ones(cm["nbr"].shape, dtype=torch.float32,
+                                device=cm["nbr"].device)
+    return cm["ones"]
+
+
+# ---------------- fused mailbox delivery ----------------
+
+def deliver_flat(vals: torch.Tensor, live, cm: dict, combine: str,
+                 with_weight: bool) -> torch.Tensor:
+    """The staged exchange's pack -> route -> inbox-combine pipeline as one
+    gather + lane reduce over the composed maps. ``vals`` is the (n,)
+    per-source message value (pre-⊗ except the edge weight); ``live`` gates
+    sends (None = unconditional, PageRank-style)."""
+    ident = _IDENT[combine]
+
+    def pull(src, ok, w):
+        g = vals[src]
+        if with_weight:
+            g = g + w
+        if live is not None:
+            ok = ok & live[src]
+        return torch.where(ok, g, ident)
+
+    y = _reduce(combine, pull(cm["lo_src"], cm["lo_ok"], cm["lo_w"]), -1)
+    yh = _reduce(combine, pull(cm["hub_src"], cm["hub_ok"], cm["hub_w"]), -1)
+    hub = torch.where(cm["hub_row_ok"], yh[cm["hub_row"]], ident)
+    return _ew(combine, y, hub)
+
+
+def round_stats(changed, cm: dict):
+    """One round's wire observation from the send set: the (P, P) per-pair
+    active slot counts and the message count. ``changed=None`` counts
+    unconditional sends (PageRank). Counts stay below 2^24, exact in f32."""
+    P, v_max = cm["num_parts"], cm["v_max"]
+    cnt, vdst = cm["edge_cnt"], cm["vdst"]
+    if changed is None:
+        pairs = vdst.reshape(P, v_max, P).sum(dim=1)
+        return pairs.int(), cnt.sum().int()
+    chf = changed.float()
+    nsent = torch.dot(chf, cnt)
+    pairs = torch.bmm(chf.reshape(P, 1, v_max), vdst.reshape(P, v_max, P))
+    return pairs.reshape(P, P).int(), nsent.int()
+
+
+# ---------------- flat sweeps ----------------
+
+def sweep_flat(x: torch.Tensor, f: torch.Tensor, cm: dict,
+               semiring: str) -> torch.Tensor:
+    """Frontier-masked ELL sweep over the flattened adjacency: a row with no
+    active in-neighbour yields the identity (row for row the math of
+    ``ref.semiring_spmv_frontier_ref``)."""
+    idx = cm["nbr"]
+    ok = idx >= 0
+    g = x[idx]          # a PAD lane (-1) gathers the last entry; ok masks it
+    act = (ok & f[idx]).any(dim=1)
+    if semiring == "min_plus":
+        y = torch.where(ok, g + cm["wgt"], INF).amin(dim=1)
+    else:
+        y = torch.where(ok, g, -INF).amax(dim=1)
+    return torch.where(act, y, _KIDENT[semiring])
+
+
+def sweep_flat_dense(x: torch.Tensor, cm: dict) -> torch.Tensor:
+    """Unmasked plus_times sweep with unit weights over the flat adjacency
+    (PageRank's pull): ``ops.semiring_spmv``, so kernel K1 on the card."""
+    return ops.semiring_spmv(x, cm["nbr"], unit_weights(cm), "plus_times")
+
+
+# ---------------- the fused superstep ----------------
+
+def megastep_semiring_ref(x, changed, frontier, cm: dict, semiring: str,
+                          unroll: int = 1):
+    """The plain fused superstep: deliver the previous round's messages,
+    ⊕-combine, run the masked local fixpoint, emit the new send set.
+    Returns ``(x2, changed2, f_left, liters)``; liters (P,) int32 counts the
+    sweeps each partition was active for, ``unroll`` per loop trip."""
+    combine = _combine_of(semiring)
+    vm = cm["vmask"]
+    P = cm["num_parts"]
+    inbox = deliver_flat(x, changed, cm, combine, semiring == "min_plus")
+    xc = _ew(combine, x, inbox)
+    f = frontier | ((xc != x) & vm)
+    li = torch.zeros(P, dtype=torch.int32, device=x.device)
+    it = 0
+    while it < _MAX_IT and bool(f.any()):
+        li = li + unroll * f.reshape(P, -1).any(dim=1).int()
+        for _ in range(unroll):
+            x2 = _ew(combine, xc, sweep_flat(xc, f, cm, semiring))
+            f = (x2 != xc) & vm
+            xc = x2
+        it += unroll
+    return xc, (xc != x) & vm, f, li
+
+
+_K3_INPUTS = (  # (name, dtype) of the mailbox entries K3 reads, in order
+    ("vmask", torch.bool), ("nbr", torch.int32), ("wgt", torch.float32), ("lo_src", torch.int32), ("lo_ok", torch.bool),
+    ("lo_w", torch.float32), ("hub_src", torch.int32),
+    ("hub_ok", torch.bool), ("hub_w", torch.float32),
+    ("hub_row", torch.int32), ("hub_row_ok", torch.bool))
+
+
+def megastep_semiring_cuda(x, changed, frontier, cm: dict, semiring: str,
+                           unroll: int = 1):
+    """The fused superstep as ONE cooperative launch of kernel K3 — same
+    contract and bits as :func:`megastep_semiring_ref`."""
+    _combine_of(semiring)
+    if unroll < 1:
+        raise ValueError("unroll must be >= 1")
+    if not x.is_cuda:
+        raise ValueError(f"kernel K3 needs CUDA tensors, got {x.device}")
+    dev = x.device
+    n, P, v_max = cm["n"], cm["num_parts"], cm["v_max"]
+    d, m_lo = cm["nbr"].shape[1], cm["lo_src"].shape[1]
+    h, m_hi = cm["hub_src"].shape
+    shapes = {"vmask": (n,), "nbr": (n, d), "wgt": (n, d),
+              "lo_src": (n, m_lo), "lo_ok": (n, m_lo), "lo_w": (n, m_lo),
+              "hub_src": (h, m_hi), "hub_ok": (h, m_hi), "hub_w": (h, m_hi),
+              "hub_row": (n,), "hub_row_ok": (n,)}
+    _build.need(x, "x", torch.float32, dev, (n,))
+    _build.need(changed, "changed", torch.bool, dev, (n,))
+    _build.need(frontier, "frontier", torch.bool, dev, (n,))
+    for name, dtype in _K3_INPUTS:
+        _build.need(cm[name], name, dtype, dev, shapes[name])
+    if max(n * d, n * m_lo, h * m_hi) >= 2 ** 31:
+        raise ValueError("kernel K3 indexes with int32: n·D must be < 2^31")
+    x_out = torch.empty_like(x)
+    ch_out = torch.empty(n, dtype=torch.bool, device=dev)
+    fr_out = torch.empty(n, dtype=torch.bool, device=dev)
+    liters = torch.empty(P, dtype=torch.int32, device=dev)
+    x_tmp = torch.empty_like(x)
+    f_tmp = torch.empty(n, dtype=torch.bool, device=dev)
+    flags = torch.zeros(3 * (P + 1), dtype=torch.int32, device=dev)
+    lib = _build.library()
+    err = lib.megastep_semiring_launch(
+        x.data_ptr(), changed.data_ptr(), frontier.data_ptr(),
+        *(cm[name].data_ptr() for name, _ in _K3_INPUTS),
+        x_out.data_ptr(), ch_out.data_ptr(), fr_out.data_ptr(),
+        liters.data_ptr(), x_tmp.data_ptr(), f_tmp.data_ptr(),
+        flags.data_ptr(), n, d, m_lo, m_hi, P, v_max, unroll,
+        int(semiring == "min_plus"), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "megastep_semiring")
+    _build.launches["megastep_semiring"] += 1
+    return x_out, ch_out, fr_out, liters
+
+
+def megastep_semiring(x, changed, frontier, cm: dict, semiring: str,
+                      unroll: int = 1):
+    """One fused superstep: kernel K3 for a CUDA tensor, the plain version
+    for a CPU tensor; any other device raises."""
+    if x.is_cuda:
+        return megastep_semiring_cuda(x, changed, frontier, cm, semiring,
+                                      unroll)
+    if x.device.type == "cpu":
+        return megastep_semiring_ref(x, changed, frontier, cm, semiring,
+                                     unroll)
+    raise ValueError(f"megastep_semiring has no path for device {x.device}")
+
+
+def megastep_pagerank(r, cm: dict, deg, tele, n_global: int, damping: float,
+                      num_iters: int, step: int):
+    """One fused PageRank superstep on flat state: contributions, pull
+    sweep, unconditional mailbox delivery, dangling redistribution, rank
+    update. The dangling-mass and delta reductions keep the staged path's
+    per-partition-then-global association (sum over v_max, then over P).
+    Returns ``(r_new, delta, changed)``; ``changed`` is a host bool, since
+    the schedule is a fixed iteration count."""
+    vm = cm["vmask"]
+    P = cm["num_parts"]
+    contrib = torch.where(deg > 0, r / torch.clamp(deg, min=1.0), 0.0)
+    pull = sweep_flat_dense(contrib, cm)
+    inbox = deliver_flat(contrib, None, cm, "sum", False)
+    dangling = torch.where(vm & (deg == 0), r, 0.0).reshape(P, -1) \
+        .sum(dim=1).sum()
+    r_new = torch.where(
+        vm,
+        (1.0 - damping) * tele + damping * (pull + inbox + dangling * tele),
+        0.0)
+    delta = (r_new - r).abs().reshape(P, -1).sum(dim=1).sum()
+    return r_new, delta, step + 1 < num_iters

@@ -1,0 +1,82 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card. A CUDA kernel has no CPU mode, so every test here carries the
+``cuda`` marker and skips where ``torch.cuda.is_available()`` is false.
+This file imports no JAX, so it runs on a machine that has none:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+
+Min/max results are bit-equal; plus_times is allclose (rtol=1e-6,
+atol=1e-7) because the kernel sums lanes in another order.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import (SemiringProgram, graph_block, init_max_vertex,
+                              make_sssp_init)
+from repro_torch.gofs import (bfs_grow_partition, partition_graph,
+                              powerlaw_social)
+from repro_torch.gofs.formats import PAD
+from repro_torch.kernels import _build
+from repro_torch.kernels import megastep as mega
+from repro_torch.kernels.ref import semiring_spmv_ref
+from repro_torch.kernels.semiring_spmv import semiring_spmv_cuda
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("semiring", ["min_plus", "max_first", "plus_times"])
+def test_k1_semiring_spmv_matches_plain(cuda_device, semiring):
+    rng = np.random.default_rng(2)
+    v, d = 5000, 8
+    nbr = rng.integers(0, v, (v, d)).astype(np.int32)
+    nbr[rng.random((v, d)) < 0.3] = PAD
+    nbr[:40] = PAD                                   # all-PAD rows
+    wgt = rng.uniform(0.1, 2.0, (v, d)).astype(np.float32)
+    x = rng.uniform(0.0, 5.0, v).astype(np.float32)
+    x[::97] = np.inf
+    x[::89] = -np.inf
+    x, nbr, wgt = (torch.from_numpy(a).to(cuda_device) for a in (x, nbr, wgt))
+    before = _build.launches["semiring_spmv"]
+    got = semiring_spmv_cuda(x, nbr, wgt, semiring)
+    want = semiring_spmv_ref(x, nbr, wgt, semiring)
+    torch.cuda.synchronize()
+    assert _build.launches["semiring_spmv"] == before + 1
+    if semiring == "plus_times":
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-6, atol=1e-7)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("unroll", [1, 3])
+@pytest.mark.parametrize("semiring", ["max_first", "min_plus"])
+def test_k3_megastep_matches_plain(cuda_device, semiring, unroll):
+    """Every superstep of a run on a graph with hub feed rows."""
+    g = powerlaw_social(3000, m=5, seed=2)
+    pg = partition_graph(g, bfs_grow_partition(g, 4, seed=0), 4)
+    gb = graph_block(pg, cuda_device)
+    cm = mega.compose_mailbox(gb)
+    assert bool(cm["hub_row_ok"].any())
+    init = (init_max_vertex if semiring == "max_first"
+            else make_sssp_init(int(pg.part_of[0]), int(pg.local_of[0])))
+    st = SemiringProgram(semiring=semiring, init_fn=init).init(gb)
+    x, ch, fr = (st[k].reshape(-1).contiguous()
+                 for k in ("x", "changed_v", "frontier"))
+    for _ in range(50):
+        got = mega.megastep_semiring_cuda(x, ch, fr, cm, semiring, unroll)
+        want = mega.megastep_semiring_ref(x, ch, fr, cm, semiring, unroll)
+        torch.cuda.synchronize()
+        for g_, w_ in zip(got, want):
+            assert torch.equal(g_, w_)
+        x, ch, fr = got[:3]
+        if not bool(ch.any()):
+            break
+    assert not bool(ch.any())

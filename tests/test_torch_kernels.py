@@ -1,0 +1,281 @@
+"""The port's kernel modules against the JAX package's.
+
+Plain versions (CPU) against the JAX oracles and the Pallas kernels in
+interpret mode: min/max results are BIT-equal (float32 min/max are
+order-independent); plus_times is allclose (rtol=1e-6, atol=1e-7) because
+the lane sum may associate differently. The hand-written CUDA kernels run
+only on a card, in tests/test_torch_cuda.py.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+pytest.importorskip("jax")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from repro.core import graph_block as j_graph_block  # noqa: E402
+from repro.gofs import bfs_grow_partition, powerlaw_social, road_grid  # noqa: E402
+from repro.gofs.formats import PAD, partition_graph  # noqa: E402
+from repro.core import SemiringProgram as JSemiring  # noqa: E402
+from repro.core import init_max_vertex as j_init_max_vertex  # noqa: E402
+from repro.core import make_sssp_init as j_make_sssp_init  # noqa: E402
+from repro.kernels import megastep as jmega  # noqa: E402
+from repro.kernels.ref import semiring_spmv_ref as j_spmv_ref  # noqa: E402
+from repro.kernels.semiring_spmv import semiring_spmv_pallas  # noqa: E402
+
+from repro_torch.core import graph_block as t_graph_block  # noqa: E402
+from repro_torch.core import SemiringProgram, init_max_vertex, make_sssp_init  # noqa: E402
+from repro_torch.gofs.formats import partitioned_graph_from_fields  # noqa: E402
+from repro_torch.kernels import megastep as tmega  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.ref import (semiring_spmv_frontier_ref,  # noqa: E402
+                                     semiring_spmv_ref)
+from repro_torch.kernels.semiring_spmv import semiring_spmv_cuda  # noqa: E402
+
+SEMIRINGS = ["min_plus", "max_first", "plus_times"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs in several worker processes at once: one torch thread
+    per process keeps these small CPU tensors from oversubscribing cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _random_ell(rng, v, d, frac_pad=0.3):
+    """Random ELL with PAD lanes, all-PAD rows and ±inf in x."""
+    nbr = rng.integers(0, v, (v, d)).astype(np.int32)
+    nbr[rng.random((v, d)) < frac_pad] = PAD
+    nbr[rng.random(v) < 0.1] = PAD
+    wgt = rng.uniform(0.1, 2.0, (v, d)).astype(np.float32)
+    x = rng.uniform(0.0, 5.0, v).astype(np.float32)
+    x[rng.random(v) < 0.05] = np.inf
+    x[rng.random(v) < 0.05] = -np.inf
+    return x, nbr, wgt
+
+
+def _assert_semiring_equal(semiring, got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    if semiring == "plus_times":
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    else:
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+@pytest.mark.parametrize("v,d", [(100, 16), (257, 8)])
+def test_spmv_ref_matches_jax_and_pallas(semiring, v, d):
+    rng = np.random.default_rng(v * 31 + d)
+    x, nbr, wgt = _random_ell(rng, v, d)
+    got = semiring_spmv_ref(torch.from_numpy(x), torch.from_numpy(nbr),
+                            torch.from_numpy(wgt), semiring)
+    args = (jnp.asarray(x), jnp.asarray(nbr), jnp.asarray(wgt), semiring)
+    _assert_semiring_equal(semiring, got, j_spmv_ref(*args))
+    _assert_semiring_equal(semiring, got,
+                           semiring_spmv_pallas(*args, block_v=64,
+                                                interpret=True))
+    # the dispatch takes the plain version for a CPU tensor
+    _assert_semiring_equal(semiring, ops.semiring_spmv(
+        torch.from_numpy(x), torch.from_numpy(nbr), torch.from_numpy(wgt),
+        semiring), got)
+
+
+@pytest.mark.parametrize("semiring", ["min_plus", "max_first"])
+def test_spmv_frontier_ref_matches_jax(semiring):
+    from repro.kernels.ref import semiring_spmv_frontier_ref as j_front
+    rng = np.random.default_rng(3)
+    x, nbr, wgt = _random_ell(rng, 120, 8)
+    f = rng.random(120) < 0.3
+    y, act = semiring_spmv_frontier_ref(
+        torch.from_numpy(x), torch.from_numpy(f), torch.from_numpy(nbr),
+        torch.from_numpy(wgt), semiring)
+    jy, jact = j_front(jnp.asarray(x), jnp.asarray(f), jnp.asarray(nbr),
+                       jnp.asarray(wgt), semiring)
+    assert np.array_equal(y.numpy(), np.asarray(jy))
+    assert np.array_equal(act.numpy(), np.asarray(jact))
+
+
+# ---------------- the fused superstep ----------------
+
+GRAPHS = {
+    # road grids leave the hub branch of delivery dead ...
+    "road": lambda: road_grid(10, 11, drop_frac=0.06, seed=3, weighted=True),
+    # ... a powerlaw graph has real hub feed rows
+    "social": lambda: powerlaw_social(400, m=5, seed=2),
+}
+
+
+@pytest.fixture(scope="module")
+def blocks():
+    """Per graph: (JAX pg, JAX block, JAX mailbox, port block, port
+    mailbox), built from the same partitioned arrays."""
+    out = {}
+    for name, make in GRAPHS.items():
+        g = make()
+        pg = partition_graph(g, bfs_grow_partition(g, 4, seed=0), 4)
+        jgb = j_graph_block(pg)
+        tpg = partitioned_graph_from_fields(dataclasses.asdict(pg))
+        tgb = t_graph_block(tpg, "cpu")
+        out[name] = (pg, jgb, _j_compose(jgb), tgb,
+                     tmega.compose_mailbox(tgb))
+    return out
+
+
+def _j_compose(jgb):
+    """The JAX mailbox, composed under one jit (eager it dispatches many
+    small ops); the Python-int statics are re-derived from the shapes, as
+    the JAX engine does."""
+    arrays = jax.jit(lambda gb: {
+        k: v for k, v in jmega.compose_mailbox(gb).items()
+        if k not in jmega.MAILBOX_STATICS})(jgb)
+    P, v_max = jgb["vmask"].shape
+    return {**arrays, "num_parts": P, "v_max": v_max,
+            "cap": jgb["ob_inv"].shape[1] // P, "n": P * v_max}
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_compose_mailbox_matches(blocks, name):
+    _, _, jcm, _, tcm = blocks[name]
+    for k in ("num_parts", "v_max", "cap", "n"):
+        assert tcm[k] == jcm[k], k
+    for k in ("vmask", "lo_src", "lo_ok", "lo_w", "hub_src", "hub_ok",
+              "hub_w", "hub_row", "hub_row_ok", "vdst", "edge_cnt", "wgt"):
+        assert tuple(tcm[k].shape) == jcm[k].shape, k
+        assert np.array_equal(tcm[k].numpy(), np.asarray(jcm[k])), k
+    # one flat adjacency, PAD lanes kept PAD: JAX's 0-filled nbr where its
+    # nbr_ok holds
+    assert tuple(tcm["nbr"].shape) == jcm["nbr"].shape
+    assert np.array_equal(tcm["nbr"].numpy(),
+                          np.where(np.asarray(jcm["nbr_ok"]),
+                                   np.asarray(jcm["nbr"]), PAD))
+    # PageRank's unit weights are made only when its pull asks
+    assert "ones" not in tcm
+    assert np.all(tmega.unit_weights(dict(tcm)).numpy() == 1.0)
+    if name == "social":
+        assert tcm["hub_row_ok"].any()      # the hub branch is live here
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_deliver_flat_and_round_stats_match(blocks, name):
+    _, _, jcm, _, tcm = blocks[name]
+    rng = np.random.default_rng(11)
+    n = tcm["n"]
+    vals = rng.uniform(0.0, 9.0, n).astype(np.float32)
+    vals[rng.random(n) < 0.05] = np.inf
+    live = rng.random(n) < 0.4
+    for combine, with_w in (("min", True), ("max", False), ("sum", False)):
+        gate = None if combine == "sum" else live
+        got = tmega.deliver_flat(torch.from_numpy(vals),
+                                 None if gate is None
+                                 else torch.from_numpy(gate),
+                                 tcm, combine, with_w)
+        want = jax.jit(lambda v, g: jmega.deliver_flat(
+            v, g, jcm, combine, with_w))(
+                jnp.asarray(vals), None if gate is None else jnp.asarray(gate))
+        if combine == "sum":
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-6, atol=1e-7)
+        else:
+            assert np.array_equal(got.numpy(), np.asarray(want)), combine
+    for ch in (live, None):
+        tp, tn = tmega.round_stats(None if ch is None
+                                   else torch.from_numpy(ch), tcm)
+        jp, jn = jax.jit(lambda c: jmega.round_stats(c, jcm))(
+            None if ch is None else jnp.asarray(ch))
+        assert np.array_equal(tp.numpy(), np.asarray(jp))
+        assert int(tn) == int(jn)
+
+
+def _programs(pg):
+    sp, sl = int(pg.part_of[0]), int(pg.local_of[0])
+    return {
+        "cc": (JSemiring(semiring="max_first", init_fn=j_init_max_vertex),
+               SemiringProgram(semiring="max_first",
+                               init_fn=init_max_vertex)),
+        "sssp": (JSemiring(semiring="min_plus",
+                           init_fn=j_make_sssp_init(sp, sl)),
+                 SemiringProgram(semiring="min_plus",
+                                 init_fn=make_sssp_init(sp, sl))),
+    }
+
+
+@pytest.mark.parametrize("prog", ["cc", "sssp"])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_megastep_matches_jnp_and_pallas(blocks, name, prog):
+    """Walk three supersteps: the plain port, the JAX jnp oracle and the
+    Pallas megakernel (interpret mode) agree bit for bit on every output."""
+    pg, jgb, jcm, tgb, tcm = blocks[name]
+    jprog, tprog = _programs(pg)[prog]
+    st = tprog.init(tgb)
+    x, ch, fr = (st[k].reshape(-1) for k in ("x", "changed_v", "frontier"))
+    jst = jax.vmap(jprog.init)(jgb)
+    assert np.array_equal(x.numpy(), np.asarray(jst["x"]).reshape(-1))
+    # one compile each, reused across the three supersteps
+    jnp_step = jax.jit(lambda *a: jmega.megastep_semiring(
+        *a, jcm, tprog.semiring, backend="jnp"))
+    pallas_step = jax.jit(lambda *a: jmega.megastep_semiring_pallas(
+        *a, jcm, tprog.semiring, interpret=True))
+    for _ in range(3):
+        got = tmega.megastep_semiring(x, ch, fr, tcm, tprog.semiring)
+        jargs = [jnp.asarray(t.numpy()) for t in (x, ch, fr)]
+        want = jnp_step(*jargs)
+        pallas = pallas_step(*jargs)
+        for g, w, p in zip(got, want, pallas):
+            assert np.array_equal(g.numpy(), np.asarray(w))
+            assert np.array_equal(g.numpy(), np.asarray(p))
+        x, ch, fr = got[:3]
+
+
+def test_megastep_unroll_matches_jnp(blocks):
+    """``fixpoint_unroll`` > 1 counts ``unroll`` sweeps per loop trip in
+    liters and may sweep past the fixpoint; both packages agree."""
+    pg, _, jcm, tgb, tcm = blocks["road"]
+    jprog, tprog = _programs(pg)["sssp"]
+    st = tprog.init(tgb)
+    x, ch, fr = (st[k].reshape(-1) for k in ("x", "changed_v", "frontier"))
+    jnp_step = jax.jit(lambda *a: jmega.megastep_semiring(
+        *a, jcm, "min_plus", unroll=3, backend="jnp"))
+    for _ in range(2):
+        got = tmega.megastep_semiring(x, ch, fr, tcm, "min_plus", unroll=3)
+        want = jnp_step(*[jnp.asarray(t.numpy()) for t in (x, ch, fr)])
+        for g, w in zip(got, want):
+            assert np.array_equal(g.numpy(), np.asarray(w))
+        x, ch, fr = got[:3]
+
+
+def test_megastep_pagerank_matches(blocks):
+    pg, jgb, jcm, tgb, tcm = blocks["social"]
+    rng = np.random.default_rng(5)
+    r = rng.uniform(0.0, 2.0 / pg.n_global, tcm["n"]).astype(np.float32)
+    deg = tgb["out_degree"].reshape(-1).float()
+    got = tmega.megastep_pagerank(torch.from_numpy(r), tcm, deg,
+                                  1.0 / pg.n_global, pg.n_global, 0.85, 30, 3)
+    want = jax.jit(lambda r_, d_: jmega.megastep_pagerank(
+        r_, jcm, d_, 1.0 / pg.n_global, pg.n_global, 0.85, 30, 3))(
+            jnp.asarray(r), jnp.asarray(deg.numpy()))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(float(got[1]), float(want[1]), rtol=1e-5)
+    assert got[2] == bool(want[2])
+
+
+# ---------------- the wrappers: a CUDA tensor launches or raises ----------
+
+def test_cuda_wrappers_refuse_cpu_tensors(blocks):
+    x = torch.zeros(4)
+    nbr = torch.zeros((4, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        semiring_spmv_cuda(x, nbr, torch.zeros((4, 8)), "min_plus")
+    _, _, _, tgb, tcm = blocks["road"]
+    n = tcm["n"]
+    with pytest.raises(ValueError, match="CUDA"):
+        tmega.megastep_semiring_cuda(torch.zeros(n), torch.zeros(n, dtype=bool),
+                                     torch.zeros(n, dtype=bool), tcm,
+                                     "min_plus")

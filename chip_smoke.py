@@ -8,18 +8,37 @@ failure exits non-zero and prints no result:
 
 1. environment: a CUDA card, its name and power limit from nvidia-smi;
 2. build: the kernels from ``src/repro_torch/kernels/csrc`` (nvcc);
-3. each kernel against its plain PyTorch version on the card: K1 on a
-   random ELL (V = 2e6, D = 8, PAD rows, ±inf), K3 over every superstep of
-   CC and SSSP on a road grid and on a powerlaw graph with hub feeds;
-4. the main path at full size: CC, SSSP, BFS and 30-iteration PageRank
-   through the public functions on road_grid(1400, 1400) — 1.96M vertices,
-   the vertex count of the paper's RN graph — in 12 partitions, each
-   checked against scipy / numpy; one JSON line per algorithm;
-5. kernel times at the main path's shapes: one ``{"kernels": [...]}`` line.
+3. each kernel against its plain PyTorch version on the card: K1 and K2 on
+   a random ELL (V = 2e6, D = 8, PAD rows, ±inf; K2 at frontier densities
+   of 1 % and 50 %), K3 over every superstep of CC and SSSP on a road grid
+   and on a powerlaw graph with hub feeds, K5 and K6 on random masks
+   (R ∈ {144, 4096}, cap ∈ {969, 4096}, densities 0 / 0.05 / 1, budgets
+   below and above the counts, ±inf values);
+4. the paths at full size, on road_grid(1400, 1400) — 1.96M vertices, the
+   vertex count of the paper's RN graph — in 12 partitions; one JSON line
+   per run, each run after a warm-up call with the launch counts set to 0
+   just before it:
+   a. the fused route (``exchange='auto'``): CC, SSSP, BFS and 30-iteration
+      PageRank through the public functions, checked against scipy/numpy;
+   b. the staged route: ``exchange='dense'`` CC, SSSP and BFS bit-equal to
+      (a) with equal supersteps and local_iters; ``exchange='compact'`` CC
+      and SSSP bit-equal to dense, with (a)'s count_hist and a smaller
+      wire; vertex-centric CC and SSSP (``mode='vertex'``) against scipy,
+      with fewer supersteps in sub-graph mode (paper Fig 4c); PageRank on
+      ``exchange='dense'`` against the float64 power iteration; PageRank
+      with a ``tol`` that halts it at superstep 40 of 200, against the
+      power iteration's own halt and ranks; BlockRank against the port's
+      own run of it on the CPU (the plain versions of every kernel);
+   and where each run's time goes (CUDA events around every kernel call);
+5. kernel times at the paths' shapes: one ``{"kernels": [...]}`` line.
+   ``ms`` is a kernel's device time by torch.profiler; ``call_ms`` the
+   CUDA-event time of one wrapper call, which for a small kernel is
+   mostly the host's time to enqueue it.
 
 Min/max results are held bit-equal; plus_times allclose (rtol=1e-6,
 atol=1e-7 on the random ELL, whose values are O(1); rtol=1e-5, atol=0 at
-PageRank's pull, whose values are O(1/n)). The last line is
+PageRank's pull, whose values are O(1/n)); K5/K6 outputs bit-equal;
+BlockRank rtol=1e-4, atol=0 against its CPU run. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -34,6 +53,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 SEMIRINGS = ("min_plus", "max_first", "plus_times")
+TOL_STEPS = 40                  # where phase 4b's tol PageRank must halt
 
 
 def log(msg: str) -> None:
@@ -61,6 +81,31 @@ def cuda_ms(fn, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, kernel=None, reps: int = 20) -> float:
+    """Device time of one call of ``fn`` by torch.profiler (the card traced
+    only) over ``reps`` calls after a warm-up call: per launch of the
+    kernels whose names hold ``kernel``, or, with ``kernel=None``, of all
+    the call's kernels. It leaves out the host's time to enqueue the call,
+    which sets a small kernel's event-timed call (:func:`cuda_ms`)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [(evt.count, evt.device_time_total / 1e3)
+            for evt in prof.key_averages()
+            if evt.device_type == DeviceType.CUDA
+            and (kernel is None or kernel in evt.key)]
+    launches, ms = sum(c for c, _ in hits), sum(t for _, t in hits)
+    if launches == 0:
+        fail(f"the profiler saw no launch of {kernel or 'any kernel'}")
+    return ms / (reps if kernel is None else launches)
 
 
 def compare(semiring: str, got, want, what: str, rtol: float = 1e-6,
@@ -115,19 +160,12 @@ def environment():
 
 def check_k1(dev) -> None:
     import torch
-    from repro_torch.gofs.formats import PAD
     from repro_torch.kernels.ref import semiring_spmv_ref
     from repro_torch.kernels.semiring_spmv import semiring_spmv_cuda
     rng = np.random.default_rng(0)
     v, d = 2_000_000, 8
-    nbr = rng.integers(0, v, (v, d), dtype=np.int32)
-    nbr[rng.random((v, d)) < 0.3] = PAD
-    nbr[rng.random(v) < 0.02] = PAD                  # all-PAD rows
-    wgt = rng.uniform(0.1, 2.0, (v, d)).astype(np.float32)
-    x = rng.uniform(0.0, 5.0, v).astype(np.float32)
-    x[rng.random(v) < 0.01] = np.inf
-    x[rng.random(v) < 0.01] = -np.inf
-    x, nbr, wgt = (torch.from_numpy(a).to(dev) for a in (x, nbr, wgt))
+    x, nbr, wgt = (torch.from_numpy(a).to(dev)
+                   for a in random_ell(rng, v, d))
     for sr in SEMIRINGS:
         got = semiring_spmv_cuda(x, nbr, wgt, sr)
         want = semiring_spmv_ref(x, nbr, wgt, sr)
@@ -135,6 +173,86 @@ def check_k1(dev) -> None:
         err = compare(sr, got, want, f"K1 {sr}")
         log(f"K1 semiring_spmv {sr}: V={v} D={d} agrees "
             f"(max_abs_err {err})")
+
+
+def random_ell(rng, v: int, d: int):
+    """A random ELL with PAD lanes, all-PAD rows and ±inf in x."""
+    from repro_torch.gofs.formats import PAD
+    nbr = rng.integers(0, v, (v, d), dtype=np.int32)
+    nbr[rng.random((v, d)) < 0.3] = PAD
+    nbr[rng.random(v) < 0.02] = PAD                  # all-PAD rows
+    wgt = rng.uniform(0.1, 2.0, (v, d)).astype(np.float32)
+    x = rng.uniform(0.0, 5.0, v).astype(np.float32)
+    x[rng.random(v) < 0.01] = np.inf
+    x[rng.random(v) < 0.01] = -np.inf
+    return x, nbr, wgt
+
+
+def check_k2(dev) -> None:
+    import torch
+    from repro_torch.kernels.ref import semiring_spmv_frontier_ref
+    from repro_torch.kernels.semiring_spmv import semiring_spmv_frontier_cuda
+    rng = np.random.default_rng(1)
+    v, d = 2_000_000, 8
+    x, nbr, wgt = (torch.from_numpy(a).to(dev)
+                   for a in random_ell(rng, v, d))
+    for density in (0.01, 0.5):
+        f = torch.from_numpy(rng.random(v) < density).to(dev)
+        for sr in ("min_plus", "max_first"):
+            y, act = semiring_spmv_frontier_cuda(x, f, nbr, wgt, sr)
+            wy, wact = semiring_spmv_frontier_ref(x, f, nbr, wgt, sr)
+            torch.cuda.synchronize()
+            compare(sr, y, wy, f"K2 {sr} density {density} y")
+            compare("bool", act, wact, f"K2 {sr} density {density} "
+                    f"row_active")
+            log(f"K2 semiring_spmv_frontier {sr}: V={v} D={d} frontier "
+                f"density {density}: y and row_active bit-equal "
+                f"({int(act.sum())} active rows)")
+
+
+def check_k5_k6(dev) -> None:
+    import torch
+    from repro_torch.kernels.outbox_compact import (outbox_compact_plan_cuda,
+                                                    outbox_pack_cuda)
+    from repro_torch.kernels.ref import (outbox_compact_plan_ref,
+                                         outbox_pack_ref)
+    rng = np.random.default_rng(2)
+    cases = 0
+    for rows in (144, 4096):
+        for cap in (969, 4096):
+            vals = rng.uniform(-5.0, 5.0, (rows, cap)).astype(np.float32)
+            vals[rng.random((rows, cap)) < 0.05] = np.inf
+            vals[rng.random((rows, cap)) < 0.05] = -np.inf
+            vals = torch.from_numpy(vals).to(dev)
+            for density in (0.0, 0.05, 1.0):
+                act_np = rng.random((rows, cap)) < density
+                cnt = act_np.sum(1)
+                active = torch.from_numpy(act_np).to(dev)
+                for budget in ("below", "above"):
+                    lim = (rng.integers(0, np.maximum(cnt, 1))
+                           if budget == "below" else cnt + 1)
+                    lim = torch.from_numpy(lim.astype(np.int32)).to(dev)
+                    for ident in (float("inf"), float("-inf")):
+                        got = outbox_pack_cuda(vals, active, lim, ident)
+                        want = outbox_pack_ref(vals, active, lim, ident)
+                        torch.cuda.synchronize()
+                        for name, a, b in zip(
+                                ("pvals", "sids", "pinv", "counts", "over"),
+                                got, want):
+                            if not torch.equal(a, b):
+                                fail(f"K5 R={rows} cap={cap} density "
+                                     f"{density} budget {budget}: {name} "
+                                     f"differs from the plain version")
+                        cases += 1
+                got = outbox_compact_plan_cuda(active)
+                want = outbox_compact_plan_ref(active)
+                torch.cuda.synchronize()
+                for name, a, b in zip(("pfwd", "pinv", "counts"), got, want):
+                    if not torch.equal(a, b):
+                        fail(f"K6 R={rows} cap={cap} density {density}: "
+                             f"{name} differs from the plain version")
+    log(f"K5 outbox_pack: {cases} cases, K6 outbox_compact_plan: 12 cases, "
+        f"every output bit-equal")
 
 
 def check_k3(dev) -> None:
@@ -205,42 +323,15 @@ def main_path(dev):
                    "unweighted_build": time.perf_counter() - t3}}))
     src = 0
     runs = {
-        "cc": lambda: algorithms.connected_components(pg),
-        "sssp": lambda: algorithms.sssp(pg, src),
-        "bfs": lambda: algorithms.bfs(upg, src),
-        "pagerank": lambda: algorithms.pagerank(pg, num_iters=30),
+        "cc": (lambda: algorithms.connected_components(pg),
+               ["megastep_semiring"]),
+        "sssp": (lambda: algorithms.sssp(pg, src), ["megastep_semiring"]),
+        "bfs": (lambda: algorithms.bfs(upg, src), ["megastep_semiring"]),
+        "pagerank": (lambda: algorithms.pagerank(pg, num_iters=30),
+                     ["semiring_spmv"]),
     }
-    uses = {"cc": "megastep_semiring", "sssp": "megastep_semiring",
-            "bfs": "megastep_semiring", "pagerank": "semiring_spmv"}
-    first = {}
-    for name, fn in runs.items():                    # warm-up, not counted
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        first[name] = time.perf_counter() - t
-
-    results, path_launches = {}, dict.fromkeys(_build.launches, 0)
-    for name, fn in runs.items():
-        torch.cuda.reset_peak_memory_stats(dev)
-        _build.reset_launches()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t
-        launches = dict(_build.launches)
-        if launches[uses[name]] == 0:
-            fail(f"{name}: kernel {uses[name]} was never launched")
-        for k, c in launches.items():
-            path_launches[k] += c
-        tele = out[-1]
-        results[name] = out
-        log(json.dumps({
-            "algorithm": name, "n": g.n, "parts": 12,
-            "supersteps": tele.supersteps,
-            "local_iters_sum": int(tele.local_iters.sum()),
-            "first_s": first[name], "warm_s": secs, "launches": launches,
-            "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}))
+    path_launches = dict.fromkeys(_build.launches, 0)
+    results = drive(dev, runs, path_launches, g.n)
 
     # against scipy / numpy
     labels, ncc, _ = results["cc"]
@@ -278,16 +369,219 @@ def main_path(dev):
     log(f"main path checks: cc {ncc} components, sssp {int(fin.sum())} "
         f"reached, bfs max {int(hops[np.isfinite(hops)].max())} hops, "
         f"pagerank max abs diff {np.abs(r - rr).max():.3e} — all agree")
+    staged_path(dev, g, ug, pg, upg, src, results, path_launches,
+                {"cc": (lab_true, ncc_true), "sssp": d_true, "bfs": hops,
+                 "pagerank": rr})
     breakdown(pg, upg, src)
     return pg, path_launches
 
 
+def drive(dev, runs: dict, path_launches: dict, n: int) -> dict:
+    """Run each ``name: (fn, kernels)`` once to warm up, then once more
+    with the launch counts set to 0 just before it and read just after; fail
+    if a kernel of its path was never launched. One JSON line per run;
+    returns the timed runs' outputs."""
+    import torch
+    from repro_torch.kernels import _build
+    first = {}
+    for name, (fn, _) in runs.items():               # warm-up, not counted
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        first[name] = time.perf_counter() - t
+    results = {}
+    for name, (fn, kernels) in runs.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = dict(_build.launches)
+        for k in kernels:
+            if launches[k] == 0:
+                fail(f"{name}: kernel {k} was never launched")
+        for k, c in launches.items():
+            path_launches[k] += c
+        tele = out[-1] if name != "blockrank" else out[1]
+        results[name] = out
+        log(json.dumps({
+            "algorithm": name, "n": n, "parts": 12,
+            "exchange": tele.exchange, "supersteps": tele.supersteps,
+            "local_iters_sum": int(tele.local_iters.sum()),
+            "first_s": first[name], "warm_s": secs, "launches": launches,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}))
+    return results
+
+
+def _masked(pg, x, fill):
+    x = np.array(x)
+    x[~pg.vmask] = fill
+    return x
+
+
+def staged_path(dev, g, ug, pg, upg, src, fused, path_launches, truth):
+    """Phase 4b: the staged route at RN scale, each run checked (see the
+    module docstring). ``fused`` holds phase 4a's results, ``truth`` scipy's
+    CC labels, Dijkstra distances and BFS hops and the 30-iteration float64
+    power iteration."""
+    from repro_torch import algorithms
+    from repro_torch.core import (GopherEngine, PageRankProgram,
+                                  SemiringProgram, init_max_vertex,
+                                  make_bfs_init, make_sssp_init)
+    # the float64 power iteration to TOL_STEPS, with each iteration's L1
+    # delta; a tol between the last two deltas (about 8 % from each, far
+    # above float32's noise in the card's delta) halts PageRank there
+    a = g.csr()
+    a.data[:] = 1.0
+    outdeg = g.out_degree.astype(np.float64)
+    rr = np.full(g.n, 1.0 / g.n)
+    deltas = []
+    for _ in range(TOL_STEPS):
+        contrib = np.where(outdeg > 0, rr / np.maximum(outdeg, 1), 0)
+        r_next = 0.15 / g.n + 0.85 * (a @ contrib
+                                      + rr[outdeg == 0].sum() / g.n)
+        deltas.append(np.abs(r_next - rr).sum())
+        rr = r_next
+    tol = float(np.sqrt(deltas[-2] * deltas[-1]))
+    loc = (int(pg.part_of[src]), int(pg.local_of[src]))
+    progs = {"cc": SemiringProgram("max_first", init_max_vertex),
+             "sssp": SemiringProgram("min_plus", make_sssp_init(*loc)),
+             "bfs": SemiringProgram("min_plus", make_bfs_init(*loc))}
+    graph = {"cc": pg, "sssp": pg, "bfs": upg}
+
+    def engine(algo, exchange):
+        return lambda: GopherEngine(graph[algo], progs[algo],
+                                    exchange=exchange).run()
+
+    k2, k5, k1 = "semiring_spmv_frontier", "outbox_pack", "semiring_spmv"
+    runs = {f"{a}_dense": (engine(a, "dense"), [k2])
+            for a in ("cc", "sssp", "bfs")}
+    runs.update({f"{a}_compact": (engine(a, "compact"), [k2, k5])
+                 for a in ("cc", "sssp")})
+    runs["cc_vertex"] = (lambda: algorithms.connected_components(
+        pg, mode="vertex"), [k1])
+    runs["sssp_vertex"] = (lambda: algorithms.sssp(pg, src, mode="vertex"),
+                           [k1])
+    runs["pagerank_dense"] = (lambda: GopherEngine(
+        pg, PageRankProgram(n_global=pg.n_global, num_iters=30),
+        exchange="dense", max_supersteps=64).run(), [k1])
+    runs["pagerank_tol"] = (lambda: algorithms.pagerank(
+        pg, num_iters=200, tol=tol), [k1])
+    runs["blockrank"] = (lambda: algorithms.blockrank(pg), [k1])
+    res = drive(dev, runs, path_launches, g.n)
+
+    # dense against the fused route: same bits, supersteps and sweeps
+    fx = {"cc": fused["cc"][0], "sssp": fused["sssp"][0],
+          "bfs": fused["bfs"][0]}
+    ft = {a: fused[a][-1] for a in fx}
+
+    def as_result(algo, x):
+        if algo == "cc":
+            return np.where(pg.vmask, x, -1).astype(np.int64)
+        return _masked(graph[algo], x, np.inf)
+
+    for a in ("cc", "sssp", "bfs"):
+        state, t = res[f"{a}_dense"]
+        if not np.array_equal(as_result(a, state["x"]), fx[a]):
+            fail(f"{a}_dense: results differ from the fused route's")
+        if t.supersteps != ft[a].supersteps or not np.array_equal(
+                t.local_iters, ft[a].local_iters):
+            fail(f"{a}_dense: supersteps/local_iters differ from the fused "
+                 f"route's ({t.supersteps} vs {ft[a].supersteps})")
+    for a in ("cc", "sssp"):
+        state, t = res[f"{a}_compact"]
+        dstate, dt = res[f"{a}_dense"]
+        if not np.array_equal(state["x"], dstate["x"]):
+            fail(f"{a}_compact: results differ from dense")
+        if not np.array_equal(t.count_hist, ft[a].count_hist):
+            fail(f"{a}_compact: count_hist differs from the fused route's")
+        if not t.wire_slots < dt.wire_slots:
+            fail(f"{a}_compact: wire {t.wire_slots} not below dense's "
+                 f"{dt.wire_slots}")
+        log(f"{a}: compact wire {t.wire_slots} slots vs dense "
+            f"{dt.wire_slots} ({t.bytes_on_wire} vs {dt.bytes_on_wire} B)")
+
+    # vertex-centric runs against scipy and against the fused route
+    labels, ncc, tv_cc = res["cc_vertex"]
+    lab_true, ncc_true = truth["cc"]
+    pairs = np.unique(np.stack([lab_true, gather(pg, labels)]), axis=1)
+    if ncc != ncc_true or pairs.shape[1] != ncc_true:
+        fail("cc_vertex: the components differ from scipy's")
+    if not np.array_equal(labels, fx["cc"]):
+        fail("cc_vertex: labels differ from the sub-graph centric run's")
+    dist, tv_sssp = res["sssp_vertex"]
+    d_true = truth["sssp"]
+    fin = np.isfinite(d_true)
+    got = gather(pg, dist)
+    if not np.array_equal(np.isfinite(got), fin) or not np.allclose(
+            got[fin], d_true[fin], rtol=1e-5):
+        fail("sssp_vertex: distances differ from scipy's dijkstra")
+    for a, tv in (("cc", tv_cc), ("sssp", tv_sssp)):
+        sub = ft[a].supersteps
+        log(json.dumps({"fig4c": a, "subgraph_supersteps": sub,
+                        "vertex_supersteps": tv.supersteps}))
+        if not sub < tv.supersteps:
+            fail(f"{a}: sub-graph mode took {sub} supersteps, vertex mode "
+                 f"{tv.supersteps}: no superstep reduction")
+
+    # PageRank on the staged route against the float64 power iteration: 30
+    # iterations, and a tol that halts it after TOL_STEPS
+    state, t = res["pagerank_dense"]
+    r = gather(pg, _masked(pg, state["r"], 0.0))
+    if t.supersteps != 30 or not np.allclose(r, truth["pagerank"], rtol=1e-4,
+                                             atol=1e-9):
+        fail(f"pagerank_dense: max abs diff "
+             f"{np.abs(r - truth['pagerank']).max()} from the float64 power "
+             f"iteration")
+    rt, tt = res["pagerank_tol"]
+    if tt.supersteps != TOL_STEPS:
+        fail(f"pagerank_tol: halted after {tt.supersteps} supersteps, the "
+             f"float64 power iteration's delta crosses tol {tol} after "
+             f"{TOL_STEPS}")
+    rt = gather(pg, rt)
+    if not np.allclose(rt, rr, rtol=1e-4, atol=1e-9):
+        fail(f"pagerank_tol: max abs diff {np.abs(rt - rr).max()} from the "
+             f"float64 power iteration")
+    # BlockRank against the port's run of it on the CPU, where every kernel
+    # is its plain version: same blocks, supersteps and ranks
+    rb, tb, info = res["blockrank"]
+    t0 = time.perf_counter()
+    rc, tc, info_c = algorithms.blockrank(pg, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if info["num_meta"] != info_c["num_meta"] or not np.allclose(
+            info["blockrank"], info_c["blockrank"], rtol=1e-12, atol=0.0):
+        fail("blockrank: the block ranks differ from the CPU run's")
+    if tb.supersteps != tc.supersteps:
+        fail(f"blockrank: {tb.supersteps} supersteps, {tc.supersteps} on "
+             f"the CPU")
+    rel = np.abs(rb - rc)[pg.vmask] / rc[pg.vmask]
+    if not np.allclose(rb, rc, rtol=1e-4, atol=0.0):
+        fail(f"blockrank: max relative diff {rel.max()} from the CPU run")
+    log(f"staged path checks: dense = fused for cc/sssp/bfs, compact = "
+        f"dense, vertex mode = scipy; pagerank_dense max abs diff "
+        f"{np.abs(r - truth['pagerank']).max():.3e}; pagerank_tol (tol "
+        f"{tol:.6e}) halted after {tt.supersteps} supersteps as the power "
+        f"iteration does, max abs diff {np.abs(rt - rr).max():.3e}; "
+        f"blockrank ({info['num_meta']} blocks, {tb.supersteps} supersteps) "
+        f"max rel diff {rel.max():.3e} from its CPU run ({cpu_s:.1f} s) — "
+        f"all agree")
+
+
 def breakdown(pg, upg, src):
-    """Where one warm run's time goes, per algorithm: the engine's set-up
-    (graph block upload and mailbox compose), then the BSP loop, and inside
-    it the kernel's own device time, by CUDA events around every call of
-    the superstep (K3) or of the pull (K1). The rest of the loop is the
-    plain PyTorch ops around the kernel and the per-superstep halt read."""
+    """Where one warm run's time goes, per run: the engine's set-up (graph
+    block upload, then the mailbox compose on the fused route or the flat
+    adjacency on the staged one), then the BSP loop, and inside it the
+    kernels' time by CUDA events around every call of the superstep (K3),
+    the pull (K1), the masked sweep (K2) and the pack (K5). Where the host
+    is the bottleneck, as on the staged route, an event pair also holds the
+    host's time to enqueue the call, so the kernel share is an upper
+    bound (phase 5 gives each kernel's device time). The rest of the loop
+    is the plain PyTorch ops around the kernels and the host reads of the
+    halt vote (and, on the staged route, of each sweep's "frontier left"
+    flag). The profiler is not used here: around a whole run on the H100
+    it slowed the loop by an order of magnitude and lost launches."""
     import torch
     from repro_torch.core import (GopherEngine, PageRankProgram,
                                   SemiringProgram, init_max_vertex,
@@ -296,52 +590,72 @@ def breakdown(pg, upg, src):
     from repro_torch.kernels import ops
 
     loc = (int(pg.part_of[src]), int(pg.local_of[src]))
+    cc = SemiringProgram("max_first", init_max_vertex)
+    sssp = SemiringProgram("min_plus", make_sssp_init(*loc))
+    k3, k1 = [(mega, "megastep_semiring")], [(ops, "semiring_spmv")]
+    k2 = [(ops, "semiring_spmv_frontier")]
     cases = {
-        "cc": (pg, SemiringProgram("max_first", init_max_vertex), mega,
-               "megastep_semiring"),
-        "sssp": (pg, SemiringProgram("min_plus", make_sssp_init(*loc)),
-                 mega, "megastep_semiring"),
-        "bfs": (upg, SemiringProgram("min_plus", make_bfs_init(*loc)), mega,
-                "megastep_semiring"),
+        "cc": (pg, cc, "auto", k3),
+        "sssp": (pg, sssp, "auto", k3),
+        "bfs": (upg, SemiringProgram("min_plus", make_bfs_init(*loc)),
+                "auto", k3),
         "pagerank": (pg, PageRankProgram(n_global=pg.n_global,
-                                         num_iters=30), ops,
-                     "semiring_spmv"),
+                                         num_iters=30), "auto", k1),
+        "cc_dense": (pg, cc, "dense", k2),
+        "sssp_dense": (pg, sssp, "dense", k2),
+        "cc_compact": (pg, cc, "compact", k2 + [(ops, "outbox_pack")]),
+        "cc_vertex": (pg, SemiringProgram("max_first", init_max_vertex,
+                                          max_local_iters=1), "dense", k1),
+        "sssp_vertex": (pg, SemiringProgram("min_plus", make_sssp_init(*loc),
+                                            max_local_iters=1), "dense", k1),
     }
-    for name, (graph, prog, module, attr) in cases.items():
-        events = []
-        kernel = getattr(module, attr)
+    for name, (graph, prog, exchange, hooks) in cases.items():
+        events = {attr: [] for _, attr in hooks}
 
-        def timed(*args, _kernel=kernel, **kw):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = _kernel(*args, **kw)
-            end.record()
-            events.append((start, end))
-            return out
+        def timed(kernel, calls):
+            def call(*args, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = kernel(*args, **kw)
+                end.record()
+                calls.append((start, end))
+                return out
+            return call
 
-        eng = GopherEngine(graph, prog, max_supersteps=4096)
+        eng = GopherEngine(graph, prog, max_supersteps=4096,
+                           exchange=exchange)
+        fused = eng.exchange == "megastep"
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        gb, cm = eng._gb_for_run()
+        blocks = eng._gb_for_run() if fused else (eng._gb_for_staged(),)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        setattr(module, attr, timed)
+        saved = [(m, a, getattr(m, a)) for m, a in hooks]
+        for m, a, kernel in saved:
+            setattr(m, a, timed(kernel, events[a]))
         try:
-            _, steps, _ = eng._run_megastep(gb, cm)
+            run = eng._run_megastep if fused else eng._run_batched
+            _, steps, _ = run(*blocks)
             torch.cuda.synchronize()
         finally:
-            setattr(module, attr, kernel)
+            for m, a, kernel in saved:
+                setattr(m, a, kernel)
         t2 = time.perf_counter()
-        if len(events) != steps:     # one kernel call per superstep
-            fail(f"breakdown {name}: {len(events)} timed kernel calls in "
-                 f"{steps} supersteps: the timing hook missed the kernel")
-        kernel_ms = sum(a.elapsed_time(b) for a, b in events)
+        calls = {a: len(ev) for a, ev in events.items()}
+        if fused and calls[hooks[0][1]] != steps:
+            fail(f"breakdown {name}: {calls} timed kernel calls in {steps} "
+                 f"supersteps: the timing hook missed the kernel")
+        if not all(calls.values()):
+            fail(f"breakdown {name}: no timed call of {calls}")
+        kernel_ms = {a: sum(x.elapsed_time(y) for x, y in ev)
+                     for a, ev in events.items()}
+        total = sum(kernel_ms.values())
         log(json.dumps({
-            "breakdown": name, "setup_s": t1 - t0, "loop_s": t2 - t1,
-            "supersteps": steps, "kernel_calls": len(events),
-            "kernel_ms": kernel_ms,
-            "kernel_share_of_loop": kernel_ms / 1e3 / (t2 - t1)}))
+            "breakdown": name, "exchange": eng.exchange,
+            "setup_s": t1 - t0, "loop_s": t2 - t1, "supersteps": steps,
+            "kernel_calls": calls, "kernel_ms": kernel_ms,
+            "kernel_share_of_loop": total / 1e3 / (t2 - t1)}))
 
 
 # ---------------- phase 5: kernel times at the main path's shapes --------
@@ -350,6 +664,7 @@ def kernel_times(dev, pg, path_launches):
     import torch
     from repro_torch.core import (SemiringProgram, graph_block,
                                   init_max_vertex)
+    from repro_torch.kernels import flat
     from repro_torch.kernels import megastep as mega
     from repro_torch.kernels.ref import semiring_spmv_ref
     from repro_torch.kernels.semiring_spmv import semiring_spmv_cuda
@@ -363,12 +678,14 @@ def kernel_times(dev, pg, path_launches):
     deg = gb["out_degree"].reshape(-1).float()
     r0 = torch.where(cm["vmask"], 1.0 / pg.n_global, 0.0)
     x = torch.where(deg > 0, r0 / deg.clamp(min=1.0), 0.0).contiguous()
-    nbr, ones = cm["nbr"], mega.unit_weights(cm)
+    nbr, ones = cm["nbr"], flat.unit_weights(cm)
     got = semiring_spmv_cuda(x, nbr, ones, "plus_times")
     want = semiring_spmv_ref(x, nbr, ones, "plus_times")
     k1_err = compare("plus_times", got, want, "K1 at the main path",
                      rtol=1e-5, atol=0.0)
     k1_ms = cuda_ms(lambda: semiring_spmv_cuda(x, nbr, ones, "plus_times"))
+    k1_dev = device_ms(lambda: semiring_spmv_cuda(x, nbr, ones, "plus_times"),
+                       "spmv_kernel")
     k1_plain = cuda_ms(lambda: semiring_spmv_ref(x, nbr, ones, "plus_times"))
     ok = nbr >= 0
     rows = torch.arange(n, device=dev).repeat_interleave(ok.sum(1))
@@ -377,6 +694,7 @@ def kernel_times(dev, pg, path_launches):
         (n, n)).coalesce().to_sparse_csr()
     xcol = x.reshape(-1, 1)
     lib_ms = cuda_ms(lambda: torch.sparse.mm(csr, xcol))
+    lib_dev = device_ms(lambda: torch.sparse.mm(csr, xcol))
     k1_bytes = n * d * 8 + n * 8
     k1_ops = 2 * n * d
     k1_bound = max(k1_bytes / HBM_BYTES_PER_S, k1_ops / FP32_OPS_PER_S) * 1e3
@@ -401,6 +719,8 @@ def kernel_times(dev, pg, path_launches):
         xs, ch, fr, cm, "max_first"), reps=3)
     k3_plain = cuda_ms(lambda: mega.megastep_semiring_ref(
         xs, ch, fr, cm, "max_first"), reps=3)
+    k3_dev = device_ms(lambda: mega.megastep_semiring_cuda(
+        xs, ch, fr, cm, "max_first"), "megastep_kernel", reps=3)
     m_lo = cm["lo_src"].shape[1]
     m_hi = cm["hub_src"].shape[1]
     hub_rows = int(cm["hub_row_ok"].sum())
@@ -418,22 +738,166 @@ def kernel_times(dev, pg, path_launches):
     log(f"K3 at CC superstep 0: n={n} D={d} sweeps={sweeps} "
         f"bytes/sweep={per_sweep} bound/sweep "
         f"{per_sweep / HBM_BYTES_PER_S * 1e3:.4f} ms, kernel "
-        f"{k3_ms / max(sweeps, 1):.4f} ms/sweep")
+        f"{k3_dev / max(sweeps, 1):.4f} ms/sweep")
 
+    k2 = k2_times(dev, pg, path_launches)
+    k5, k6 = k5_k6_times(dev, pg, path_launches)
     return {"kernels": [
         {"name": "semiring_spmv", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/semiring_spmv.cu",
          "replaces": "src/repro/kernels/semiring_spmv.py:125",
          "launches": path_launches["semiring_spmv"],
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
-         "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": lib_ms},
+         "max_abs_err": k1_err, "ms": k1_dev, "call_ms": k1_ms,
+         "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": "bytes",
+         "library_ms": lib_dev, "library_call_ms": lib_ms},
         {"name": "megastep_semiring", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/megastep.cu",
          "replaces": "src/repro/kernels/megastep.py:622",
          "launches": path_launches["megastep_semiring"],
-         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain,
-         "bound_ms": k3_bound, "bound_by": "bytes", "library_ms": None},
+         "max_abs_err": k3_err, "ms": k3_dev, "call_ms": k3_ms,
+         "plain_ms": k3_plain, "bound_ms": k3_bound, "bound_by": "bytes",
+         "library_ms": None},
+        k2, k5, k6,
     ]}
+
+
+def k2_times(dev, pg, path_launches) -> dict:
+    """K2 at the dense CC run's first sweep (every vertex in the frontier)
+    and at a later sweep of the same fixpoint whose frontier is small."""
+    import torch
+    from repro_torch.core import (GopherEngine, SemiringProgram,
+                                  init_max_vertex)
+    from repro_torch.kernels.ref import semiring_spmv_frontier_ref
+    from repro_torch.kernels.semiring_spmv import semiring_spmv_frontier_cuda
+
+    eng = GopherEngine(pg, SemiringProgram("max_first", init_max_vertex),
+                       exchange="dense")
+    gb = eng._gb_for_staged()
+    st = eng.program.init(gb)
+    inbox = eng.make_exchange(gb)(st)[0]               # the primed inbox
+    x = torch.maximum(st["x"], inbox).reshape(-1).contiguous()
+    vm = gb["vmask"].reshape(-1)
+    f = (st["frontier"].reshape(-1) | ((x != st["x"].reshape(-1)) & vm))
+    nbr, wgt = gb["adj"]["nbr"], gb["adj"]["wgt"]
+    n, d = nbr.shape
+
+    def measure(x, f, what):
+        y, act = semiring_spmv_frontier_cuda(x, f, nbr, wgt, "max_first")
+        wy, wact = semiring_spmv_frontier_ref(x, f, nbr, wgt, "max_first")
+        torch.cuda.synchronize()
+        err = compare("max_first", y, wy, f"K2 at {what} y")
+        compare("bool", act, wact, f"K2 at {what} row_active")
+        ms = cuda_ms(lambda: semiring_spmv_frontier_cuda(x, f, nbr, wgt,
+                                                         "max_first"))
+        plain = cuda_ms(lambda: semiring_spmv_frontier_ref(x, f, nbr, wgt,
+                                                           "max_first"))
+        dev_ms = device_ms(lambda: semiring_spmv_frontier_cuda(
+            x, f, nbr, wgt, "max_first"), "spmv_frontier_kernel")
+        # bytes the sweep must move: every index and frontier byte, y and
+        # row_active once, and x at the distinct neighbours of active rows
+        # (max_first reads no weights)
+        ok = nbr[act] >= 0
+        x_read = int(torch.unique(nbr[act][ok]).numel())
+        nbytes = n * d * 4 + n + n * 5 + x_read * 4
+        ops_ = int(ok.sum())                  # one max per gathered lane
+        bound = max(nbytes / HBM_BYTES_PER_S, ops_ / FP32_OPS_PER_S) * 1e3
+        return {"ms": dev_ms, "call_ms": ms, "plain_ms": plain,
+                "bound_ms": bound,
+                "max_abs_err": err, "frontier": int(f.sum()),
+                "active_rows": int(act.sum()), "bytes": nbytes}
+
+    first = measure(x, f, "the dense CC run's first sweep")
+    sweeps = 0
+    while int(f.sum()) > n // 100:     # walk the fixpoint to a 1 % frontier
+        y, _ = semiring_spmv_frontier_cuda(x, f, nbr, wgt, "max_first")
+        x2 = torch.maximum(x, y)
+        f = (x2 != x) & vm
+        x = x2
+        sweeps += 1
+        if not bool(f.any()):
+            fail("K2: the fixpoint ended before its frontier fell to 1 %")
+    small = measure(x, f, f"sweep {sweeps} (small frontier)")
+    small["sweep"] = sweeps
+    log(f"K2 first sweep {first}; sweep {sweeps} {small}")
+    return {"name": "semiring_spmv_frontier", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/semiring_spmv.cu",
+            "replaces": "src/repro/kernels/semiring_spmv.py:85",
+            "launches": path_launches["semiring_spmv_frontier"],
+            "max_abs_err": max(first["max_abs_err"], small["max_abs_err"]),
+            "ms": first["ms"], "call_ms": first["call_ms"],
+            "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "small_frontier": small}
+
+
+def k5_k6_times(dev, pg, path_launches):
+    """K5 and K6 at the compact CC run's first pack (the inbox prime: every
+    vertex sends), R = P·P rows of cap slots."""
+    import torch
+    from repro_torch.core import (GopherEngine, SemiringProgram,
+                                  init_max_vertex)
+    from repro_torch.core import messages as msg
+    from repro_torch.kernels.outbox_compact import (outbox_compact_plan_cuda,
+                                                    outbox_pack_cuda)
+    from repro_torch.kernels.ref import (outbox_compact_plan_ref,
+                                         outbox_pack_ref)
+
+    eng = GopherEngine(pg, SemiringProgram("max_first", init_max_vertex),
+                       exchange="compact")
+    gb = eng._gb_for_staged()
+    vals, send = eng.program.messages(eng.program.init(gb), gb)
+    P, cap = pg.num_parts, pg.mailbox_cap
+    R = P * P
+    sv = msg.build_outbox_gather(vals, send, gb["ob_inv"], P, cap,
+                                 "max").reshape(R, cap).contiguous()
+    act = msg.active_slots(send, gb["ob_inv"], P, cap).reshape(R, cap) \
+        .contiguous()
+    lim = torch.full((R,), cap, dtype=torch.int32, device=dev)
+    ident = float("-inf")
+    for a, b in zip(outbox_pack_cuda(sv, act, lim, ident),
+                    outbox_pack_ref(sv, act, lim, ident)):
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            fail("K5 at the compact CC run's first pack differs")
+    for a, b in zip(outbox_compact_plan_cuda(act),
+                    outbox_compact_plan_ref(act)):
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            fail("K6 at the compact CC run's first pack differs")
+    k5_ms = cuda_ms(lambda: outbox_pack_cuda(sv, act, lim, ident))
+    k5_plain = cuda_ms(lambda: outbox_pack_ref(sv, act, lim, ident))
+    k6_ms = cuda_ms(lambda: outbox_compact_plan_cuda(act))
+    k6_plain = cuda_ms(lambda: outbox_compact_plan_ref(act))
+    k5_dev = device_ms(lambda: outbox_pack_cuda(sv, act, lim, ident),
+                       "pack_kernel")
+    k6_dev = device_ms(lambda: outbox_compact_plan_cuda(act), "pack_kernel")
+    # K5 reads the mask (1 B) a slot, the value (4 B) of each kept slot only
+    # and the budget (4 B) a row, writes pvals, sids and pinv (12 B) a slot
+    # and counts and over (8 B) a row; K6 reads the mask, writes pfwd and
+    # pinv and the counts
+    n_act = int(act.sum())
+    k5_bytes = R * cap * 13 + 4 * n_act + R * 12
+    k6_bytes = R * cap * 9 + R * 4
+    log(f"K5/K6 at R={R} cap={cap}: {n_act} active slots; K5 "
+        f"{k5_ms:.4f} ms a call, {k5_dev:.4f} ms on the device ({k5_bytes} "
+        f"B); K6 {k6_ms:.4f} ms a call, {k6_dev:.4f} ms on the device "
+        f"({k6_bytes} B)")
+    reason = ("no single PyTorch call computes the pack; torch.cumsum "
+              "gives only pinv")
+    common = {"route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/outbox_compact.cu",
+              "max_abs_err": 0.0, "bound_by": "bytes", "library_ms": None,
+              "library_note": reason}
+    return ({"name": "outbox_pack",
+             "replaces": "src/repro/kernels/outbox_compact.py:100",
+             "launches": path_launches["outbox_pack"], "ms": k5_dev,
+             "call_ms": k5_ms, "plain_ms": k5_plain,
+             "bound_ms": k5_bytes / HBM_BYTES_PER_S * 1e3, **common},
+            {"name": "outbox_compact_plan",
+             "replaces": "src/repro/kernels/outbox_compact.py:135",
+             "launches": path_launches["outbox_compact_plan"], "ms": k6_dev,
+             "call_ms": k6_ms, "plain_ms": k6_plain,
+             "bound_ms": k6_bytes / HBM_BYTES_PER_S * 1e3, **common})
 
 
 def main() -> None:
@@ -446,7 +910,9 @@ def main() -> None:
     _build.library()
     log(f"build: {time.perf_counter() - t:.1f}s")
     check_k1(dev)
+    check_k2(dev)
     check_k3(dev)
+    check_k5_k6(dev)
     pg, path_launches = main_path(dev)
     kernels = kernel_times(dev, pg, path_launches)
     print(json.dumps(kernels), flush=True)

@@ -22,9 +22,10 @@ def connected_components(pg: PartitionedGraph, mode: str = "subgraph",
                          device="cuda"):
     """Returns (labels (P, v_max) int64 — component id = max global vertex id
     in the component, -1 on pad slots —, num_components, Telemetry)."""
-    check_options(mode, spmv_backend)
-    prog = SemiringProgram(semiring="max_first", init_fn=init_max_vertex,
-                           max_local_iters=max_local_iters)
+    check_options(spmv_backend)
+    prog = SemiringProgram(
+        semiring="max_first", init_fn=init_max_vertex,
+        max_local_iters=(max_local_iters if mode == "subgraph" else 1))
     eng = GopherEngine(pg, prog, backend=backend, mesh=mesh, device=device)
     state, tele = eng.run()
     labels = np.where(pg.vmask, state["x"], -1).astype(np.int64)

@@ -21,12 +21,12 @@ def sssp(pg: PartitionedGraph, source_global: int, mode: str = "subgraph",
          spmv_backend: Optional[str] = None,
          max_local_iters: Optional[int] = None, device="cuda"):
     """Returns (distances (P, v_max) float32, inf = unreachable, Telemetry)."""
-    check_options(mode, spmv_backend)
+    check_options(spmv_backend)
     prog = SemiringProgram(
         semiring="min_plus",
         init_fn=make_sssp_init(int(pg.part_of[source_global]),
                                int(pg.local_of[source_global])),
-        max_local_iters=max_local_iters)
+        max_local_iters=(max_local_iters if mode == "subgraph" else 1))
     eng = GopherEngine(pg, prog, backend=backend, mesh=mesh, device=device)
     state, tele = eng.run()
     dist = state["x"]

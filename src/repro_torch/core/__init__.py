@@ -5,10 +5,13 @@ from repro_torch.core.engine import GopherEngine, Telemetry, resolve_device
 from repro_torch.core.programs import (PageRankProgram, SemiringProgram,
                                        init_max_vertex, make_bfs_init,
                                        make_sssp_init)
+from repro_torch.core.subgraph import (meta_diameter, meta_graph,
+                                       subgraph_sizes, vertex_diameter)
 
 __all__ = [
     "GopherEngine", "Telemetry", "resolve_device", "graph_block",
     "host_graph_block", "device_block",
     "SemiringProgram", "PageRankProgram",
     "init_max_vertex", "make_sssp_init", "make_bfs_init",
+    "meta_graph", "meta_diameter", "vertex_diameter", "subgraph_sizes",
 ]

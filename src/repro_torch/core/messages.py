@@ -1,0 +1,188 @@
+"""Mailbox message routing — the superstep-boundary exchange.
+
+The port of the JAX package's ``core/messages.py`` for the ``local``
+backend. A mailbox is a fixed-capacity (P_src, P_dst, cap) tensor; on one
+device the route between partitions is a transpose, and each partition's
+inbox is a ⊕-combine of the slots it receives. Capacity is the most
+messages between any partition pair, fixed by GoFS at build time, and
+empty slots carry the combine identity.
+
+Every function works on the whole (P, ...) batch of partitions at once:
+the JAX package ``vmap``s its per-partition forms, the port writes the
+leading partition axis out.
+
+- :func:`build_outbox_gather` / :func:`combine_inbox_gather` are the hot
+  path: both ends are gathers through the inverse maps of the graph block.
+  Their scatter forms :func:`build_outbox` / :func:`combine_inbox` stay as
+  the oracles the gather forms are tested against.
+- :func:`build_outbox_compact` / :func:`unpack_slots` are the compact
+  exchange: each pair row is packed to the prefix of its active slots
+  (``kernels.ops.outbox_pack``, kernel K5 on the card) and rebuilt at the
+  receiver by a gather, bit-identical to the dense exchange.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.gofs.formats import PAD
+from repro_torch.kernels import ops
+from repro_torch.kernels.flat import COMBINE_IDENTITY, combine_reduce
+
+_SCATTER = {"min": "amin", "max": "amax", "sum": "sum"}
+
+
+def _take(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-partition gather: ``out[p, ...] = src[p, idx[p, ...]]`` for a
+    (P, m) ``src`` and a (P, ...) index tensor with no PAD left in it."""
+    P = src.shape[0]
+    return torch.gather(src, 1, idx.reshape(P, -1).long()).reshape(idx.shape)
+
+
+# ---------------- scatter oracles ----------------
+
+def build_outbox(vals, re_src, re_dst_part, re_dst_local, re_slot, send_mask,
+                 num_parts: int, cap: int, combine: str):
+    """Scatter each partition's per-remote-edge values into its
+    (P_dst, cap) outbox. ``vals``/``send_mask`` and the ``re_*`` maps are
+    (P, r_max). Returns (out_vals, out_idx), each (P, P_dst, cap): the
+    value and the destination-local vertex of every slot (PAD if empty)."""
+    ident = COMBINE_IDENTITY[combine]
+    P = vals.shape[0]
+    valid = (re_src != PAD) & send_mask
+    flat = torch.where(valid, re_dst_part.long() * cap + re_slot.long(),
+                       num_parts * cap)                 # OOB -> dropped
+    out_vals = torch.full((P, num_parts * cap + 1), ident, dtype=vals.dtype,
+                          device=vals.device)
+    out_idx = torch.full((P, num_parts * cap + 1), PAD, dtype=torch.int32,
+                         device=vals.device)
+    out_vals.scatter_(1, flat, torch.where(valid, vals, ident))
+    out_idx.scatter_(1, flat, torch.where(valid, re_dst_local, PAD).int())
+    return (out_vals[:, :-1].reshape(P, num_parts, cap),
+            out_idx[:, :-1].reshape(P, num_parts, cap))
+
+
+def combine_inbox(in_vals, in_idx, v_max: int, combine: str):
+    """Segment-⊕ the received (P, num_src, cap) slots into a dense
+    (P, v_max) inbox; PAD slots are dropped."""
+    P = in_vals.shape[0]
+    idx = in_idx.reshape(P, -1)
+    idx = torch.where(idx == PAD, v_max, idx).long()
+    out = torch.full((P, v_max + 1), COMBINE_IDENTITY[combine],
+                     dtype=in_vals.dtype, device=in_vals.device)
+    out.scatter_reduce_(1, idx, in_vals.reshape(P, -1), _SCATTER[combine],
+                        include_self=True)
+    return out[:, :v_max]
+
+
+# ---------------- gather-form mailbox (the hot path) ----------------
+
+def build_outbox_gather(vals, send_mask, ob_inv, num_parts: int, cap: int,
+                        combine: str):
+    """Gather-form outbox: each of a partition's P·cap slots pulls its
+    remote edge's value, or the identity when the slot is empty or its
+    source is not in the send set. ``vals``/``send_mask`` (P, r_max),
+    ``ob_inv`` (P, P·cap). Returns (P, P_dst, cap)."""
+    ident = COMBINE_IDENTITY[combine]
+    P = vals.shape[0]
+    masked = torch.where(send_mask, vals, ident)
+    valid = ob_inv != PAD
+    got = _take(masked, torch.where(valid, ob_inv, 0))
+    return torch.where(valid, got, ident).reshape(P, num_parts, cap)
+
+
+def combine_inbox_gather(in_vals, ib_lo, ib_hub_idx, ib_hub, v_max: int,
+                         combine: str):
+    """Gather-form inbox combine: received (P, num_src, cap) slots ->
+    (P, v_max). Each vertex pulls its feed list (``ib_lo``) and reduces it;
+    the few hub receivers (``ib_hub_idx``, feeds ``ib_hub``) merge back by a
+    ``scatter_reduce_`` onto a (P, v_max + 1) buffer whose last column
+    takes the PAD entries."""
+    ident = COMBINE_IDENTITY[combine]
+    P = in_vals.shape[0]
+    flat = in_vals.reshape(P, -1)
+
+    def pull(m):
+        valid = m != PAD
+        return torch.where(valid, _take(flat, torch.where(valid, m, 0)),
+                           ident)
+
+    y = combine_reduce(combine, pull(ib_lo), -1)        # (P, v_max)
+    yh = combine_reduce(combine, pull(ib_hub), -1)      # (P, hr_max)
+    idx = torch.where(ib_hub_idx != PAD, ib_hub_idx, v_max).long()
+    out = torch.cat([y, y.new_full((P, 1), ident)], dim=1)
+    out.scatter_reduce_(1, idx, yh, _SCATTER[combine], include_self=True)
+    return out[:, :v_max]
+
+
+# ---------------- the compact exchange ----------------
+
+def active_slots(send_mask, ob_inv, num_parts: int, cap: int):
+    """(P, P_dst, cap) bool: the outbox slots whose source vertex is in the
+    send set this superstep."""
+    if send_mask.dim() != 2:
+        raise NotImplementedError(
+            "query-batched send masks are not ported yet: ROADMAP A5 "
+            "(serving)")
+    P = send_mask.shape[0]
+    valid = ob_inv != PAD
+    act = _take(send_mask, torch.where(valid, ob_inv, 0))
+    return (valid & act).reshape(P, num_parts, cap)
+
+
+def build_outbox_compact(vals, send_mask, ob_inv, num_parts: int, cap: int,
+                         combine: str):
+    """Frontier-compacted outbox. Returns (pvals (P, P_dst, cap), pinv
+    (P, P_dst, cap) int32, counts (P, P_dst) int32): per pair row the
+    packed prefix of active slot values, the slot -> prefix position map,
+    and the prefix length (the wire header). The pack is
+    ``kernels.ops.outbox_pack`` over the P·P rows at once."""
+    ident = COMBINE_IDENTITY[combine]
+    P = vals.shape[0]
+    slot_vals = build_outbox_gather(vals, send_mask, ob_inv, num_parts, cap,
+                                    combine)
+    active = active_slots(send_mask, ob_inv, num_parts, cap)
+    R = P * num_parts
+    full = torch.full((R,), cap, dtype=torch.int32, device=vals.device)
+    pvals, _, pinv, counts, _ = ops.outbox_pack(
+        slot_vals.reshape(R, cap), active.reshape(R, cap), full, ident)
+    return (pvals.reshape(P, num_parts, cap), pinv.reshape(P, num_parts, cap),
+            counts.reshape(P, num_parts))
+
+
+def unpack_slots(pvals, pinv, combine: str):
+    """Receiver side: packed (P, num_src, cap) prefixes and their slot ->
+    position maps -> the dense slot values the inbox combine expects. A
+    gather; bit-identical to what the dense exchange delivers."""
+    ident = COMBINE_IDENTITY[combine]
+    valid = pinv != PAD
+    got = torch.gather(pvals, 2, torch.where(valid, pinv, 0).long())
+    return torch.where(valid, got, ident)
+
+
+def route_local(outbox_vals):
+    """Local backend: outbox (P_src, P_dst, cap) -> received (P_dst, P_src,
+    cap). With every partition on one device the transpose IS the
+    all_to_all."""
+    return outbox_vals.transpose(0, 1)
+
+
+# ---------------- not ported yet ----------------
+
+def _not_ported(name: str, item: str):
+    def refuse(*args, **kwargs):
+        raise NotImplementedError(f"{name} is not ported yet: ROADMAP {item}")
+    refuse.__name__ = name
+    return refuse
+
+
+build_outbox_gather_batched = _not_ported("build_outbox_gather_batched",
+                                          "A5 (serving)")
+combine_inbox_gather_batched = _not_ported("combine_inbox_gather_batched",
+                                           "A5 (serving)")
+build_outbox_compact_batched = _not_ported("build_outbox_compact_batched",
+                                           "A5 (serving)")
+unpack_slots_batched = _not_ported("unpack_slots_batched", "A5 (serving)")
+route_shard_map = _not_ported("route_shard_map",
+                              "A8 (the multi-device backend)")
+route_tiered = _not_ported("route_tiered",
+                           "A3 (tiers, phased and resident)")

@@ -2,15 +2,27 @@
 
 The paper's ``Compute(Subgraph, Iterator<Message>)`` runs a shared-memory
 algorithm over the sub-graph per superstep; here that is a local-fixpoint
-sweep: a semiring relaxation iterated until the partition's state quiesces
-(``max_local_iters=None``, the sub-graph centric model). The fused
-superstep that executes it lives in ``kernels.megastep``; a program only
-names its semiring and its initial state.
+sweep: a semiring relaxation iterated until the partition's state quiesces.
 
-Programs are frozen dataclasses, as in the JAX package, and ``init`` takes
-the whole (P, ...) graph block of tensors at once. Still to come (ROADMAP):
-the staged ``superstep``/``messages`` methods, the bounded and vertex-
-centric fixpoints, and ``resume`` from a previous fixpoint.
+``max_local_iters`` selects the execution model:
+    None -> run to local fixpoint  (sub-graph centric, Gopher)
+    1    -> one sweep per superstep (vertex centric, the Giraph baseline)
+    k    -> bounded local work
+
+The fused superstep of the sub-graph centric model lives in
+``kernels.megastep``. Every other schedule runs the staged route, whose
+engine calls the methods below on the whole (P, ...) batch at once (the
+JAX package ``vmap``s them per partition):
+
+    init(gb)                          -> state dict of (P, v_max) tensors
+    superstep(state, inbox, gb, step) -> (state, changed (P,), liters (P,))
+    messages(state, gb)               -> (vals (P, r_max), send (P, r_max))
+    combine                           -> inbox ⊕: 'min' | 'max' | 'sum'
+
+The staged sweeps run over the flat (P·v_max,) state and the block's flat
+adjacency ``gb["adj"]`` (``kernels.flat.flat_adjacency``): one kernel
+launch per sweep for all P partitions. Still to come (ROADMAP A4):
+``resume`` from a previous fixpoint.
 """
 from __future__ import annotations
 
@@ -19,7 +31,18 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.gofs.formats import PAD
+from repro_torch.kernels import flat, ops
+
 INF = float("inf")
+
+
+def _at_remote_src(t: torch.Tensor, gb: dict):
+    """``t[p, re_src[p, e]]`` for every remote edge (PAD edges read slot 0)
+    and the edges' validity, both (P, r_max)."""
+    src = gb["re_src"]
+    valid = src != PAD
+    return torch.gather(t, 1, torch.where(valid, src, 0).long()), valid
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +72,48 @@ class SemiringProgram:
     def init(self, gb) -> dict:
         return {"x": self.init_fn(gb), "changed_v": gb["vmask"].clone(),
                 "frontier": gb["vmask"].clone()}
+
+    def _sweep(self, x, gb):
+        """One unmasked sweep (kernel K1 on the card)."""
+        adj = gb["adj"]
+        y = ops.semiring_spmv(x.reshape(-1), adj["nbr"], adj["wgt"],
+                              self.semiring)
+        return flat.combine_ew(self.combine, x, y.reshape(x.shape))
+
+    def superstep(self, state, inbox, gb, step):
+        x0 = state["x"]
+        vmask = gb["vmask"]
+        x = flat.combine_ew(self.combine, x0, inbox)
+        improved = (x != x0) & vmask        # vertices the mailbox moved
+        # active set = carried frontier (the seed at step 0; leftover work
+        # when a bounded fixpoint hit its cap) ∪ inbox improvements
+        f0 = state["frontier"] | improved
+        P = vmask.shape[0]
+        if self.max_local_iters == 1:
+            # vertex-centric baseline (Giraph): one full sweep, unmasked
+            x2 = self._sweep(x, gb)
+            liters = torch.ones(P, dtype=torch.int32, device=x.device)
+            f_left = torch.zeros_like(vmask)
+        else:
+            # the masked local fixpoint, one kernel K2 launch per sweep
+            cap = (flat.MAX_LOCAL_ITERS if self.max_local_iters is None
+                   else self.max_local_iters)
+            xf, ff, liters = flat.local_fixpoint(
+                x.reshape(-1), f0.reshape(-1), gb["adj"], vmask.reshape(-1),
+                P, self.semiring, self.fixpoint_unroll, cap,
+                sweep=ops.semiring_spmv_frontier)
+            x2, f_left = xf.reshape(x.shape), ff.reshape(x.shape)
+        # the send set: vertices with news this superstep (the engine primed
+        # the first inbox from init's send set, so the seed needs nothing)
+        changed_v = (x2 != x0) & vmask
+        return ({"x": x2, "changed_v": changed_v, "frontier": f_left},
+                changed_v.any(dim=1), liters)
+
+    def messages(self, state, gb):
+        xv, valid = _at_remote_src(state["x"], gb)
+        vals = xv + gb["re_wgt"] if self.semiring == "min_plus" else xv
+        sent, _ = _at_remote_src(state["changed_v"], gb)
+        return vals, valid & sent
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +148,39 @@ class PageRankProgram:
         else:
             r0 = torch.where(vmask, 1.0 / self.n_global, 0.0)
         return {"r": r0.to(torch.float32), "delta": INF}
+
+    def _contrib(self, r, gb):
+        deg = gb["out_degree"].to(torch.float32)
+        return torch.where(deg > 0, r / torch.clamp(deg, min=1.0), 0.0)
+
+    def superstep(self, state, inbox, gb, step):
+        """One Jacobi iteration of every partition. The dangling mass and
+        the ``tol`` delta are GLOBAL: summed per partition, then over all P
+        partitions (the JAX package's ``psum`` over the partition axis)."""
+        vmask = gb["vmask"]
+        r = state["r"]
+        P = vmask.shape[0]
+        pull = flat.sweep_flat_dense(self._contrib(r, gb).reshape(-1),
+                                     gb["adj"]).reshape(r.shape)
+        tele = (self.teleport_fn(gb) if self.teleport_fn is not None
+                else 1.0 / self.n_global)
+        dangling = torch.where(vmask & (gb["out_degree"] == 0), r, 0.0) \
+            .sum(dim=1).sum()
+        r_new = torch.where(
+            vmask,
+            (1.0 - self.damping) * tele
+            + self.damping * (pull + inbox + dangling * tele), 0.0)
+        delta = (r_new - r).abs().sum(dim=1).sum()
+        more = step + 1 < self.num_iters
+        if self.tol is not None:
+            changed = (delta > self.tol) & more
+        else:
+            changed = torch.tensor(more, device=r.device)
+        return ({"r": r_new, "delta": delta.expand(P)}, changed.expand(P),
+                torch.ones(P, dtype=torch.int32, device=r.device))
+
+    def messages(self, state, gb):
+        return _at_remote_src(self._contrib(state["r"], gb), gb)
 
 
 # ---------------- init helpers ----------------

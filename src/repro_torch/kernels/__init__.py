@@ -1,13 +1,23 @@
 """Hand-written Hopper kernels (CUDA C++ under ``csrc/``), each with its
-plain PyTorch version: K1 ``semiring_spmv`` and K3 ``megastep_semiring``."""
+plain PyTorch version: K1 ``semiring_spmv``, K2 ``semiring_spmv_frontier``,
+K3 ``megastep_semiring``, K5 ``outbox_pack`` and K6
+``outbox_compact_plan``."""
 from repro_torch.kernels.megastep import (megastep_semiring,
                                           megastep_semiring_cuda,
                                           megastep_semiring_ref)
-from repro_torch.kernels.ops import semiring_spmv
-from repro_torch.kernels.ref import (semiring_spmv_frontier_ref,
+from repro_torch.kernels.ops import (outbox_compact_plan, outbox_pack,
+                                     semiring_spmv, semiring_spmv_frontier)
+from repro_torch.kernels.outbox_compact import (outbox_compact_plan_cuda,
+                                                outbox_pack_cuda)
+from repro_torch.kernels.ref import (outbox_compact_plan_ref, outbox_pack_ref,
+                                     semiring_spmv_frontier_ref,
                                      semiring_spmv_ref)
-from repro_torch.kernels.semiring_spmv import semiring_spmv_cuda
+from repro_torch.kernels.semiring_spmv import (semiring_spmv_cuda,
+                                               semiring_spmv_frontier_cuda)
 
 __all__ = ["semiring_spmv", "semiring_spmv_ref", "semiring_spmv_cuda",
-           "semiring_spmv_frontier_ref", "megastep_semiring",
-           "megastep_semiring_ref", "megastep_semiring_cuda"]
+           "semiring_spmv_frontier", "semiring_spmv_frontier_ref",
+           "semiring_spmv_frontier_cuda", "megastep_semiring",
+           "megastep_semiring_ref", "megastep_semiring_cuda", "outbox_pack",
+           "outbox_pack_ref", "outbox_pack_cuda", "outbox_compact_plan",
+           "outbox_compact_plan_ref", "outbox_compact_plan_cuda"]

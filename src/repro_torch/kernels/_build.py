@@ -28,7 +28,9 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
-launches = {"semiring_spmv": 0, "megastep_semiring": 0}
+launches = {"semiring_spmv": 0, "semiring_spmv_frontier": 0,
+            "megastep_semiring": 0, "outbox_pack": 0,
+            "outbox_compact_plan": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -117,6 +119,18 @@ def _declare(lib) -> None:
     # (x, nbr, wgt, y, rows, d, semiring, device, stream)
     lib.semiring_spmv_launch.argtypes = [vp] * 4 + [i32] * 4 + [vp]
     lib.semiring_spmv_launch.restype = i32
+    # (x, frontier, nbr, wgt, y, row_active, rows, d, semiring, device,
+    #  stream)
+    lib.semiring_spmv_frontier_launch.argtypes = [vp] * 6 + [i32] * 4 + [vp]
+    lib.semiring_spmv_frontier_launch.restype = i32
+    # (active, vals, limit, pvals, sids, pinv, counts, over, rows, cap,
+    #  ident, device, stream)
+    lib.outbox_pack_launch.argtypes = ([vp] * 8 + [i32] * 2
+                                       + [ctypes.c_float, i32, vp])
+    lib.outbox_pack_launch.restype = i32
+    # (active, pfwd, pinv, counts, rows, cap, device, stream)
+    lib.outbox_compact_plan_launch.argtypes = [vp] * 4 + [i32] * 3 + [vp]
+    lib.outbox_compact_plan_launch.restype = i32
     # (14 inputs, 7 outputs and scratch; n, d, m_lo, m_hi, num_parts,
     #  v_max, unroll, min_plus, device; stream)
     lib.megastep_semiring_launch.argtypes = [vp] * 21 + [i32] * 9 + [vp]

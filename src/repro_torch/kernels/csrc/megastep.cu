@@ -31,7 +31,7 @@
 //    writes slot (k+1)%3 and clears slot (k+2)%3, the slot every block
 //    finished reading before the previous barrier. With two slots a fast
 //    block would clear a flag a slow block has not read yet.
-//  * `act` follows megastep.py's sweep_flat: a row with no active
+//  * `act` follows ref.py's semiring_spmv_frontier_ref: a row with no active
 //    in-neighbour yields the identity, not its recomputed value.
 //  * The identities are ±inf and `x2 != xc` is a float compare; min/max are
 //    plain compares (no NaN reaches them), and the only arithmetic on an
@@ -126,7 +126,7 @@ __device__ __forceinline__ void flush_block_flags(const int* sflag, int* g,
     if (sflag[i]) g[i] = 1;  // every writer stores 1: a benign race
 }
 
-// one Jacobi row update of the masked sweep (megastep.py sweep_flat)
+// one Jacobi row update of the masked sweep (ref.py semiring_spmv_frontier_ref)
 template <bool MINP>
 __device__ __forceinline__ void sweep_row(const Args& a, int64_t v,
                                           const float* xc, const uint8_t* fc,

@@ -6,18 +6,17 @@ The port of the JAX package's ``kernels/megastep.py`` for scalar programs:
   (remote edge -> outbox slot via ``ob_inv``, slot -> wire, wire -> inbox
   feed via ``ib_lo``/``ib_hub``) into direct gather maps from each
   destination vertex's feed lanes to the SOURCE vertex's flat state index,
-  once per run. It also flattens the local adjacency once: ``nbr`` holds
-  flat state indices with PAD lanes kept PAD, read by the masked sweep
-  (with ``wgt``) and by PageRank's pull through ``ops`` (with the unit
-  weights of :func:`unit_weights`, made only when PageRank asks).
+  once per run. It also holds the flat local adjacency
+  (``kernels.flat.flat_adjacency``, which the staged route sweeps too),
+  read by the masked sweep and by PageRank's pull.
 - :func:`megastep_semiring` runs one superstep: frontier-gated mailbox
   delivery, inbox ⊕-combine, the masked local fixpoint and the new send
   set. On a CUDA tensor it is ONE launch of kernel K3
   (``csrc/megastep.cu``, :func:`megastep_semiring_cuda`); on a CPU tensor
-  it is the plain :func:`megastep_semiring_ref`, a Python ``while`` over
-  :func:`sweep_flat`.
+  it is the plain :func:`megastep_semiring_ref`, whose fixpoint is
+  ``kernels.flat.local_fixpoint`` over the plain masked sweep.
 - :func:`megastep_pagerank` is one PageRank superstep; its pull is
-  ``ops.semiring_spmv(..., "plus_times")``, kernel K1 on the card.
+  ``kernels.flat.sweep_flat_dense``, kernel K1 on the card.
 
 Exactness: for idempotent ⊕ (min/max) every value is a ⊕-fold of the same
 multiset of path sums, and float32 min/max are order-independent, so the
@@ -29,31 +28,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.gofs.formats import PAD
-from repro_torch.kernels import _build, ops
-
-INF = float("inf")
-_IDENT = {"min": INF, "max": -INF, "sum": 0.0}
-_KIDENT = {"min_plus": INF, "max_first": -INF}
-_MAX_IT = 2 ** 30
-
-
-def _reduce(combine: str, t: torch.Tensor, dim: int) -> torch.Tensor:
-    if combine == "sum":
-        return t.sum(dim=dim)
-    return t.amin(dim=dim) if combine == "min" else t.amax(dim=dim)
-
-
-def _ew(combine: str, a, b):
-    if combine == "sum":
-        return a + b
-    return torch.minimum(a, b) if combine == "min" else torch.maximum(a, b)
-
-
-def _combine_of(semiring: str) -> str:
-    if semiring not in _KIDENT:
-        raise ValueError(f"megastep needs an idempotent semiring, got "
-                         f"{semiring}")
-    return "min" if semiring == "min_plus" else "max"
+from repro_torch.kernels import _build
+from repro_torch.kernels.flat import (COMBINE_IDENTITY, combine_ew,
+                                      combine_reduce, flat_adjacency,
+                                      idempotent_combine, local_fixpoint,
+                                      sweep_flat_dense)
 
 
 # ---------------- composed routing maps ----------------
@@ -137,11 +116,6 @@ def compose_mailbox(gb: dict) -> dict:
     edge_cnt = torch.bincount((p1 * v_max + re_src)[e_ok],
                               minlength=n).float()
 
-    # the local adjacency as flat state indices; PAD lanes stay PAD (every
-    # reader tests idx >= 0), so one array serves the sweep and the pull
-    nbr = gb["nbr"]
-    flat = torch.where(nbr != PAD, parts[:, None, None].int() * v_max + nbr,
-                       PAD).reshape(n, -1)
     return {
         "num_parts": P, "v_max": v_max, "cap": cap, "n": n,
         "vmask": vmask.reshape(-1).contiguous(),
@@ -153,19 +127,8 @@ def compose_mailbox(gb: dict) -> dict:
         "hub_w": hub_w.reshape(P * hr_max, m_hi).contiguous(),
         "hub_row": hub_row.contiguous(), "hub_row_ok": hub_row_ok,
         "vdst": vdst.contiguous(), "edge_cnt": edge_cnt,
-        "nbr": flat.int().contiguous(),
-        "wgt": gb["wgt"].reshape(n, -1).contiguous(),
+        **flat_adjacency(gb),
     }
-
-
-def unit_weights(cm: dict) -> torch.Tensor:
-    """Unit edge weights over the flat adjacency, for PageRank's pull: made
-    on first use and kept with the mailbox, so the semiring programs never
-    hold them."""
-    if "ones" not in cm:
-        cm["ones"] = torch.ones(cm["nbr"].shape, dtype=torch.float32,
-                                device=cm["nbr"].device)
-    return cm["ones"]
 
 
 # ---------------- fused mailbox delivery ----------------
@@ -176,7 +139,7 @@ def deliver_flat(vals: torch.Tensor, live, cm: dict, combine: str,
     gather + lane reduce over the composed maps. ``vals`` is the (n,)
     per-source message value (pre-⊗ except the edge weight); ``live`` gates
     sends (None = unconditional, PageRank-style)."""
-    ident = _IDENT[combine]
+    ident = COMBINE_IDENTITY[combine]
 
     def pull(src, ok, w):
         g = vals[src]
@@ -186,10 +149,12 @@ def deliver_flat(vals: torch.Tensor, live, cm: dict, combine: str,
             ok = ok & live[src]
         return torch.where(ok, g, ident)
 
-    y = _reduce(combine, pull(cm["lo_src"], cm["lo_ok"], cm["lo_w"]), -1)
-    yh = _reduce(combine, pull(cm["hub_src"], cm["hub_ok"], cm["hub_w"]), -1)
+    y = combine_reduce(combine, pull(cm["lo_src"], cm["lo_ok"], cm["lo_w"]),
+                       -1)
+    yh = combine_reduce(combine, pull(cm["hub_src"], cm["hub_ok"],
+                                      cm["hub_w"]), -1)
     hub = torch.where(cm["hub_row_ok"], yh[cm["hub_row"]], ident)
-    return _ew(combine, y, hub)
+    return combine_ew(combine, y, hub)
 
 
 def round_stats(changed, cm: dict):
@@ -207,30 +172,6 @@ def round_stats(changed, cm: dict):
     return pairs.reshape(P, P).int(), nsent.int()
 
 
-# ---------------- flat sweeps ----------------
-
-def sweep_flat(x: torch.Tensor, f: torch.Tensor, cm: dict,
-               semiring: str) -> torch.Tensor:
-    """Frontier-masked ELL sweep over the flattened adjacency: a row with no
-    active in-neighbour yields the identity (row for row the math of
-    ``ref.semiring_spmv_frontier_ref``)."""
-    idx = cm["nbr"]
-    ok = idx >= 0
-    g = x[idx]          # a PAD lane (-1) gathers the last entry; ok masks it
-    act = (ok & f[idx]).any(dim=1)
-    if semiring == "min_plus":
-        y = torch.where(ok, g + cm["wgt"], INF).amin(dim=1)
-    else:
-        y = torch.where(ok, g, -INF).amax(dim=1)
-    return torch.where(act, y, _KIDENT[semiring])
-
-
-def sweep_flat_dense(x: torch.Tensor, cm: dict) -> torch.Tensor:
-    """Unmasked plus_times sweep with unit weights over the flat adjacency
-    (PageRank's pull): ``ops.semiring_spmv``, so kernel K1 on the card."""
-    return ops.semiring_spmv(x, cm["nbr"], unit_weights(cm), "plus_times")
-
-
 # ---------------- the fused superstep ----------------
 
 def megastep_semiring_ref(x, changed, frontier, cm: dict, semiring: str,
@@ -239,21 +180,13 @@ def megastep_semiring_ref(x, changed, frontier, cm: dict, semiring: str,
     ⊕-combine, run the masked local fixpoint, emit the new send set.
     Returns ``(x2, changed2, f_left, liters)``; liters (P,) int32 counts the
     sweeps each partition was active for, ``unroll`` per loop trip."""
-    combine = _combine_of(semiring)
+    combine = idempotent_combine(semiring)
     vm = cm["vmask"]
-    P = cm["num_parts"]
     inbox = deliver_flat(x, changed, cm, combine, semiring == "min_plus")
-    xc = _ew(combine, x, inbox)
+    xc = combine_ew(combine, x, inbox)
     f = frontier | ((xc != x) & vm)
-    li = torch.zeros(P, dtype=torch.int32, device=x.device)
-    it = 0
-    while it < _MAX_IT and bool(f.any()):
-        li = li + unroll * f.reshape(P, -1).any(dim=1).int()
-        for _ in range(unroll):
-            x2 = _ew(combine, xc, sweep_flat(xc, f, cm, semiring))
-            f = (x2 != xc) & vm
-            xc = x2
-        it += unroll
+    xc, f, li = local_fixpoint(xc, f, cm, vm, cm["num_parts"], semiring,
+                               unroll)
     return xc, (xc != x) & vm, f, li
 
 
@@ -268,7 +201,7 @@ def megastep_semiring_cuda(x, changed, frontier, cm: dict, semiring: str,
                            unroll: int = 1):
     """The fused superstep as ONE cooperative launch of kernel K3 — same
     contract and bits as :func:`megastep_semiring_ref`."""
-    _combine_of(semiring)
+    idempotent_combine(semiring)
     if unroll < 1:
         raise ValueError("unroll must be >= 1")
     if not x.is_cuda:

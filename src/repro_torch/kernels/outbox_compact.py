@@ -1,0 +1,75 @@
+"""Kernels K5 and K6 — the compact exchange's pack and plan on the card.
+
+``outbox_pack_cuda`` launches K5 in ``csrc/outbox_compact.cu`` (the port of
+the JAX package's Pallas ``outbox_pack_pallas``): per mailbox row the
+compaction plan, truncation at the row's slot budget, the value pack and
+the overflow flag. ``outbox_compact_plan_cuda`` launches K6 (the port of
+``outbox_compact_plan_pallas``): the plan alone. Both are one block per
+row with a hand-written block scan. Their plain versions are
+``kernels.ref.outbox_pack_ref`` and ``outbox_compact_plan_ref``;
+``kernels.ops`` picks between kernel and plain version by the tensors'
+device.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+
+def _check_rows(active: torch.Tensor, what: str):
+    if not active.is_cuda:
+        raise ValueError(f"kernel {what} needs CUDA tensors, got "
+                         f"{active.device}")
+    if active.dim() != 2:
+        raise ValueError(f"active must be (R, cap), got {tuple(active.shape)}")
+    rows, cap = active.shape
+    _build.need(active, "active", torch.bool, active.device, (rows, cap))
+    if rows * cap >= 2 ** 31:
+        raise ValueError(f"kernel {what} indexes rows with int32: R·cap must "
+                         f"be < 2^31")
+    return active.device, rows, cap
+
+
+def outbox_pack_cuda(slot_vals: torch.Tensor, active: torch.Tensor,
+                     limit: torch.Tensor, ident: float):
+    """(R, cap) float32 slot values, (R, cap) bool active mask and (R,)
+    int32 budget -> (pvals, sids, pinv, counts, over) by kernel K5,
+    bit-identical to ``outbox_pack_ref``."""
+    dev, rows, cap = _check_rows(active, "K5")
+    if slot_vals.dim() != 2:
+        raise NotImplementedError(
+            "query-batched slot values are not ported yet: ROADMAP A5 "
+            "(serving)")
+    _build.need(slot_vals, "slot_vals", torch.float32, dev, (rows, cap))
+    _build.need(limit, "limit", torch.int32, dev, (rows,))
+    pvals = torch.empty((rows, cap), dtype=torch.float32, device=dev)
+    sids = torch.empty((rows, cap), dtype=torch.int32, device=dev)
+    pinv = torch.empty((rows, cap), dtype=torch.int32, device=dev)
+    counts = torch.empty(rows, dtype=torch.int32, device=dev)
+    over = torch.empty(rows, dtype=torch.int32, device=dev)
+    lib = _build.library()
+    err = lib.outbox_pack_launch(
+        active.data_ptr(), slot_vals.data_ptr(), limit.data_ptr(),
+        pvals.data_ptr(), sids.data_ptr(), pinv.data_ptr(), counts.data_ptr(),
+        over.data_ptr(), rows, cap, float(ident), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "outbox_pack")
+    _build.launches["outbox_pack"] += 1
+    return pvals, sids, pinv, counts, over
+
+
+def outbox_compact_plan_cuda(active: torch.Tensor):
+    """(R, cap) bool active mask -> (pfwd, pinv, counts) by kernel K6,
+    bit-identical to ``outbox_compact_plan_ref``."""
+    dev, rows, cap = _check_rows(active, "K6")
+    pfwd = torch.empty((rows, cap), dtype=torch.int32, device=dev)
+    pinv = torch.empty((rows, cap), dtype=torch.int32, device=dev)
+    counts = torch.empty(rows, dtype=torch.int32, device=dev)
+    lib = _build.library()
+    err = lib.outbox_compact_plan_launch(
+        active.data_ptr(), pfwd.data_ptr(), pinv.data_ptr(), counts.data_ptr(),
+        rows, cap, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "outbox_compact_plan")
+    _build.launches["outbox_compact_plan"] += 1
+    return pfwd, pinv, counts

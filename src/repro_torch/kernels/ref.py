@@ -49,3 +49,60 @@ def semiring_spmv_frontier_ref(x: torch.Tensor, frontier: torch.Tensor,
     y = semiring_spmv_ref(x, nbr, wgt, semiring)
     ident = INF if semiring == "min_plus" else -INF
     return torch.where(row_active, y, ident), row_active
+
+
+def outbox_compact_plan_ref(active: torch.Tensor):
+    """Per-row compaction plan of the compact exchange. ``active``: (R, cap)
+    bool, the mailbox slots whose source is in the send set. Returns
+
+      pfwd   (R, cap) int32  packed position j -> slot id of the j-th active
+                             slot in ascending slot order (PAD past count)
+      pinv   (R, cap) int32  slot id -> packed position (PAD if inactive)
+      counts (R,)   int32    active slots per row (the wire header)
+
+    :func:`outbox_pack_ref` with no truncation and no values."""
+    R, cap = active.shape
+    full = torch.full((R,), cap, dtype=torch.int32, device=active.device)
+    _, pfwd, pinv, counts, _ = outbox_pack_ref(
+        torch.zeros(active.shape, device=active.device), active, full, 0.0)
+    return pfwd, pinv, counts
+
+
+def outbox_pack_ref(slot_vals: torch.Tensor, active: torch.Tensor,
+                    limit: torch.Tensor, ident: float):
+    """Compaction plan, truncation and value pack in one pass: the packed
+    position of an active slot is its prefix count minus one.
+
+    slot_vals: (R, cap) float32 dense slot values; active: (R, cap) bool;
+    limit: (R,) int32 per-row slot budget — positions at or past it are
+    dropped and flagged in ``over``. Returns
+
+      pvals  (R, cap) float32  packed prefix, ``ident`` past min(count, limit)
+      sids   (R, cap) int32    packed position -> slot id (PAD past the prefix)
+      pinv   (R, cap) int32    slot id -> packed position (PAD if inactive or
+                               dropped)
+      counts (R,)   int32      UNtruncated active count
+      over   (R,)   int32      1 where counts > limit
+
+    Values are placed by a scatter of the values themselves, never by a
+    multiply, so an active ±inf message survives."""
+    if slot_vals.dim() != 2:
+        raise NotImplementedError(
+            "query-batched slot values are not ported yet: ROADMAP A5 "
+            "(serving)")
+    R, cap = active.shape
+    csum = torch.cumsum(active.int(), dim=1)
+    counts = csum[:, -1] if cap else torch.zeros(R, dtype=torch.int64,
+                                                   device=active.device)
+    pos = csum - 1
+    keep = active & (pos < limit[:, None])
+    dest = torch.where(keep, pos, cap).long()           # cap -> dropped
+    slot = torch.arange(cap, dtype=torch.int32,
+                        device=active.device).expand(R, cap)
+    sids = torch.full((R, cap + 1), PAD, dtype=torch.int32,
+                      device=active.device).scatter_(1, dest, slot)
+    pvals = torch.full((R, cap + 1), ident, dtype=slot_vals.dtype,
+                       device=active.device).scatter_(1, dest, slot_vals)
+    pinv = torch.where(keep, pos, PAD).int()
+    over = (counts > limit).int()
+    return pvals[:, :cap], sids[:, :cap], pinv, counts.int(), over

@@ -19,8 +19,13 @@ from repro_torch.gofs import (bfs_grow_partition, partition_graph,
 from repro_torch.gofs.formats import PAD
 from repro_torch.kernels import _build
 from repro_torch.kernels import megastep as mega
-from repro_torch.kernels.ref import semiring_spmv_ref
-from repro_torch.kernels.semiring_spmv import semiring_spmv_cuda
+from repro_torch.kernels.outbox_compact import (outbox_compact_plan_cuda,
+                                                outbox_pack_cuda)
+from repro_torch.kernels.ref import (outbox_compact_plan_ref, outbox_pack_ref,
+                                     semiring_spmv_frontier_ref,
+                                     semiring_spmv_ref)
+from repro_torch.kernels.semiring_spmv import (semiring_spmv_cuda,
+                                               semiring_spmv_frontier_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -80,3 +85,54 @@ def test_k3_megastep_matches_plain(cuda_device, semiring, unroll):
         if not bool(ch.any()):
             break
     assert not bool(ch.any())
+
+
+@pytest.mark.parametrize("density", [0.0, 0.01, 0.5, 1.0])
+@pytest.mark.parametrize("semiring", ["min_plus", "max_first"])
+def test_k2_semiring_spmv_frontier_matches_plain(cuda_device, semiring,
+                                                 density):
+    rng = np.random.default_rng(3)
+    v, d = 5000, 8
+    nbr = rng.integers(0, v, (v, d)).astype(np.int32)
+    nbr[rng.random((v, d)) < 0.3] = PAD
+    nbr[:40] = PAD                                   # all-PAD rows
+    wgt = rng.uniform(0.1, 2.0, (v, d)).astype(np.float32)
+    x = rng.uniform(0.0, 5.0, v).astype(np.float32)
+    x[::97] = np.inf
+    x[::89] = -np.inf
+    f = rng.random(v) < density
+    x, f, nbr, wgt = (torch.from_numpy(a).to(cuda_device)
+                      for a in (x, f, nbr, wgt))
+    before = _build.launches["semiring_spmv_frontier"]
+    y, act = semiring_spmv_frontier_cuda(x, f, nbr, wgt, semiring)
+    wy, wact = semiring_spmv_frontier_ref(x, f, nbr, wgt, semiring)
+    torch.cuda.synchronize()
+    assert _build.launches["semiring_spmv_frontier"] == before + 1
+    assert torch.equal(y, wy) and torch.equal(act, wact)
+
+
+@pytest.mark.parametrize("rows,cap,density,limit", [
+    (7, 1, 0.5, "mixed"), (33, 969, 0.05, "full"), (64, 300, 1.0, "low"),
+    (16, 1500, 0.5, "mixed"), (5, 64, 0.0, "full")])
+def test_k5_k6_outbox_pack_matches_plain(cuda_device, rows, cap, density,
+                                         limit):
+    rng = np.random.default_rng(rows + cap)
+    active = rng.random((rows, cap)) < density
+    vals = rng.uniform(-5.0, 5.0, (rows, cap)).astype(np.float32)
+    vals[rng.random((rows, cap)) < 0.1] = np.inf
+    vals[rng.random((rows, cap)) < 0.1] = -np.inf
+    lim = {"full": np.full(rows, cap), "low": np.full(rows, cap // 3),
+           "mixed": rng.integers(0, cap + 3, rows)}[limit].astype(np.int32)
+    vals, active, lim = (torch.from_numpy(a).to(cuda_device)
+                         for a in (vals, active, lim))
+    for ident in (float("inf"), float("-inf")):
+        got = outbox_pack_cuda(vals, active, lim, ident)
+        want = outbox_pack_ref(vals, active, lim, ident)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    got = outbox_compact_plan_cuda(active)
+    want = outbox_compact_plan_ref(active)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -25,16 +25,25 @@ from repro.core import init_max_vertex as j_init_max_vertex  # noqa: E402
 from repro.core import make_sssp_init as j_make_sssp_init  # noqa: E402
 from repro.kernels import megastep as jmega  # noqa: E402
 from repro.kernels.ref import semiring_spmv_ref as j_spmv_ref  # noqa: E402
-from repro.kernels.semiring_spmv import semiring_spmv_pallas  # noqa: E402
+from repro.kernels.semiring_spmv import (  # noqa: E402
+    semiring_spmv_frontier_pallas, semiring_spmv_pallas)
+from repro.kernels import outbox_compact as joc  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
 
 from repro_torch.core import graph_block as t_graph_block  # noqa: E402
 from repro_torch.core import SemiringProgram, init_max_vertex, make_sssp_init  # noqa: E402
 from repro_torch.gofs.formats import partitioned_graph_from_fields  # noqa: E402
+from repro_torch.kernels import flat as tflat  # noqa: E402
 from repro_torch.kernels import megastep as tmega  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.ref import (semiring_spmv_frontier_ref,  # noqa: E402
+from repro_torch.kernels.outbox_compact import (  # noqa: E402
+    outbox_compact_plan_cuda, outbox_pack_cuda)
+from repro_torch.kernels.ref import (outbox_compact_plan_ref,  # noqa: E402
+                                     outbox_pack_ref,
+                                     semiring_spmv_frontier_ref,
                                      semiring_spmv_ref)
-from repro_torch.kernels.semiring_spmv import semiring_spmv_cuda  # noqa: E402
+from repro_torch.kernels.semiring_spmv import (  # noqa: E402
+    semiring_spmv_cuda, semiring_spmv_frontier_cuda)
 
 SEMIRINGS = ["min_plus", "max_first", "plus_times"]
 
@@ -102,6 +111,111 @@ def test_spmv_frontier_ref_matches_jax(semiring):
     assert np.array_equal(act.numpy(), np.asarray(jact))
 
 
+# frontier densities: none, one vertex, a third, every vertex
+FRONTIERS = {"empty": 0.0, "single": None, "third": 0.3, "full": 1.0}
+
+
+@pytest.mark.parametrize("density", sorted(FRONTIERS))
+@pytest.mark.parametrize("semiring", ["min_plus", "max_first"])
+def test_spmv_frontier_matches_pallas(semiring, density):
+    """K2's plain version against the JAX oracle and the Pallas kernel in
+    interpret mode, over ragged row blocks, all-PAD rows and ±inf."""
+    rng = np.random.default_rng(17)
+    v = 300
+    x, nbr, wgt = _random_ell(rng, v, 8)
+    nbr[:9] = PAD                                   # all-PAD rows
+    if FRONTIERS[density] is None:
+        f = np.zeros(v, bool)
+        f[rng.integers(0, v)] = True
+    else:
+        f = rng.random(v) < FRONTIERS[density]
+    y, act = semiring_spmv_frontier_ref(
+        torch.from_numpy(x), torch.from_numpy(f), torch.from_numpy(nbr),
+        torch.from_numpy(wgt), semiring)
+    args = (jnp.asarray(x), jnp.asarray(f), jnp.asarray(nbr),
+            jnp.asarray(wgt), semiring)
+    for jy, jact in (jref.semiring_spmv_frontier_ref(*args),
+                     semiring_spmv_frontier_pallas(*args, block_v=64,
+                                                   interpret=True)):
+        assert np.array_equal(y.numpy(), np.asarray(jy))
+        assert np.array_equal(act.numpy(), np.asarray(jact))
+    assert not act[:9].any()
+    # the dispatch takes the plain version for a CPU tensor
+    oy, oact = ops.semiring_spmv_frontier(
+        torch.from_numpy(x), torch.from_numpy(f), torch.from_numpy(nbr),
+        torch.from_numpy(wgt), semiring)
+    assert torch.equal(oy, y) and torch.equal(oact, act)
+
+
+# (R, cap, active density, limit): "full" = cap, "low" = truncation below
+# most rows' counts, "mixed" = per-row budgets from 0 to past cap
+PACK_CASES = {
+    "cap1_mixed": (5, 1, 0.5, "mixed"),
+    "dense_full": (9, 16, 1.0, "full"),
+    "empty_full": (7, 16, 0.0, "full"),
+    "sparse_low": (13, 40, 0.05, "low"),
+    "half_mixed": (16, 33, 0.5, "mixed"),
+    "dense_low": (6, 64, 1.0, "low"),
+}
+
+
+def _pack_inputs(case):
+    R, cap, density, lim = PACK_CASES[case]
+    rng = np.random.default_rng(R * 100 + cap)
+    active = rng.random((R, cap)) < density
+    vals = rng.uniform(-5.0, 5.0, (R, cap)).astype(np.float32)
+    vals[rng.random((R, cap)) < 0.1] = np.inf
+    vals[rng.random((R, cap)) < 0.1] = -np.inf
+    limit = {"full": np.full(R, cap),
+             "low": np.full(R, max(cap // 4, 1)),
+             "mixed": rng.integers(0, cap + 3, R)}[lim].astype(np.int32)
+    return vals, active, limit
+
+
+@pytest.mark.parametrize("ident", [float("inf"), float("-inf"), 0.0])
+@pytest.mark.parametrize("case", sorted(PACK_CASES))
+def test_outbox_pack_matches_jax_and_pallas(case, ident):
+    """K5's plain version: all five outputs bit-equal to the JAX oracle and
+    to the Pallas kernel in interpret mode; ±inf values survive the pack."""
+    vals, active, limit = _pack_inputs(case)
+    got = outbox_pack_ref(torch.from_numpy(vals), torch.from_numpy(active),
+                          torch.from_numpy(limit), ident)
+    jargs = (jnp.asarray(vals), jnp.asarray(active), jnp.asarray(limit),
+             ident)
+    for want in (jref.outbox_pack_ref(*jargs),
+                 joc.outbox_pack_pallas(*jargs, block_r=4, interpret=True)):
+        for g, w in zip(got, want):
+            assert np.array_equal(g.numpy(), np.asarray(w))
+    assert got[3].numpy().tolist() == active.sum(1).tolist()
+    for g, w in zip(ops.outbox_pack(torch.from_numpy(vals),
+                                    torch.from_numpy(active),
+                                    torch.from_numpy(limit), ident), got):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", sorted(PACK_CASES))
+def test_outbox_compact_plan_matches_jax_and_pallas(case):
+    _, active, _ = _pack_inputs(case)
+    got = outbox_compact_plan_ref(torch.from_numpy(active))
+    ja = jnp.asarray(active)
+    for want in (jref.outbox_compact_plan_ref(ja),
+                 joc.outbox_compact_plan_pallas(ja, block_r=4,
+                                                interpret=True)):
+        for g, w in zip(got, want):
+            assert np.array_equal(g.numpy(), np.asarray(w))
+    for g, w in zip(ops.outbox_compact_plan(torch.from_numpy(active)), got):
+        assert torch.equal(g, w)
+
+
+def test_outbox_pack_refuses_query_batched_values():
+    vals = torch.zeros((2, 3, 4))
+    active = torch.zeros((2, 3), dtype=torch.bool)
+    limit = torch.full((2,), 3, dtype=torch.int32)
+    for fn in (ops.outbox_pack, outbox_pack_ref):
+        with pytest.raises(NotImplementedError, match="A5"):
+            fn(vals, active, limit, 0.0)
+
+
 # ---------------- the fused superstep ----------------
 
 GRAPHS = {
@@ -157,7 +271,7 @@ def test_compose_mailbox_matches(blocks, name):
                                    np.asarray(jcm["nbr"]), PAD))
     # PageRank's unit weights are made only when its pull asks
     assert "ones" not in tcm
-    assert np.all(tmega.unit_weights(dict(tcm)).numpy() == 1.0)
+    assert np.all(tflat.unit_weights(dict(tcm)).numpy() == 1.0)
     if name == "social":
         assert tcm["hub_row_ok"].any()      # the hub branch is live here
 
@@ -279,3 +393,12 @@ def test_cuda_wrappers_refuse_cpu_tensors(blocks):
         tmega.megastep_semiring_cuda(torch.zeros(n), torch.zeros(n, dtype=bool),
                                      torch.zeros(n, dtype=bool), tcm,
                                      "min_plus")
+    with pytest.raises(ValueError, match="CUDA"):
+        semiring_spmv_frontier_cuda(x, torch.zeros(4, dtype=torch.bool), nbr,
+                                    torch.zeros((4, 8)), "max_first")
+    active = torch.zeros((3, 5), dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        outbox_pack_cuda(torch.zeros((3, 5)), active,
+                         torch.zeros(3, dtype=torch.int32), 0.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        outbox_compact_plan_cuda(active)

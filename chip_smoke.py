@@ -11,7 +11,9 @@ failure exits non-zero and prints no result:
 3. each kernel against its plain PyTorch version on the card: K1 and K2 on
    a random ELL (V = 2e6, D = 8, PAD rows, ±inf; K2 at frontier densities
    of 1 % and 50 %), K3 over every superstep of CC and SSSP on a road grid
-   and on a powerlaw graph with hub feeds, K5 and K6 on random masks
+   and on a powerlaw graph with hub feeds, K4 on the same graphs and
+   semirings from the init state, cut by a small max_steps, and entered
+   after two K3 supersteps, K5 and K6 on random masks
    (R ∈ {144, 4096}, cap ∈ {969, 4096}, densities 0 / 0.05 / 1, budgets
    below and above the counts, ±inf values);
 4. the paths at full size, on road_grid(1400, 1400) — 1.96M vertices, the
@@ -29,6 +31,18 @@ failure exits non-zero and prints no result:
       with a ``tol`` that halts it at superstep 40 of 200, against the
       power iteration's own halt and ranks; BlockRank against the port's
       own run of it on the CPU (the plain versions of every kernel);
+   c. tier plans (``core.tiers``) on the same graph: CC and SSSP on
+      ``exchange='megastep'`` with ``PhasedTierPlan.from_graph`` — resident
+      from superstep 0, ONE K4 launch each, bit-equal to (a) and scipy,
+      with the supersteps and sweeps of the plain resident loop on the
+      card; the same with the resident gate lowered under a two-phase plan,
+      so three K3 supersteps hand off to K4; ``exchange='tiered'`` with
+      ``TierPlan.from_graph`` bit-equal to dense, no spill, the schedule's
+      slots every round; a too-narrow plan (every pair cold) that spills,
+      reruns dense, escalates and stays bit-equal; ``exchange='phased'``
+      CC and SSSP with a plan taught by (b)'s compact CC run, bit-equal to
+      dense with compact's count_hist; 30-iteration PageRank on 'phased'
+      allclose to (b)'s dense PageRank;
    and where each run's time goes (CUDA events around every kernel call);
 5. kernel times at the paths' shapes: one ``{"kernels": [...]}`` line.
    ``ms`` is a kernel's device time by torch.profiler; ``call_ms`` the
@@ -37,10 +51,11 @@ failure exits non-zero and prints no result:
 
 Min/max results are held bit-equal; plus_times allclose (rtol=1e-6,
 atol=1e-7 on the random ELL, whose values are O(1); rtol=1e-5, atol=0 at
-PageRank's pull, whose values are O(1/n)); K5/K6 outputs bit-equal;
-BlockRank rtol=1e-4, atol=0 against its CPU run. The last line is
-``{"ok": true, "device": {...}}``.
+PageRank's pull, whose values are O(1/n), and for phased PageRank against
+dense); K4/K5/K6 outputs bit-equal; BlockRank rtol=1e-4, atol=0 against
+its CPU run. The last line is ``{"ok": true, "device": {...}}``.
 """
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -54,6 +69,7 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 SEMIRINGS = ("min_plus", "max_first", "plus_times")
 TOL_STEPS = 40                  # where phase 4b's tol PageRank must halt
+HANDOFF = 3                     # K3 supersteps before K4 in phase 4c (ii)
 
 
 def log(msg: str) -> None:
@@ -83,29 +99,35 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel=None, reps: int = 20) -> float:
+def device_ms(fn, kernel=None, reps: int = 20, traces: int = 5) -> float:
     """Device time of one call of ``fn`` by torch.profiler (the card traced
     only) over ``reps`` calls after a warm-up call: per launch of the
     kernels whose names hold ``kernel``, or, with ``kernel=None``, of all
     the call's kernels. It leaves out the host's time to enqueue the call,
-    which sets a small kernel's event-timed call (:func:`cuda_ms`)."""
+    which sets a small kernel's event-timed call (:func:`cuda_ms`). A trace
+    that holds none of the kernels (the profiler on the H100 has lost a
+    whole window's launches) is taken again, up to ``traces`` times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [(evt.count, evt.device_time_total / 1e3)
-            for evt in prof.key_averages()
-            if evt.device_type == DeviceType.CUDA
-            and (kernel is None or kernel in evt.key)]
-    launches, ms = sum(c for c, _ in hits), sum(t for _, t in hits)
-    if launches == 0:
-        fail(f"the profiler saw no launch of {kernel or 'any kernel'}")
-    return ms / (reps if kernel is None else launches)
+    for trace in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [(evt.count, evt.device_time_total / 1e3)
+                for evt in prof.key_averages()
+                if evt.device_type == DeviceType.CUDA
+                and (kernel is None or kernel in evt.key)]
+        launches, ms = sum(c for c, _ in hits), sum(t for _, t in hits)
+        if launches:
+            return ms / (reps if kernel is None else launches)
+        log(f"device_ms: trace {trace + 1} of {traces} saw no launch of "
+            f"{kernel or 'any kernel'}")
+    fail(f"the profiler saw no launch of {kernel or 'any kernel'} in "
+         f"{traces} traces")
 
 
 def compare(semiring: str, got, want, what: str, rtol: float = 1e-6,
@@ -293,6 +315,59 @@ def check_k3(dev) -> None:
                 f"supersteps bit-equal (hub feed rows {hubs})")
 
 
+def check_k4(dev) -> None:
+    import torch
+    from repro_torch.core import (SemiringProgram, graph_block,
+                                  init_max_vertex, make_sssp_init)
+    from repro_torch.gofs import (bfs_grow_partition, partition_graph,
+                                  powerlaw_social, road_grid)
+    from repro_torch.kernels import megastep as mega
+    cases = [("road_grid(300,300)", road_grid(300, 300, weighted=True,
+                                              seed=1), 12),
+             ("powerlaw_social(20000,m=5)",
+              powerlaw_social(20000, m=5, seed=2), 8)]
+    for gname, g, P in cases:
+        pg = partition_graph(g, bfs_grow_partition(g, P, seed=0), P)
+        gb = graph_block(pg, dev)
+        cm = mega.compose_mailbox(gb)
+        for sr, init in (("max_first", init_max_vertex),
+                         ("min_plus", make_sssp_init(int(pg.part_of[0]),
+                                                     int(pg.local_of[0])))):
+            st = SemiringProgram(semiring=sr, init_fn=init).init(gb)
+            state = tuple(st[k].reshape(-1).contiguous()
+                          for k in ("x", "changed_v", "frontier"))
+            after = state
+            for _ in range(2):
+                after = mega.megastep_semiring_cuda(*after, cm, sr)[:3]
+            for start, sname in ((state, "init"), (after, "after 2 K3")):
+                for max_steps in (4096, 2):
+                    got = mega.resident_megastep_cuda(*start, cm, sr,
+                                                      max_steps)
+                    want = mega.resident_megastep_ref(*start, cm, sr,
+                                                      max_steps)
+                    torch.cuda.synchronize()
+                    for name, kind, a, b in zip(
+                            ("x2", "changed2", "frontier2", "iters",
+                             "liters"),
+                            (sr, "bool", "bool", "max_first", "max_first"),
+                            got, want):
+                        compare(kind, a, b, f"K4 {gname} {sr} from {sname} "
+                                f"max_steps {max_steps} {name}")
+                    rounds = int(got[3])
+                    quiet = not bool(got[1].any())
+                    if rounds > max_steps or (rounds < max_steps
+                                              and not quiet):
+                        fail(f"K4 {gname} {sr} from {sname}: {rounds} "
+                             f"rounds under max_steps {max_steps}, "
+                             f"quiesced {quiet}")
+                    if max_steps == 4096 and not quiet:
+                        fail(f"K4 {gname} {sr} from {sname}: no quiescence "
+                             f"in {rounds} rounds")
+                    log(f"K4 resident_megastep {gname} P={P} {sr} from "
+                        f"{sname}, max_steps {max_steps}: {rounds} rounds "
+                        f"bit-equal")
+
+
 # ---------------- phase 4: the main path ----------------
 
 def main_path(dev):
@@ -369,18 +444,22 @@ def main_path(dev):
     log(f"main path checks: cc {ncc} components, sssp {int(fin.sum())} "
         f"reached, bfs max {int(hops[np.isfinite(hops)].max())} hops, "
         f"pagerank max abs diff {np.abs(r - rr).max():.3e} — all agree")
-    staged_path(dev, g, ug, pg, upg, src, results, path_launches,
-                {"cc": (lab_true, ncc_true), "sssp": d_true, "bfs": hops,
-                 "pagerank": rr})
+    truth = {"cc": (lab_true, ncc_true), "sssp": d_true, "bfs": hops,
+             "pagerank": rr}
+    staged = staged_path(dev, g, ug, pg, upg, src, results, path_launches,
+                         truth)
+    plain_k4 = tier_path(dev, pg, src, results, staged, path_launches, truth)
     breakdown(pg, upg, src)
-    return pg, path_launches
+    return pg, path_launches, plain_k4
 
 
-def drive(dev, runs: dict, path_launches: dict, n: int) -> dict:
+def drive(dev, runs: dict, path_launches: dict, n: int,
+          record=None) -> dict:
     """Run each ``name: (fn, kernels)`` once to warm up, then once more
     with the launch counts set to 0 just before it and read just after; fail
     if a kernel of its path was never launched. One JSON line per run;
-    returns the timed runs' outputs."""
+    returns the timed runs' outputs, and puts each timed run's launch
+    counts into ``record`` where one is given."""
     import torch
     from repro_torch.kernels import _build
     first = {}
@@ -404,6 +483,8 @@ def drive(dev, runs: dict, path_launches: dict, n: int) -> dict:
                 fail(f"{name}: kernel {k} was never launched")
         for k, c in launches.items():
             path_launches[k] += c
+        if record is not None:
+            record[name] = launches
         tele = out[-1] if name != "blockrank" else out[1]
         results[name] = out
         log(json.dumps({
@@ -421,11 +502,19 @@ def _masked(pg, x, fill):
     return x
 
 
+def _as_result(pg, algo, x):
+    """An engine run's (P, v_max) state as the public function returns it:
+    CC labels as int64 with -1 padding, distances with inf padding."""
+    if algo == "cc":
+        return np.where(pg.vmask, x, -1).astype(np.int64)
+    return _masked(pg, x, np.inf)
+
+
 def staged_path(dev, g, ug, pg, upg, src, fused, path_launches, truth):
     """Phase 4b: the staged route at RN scale, each run checked (see the
     module docstring). ``fused`` holds phase 4a's results, ``truth`` scipy's
     CC labels, Dijkstra distances and BFS hops and the 30-iteration float64
-    power iteration."""
+    power iteration. Returns the timed runs' outputs."""
     from repro_torch import algorithms
     from repro_torch.core import (GopherEngine, PageRankProgram,
                                   SemiringProgram, init_max_vertex,
@@ -477,14 +566,9 @@ def staged_path(dev, g, ug, pg, upg, src, fused, path_launches, truth):
           "bfs": fused["bfs"][0]}
     ft = {a: fused[a][-1] for a in fx}
 
-    def as_result(algo, x):
-        if algo == "cc":
-            return np.where(pg.vmask, x, -1).astype(np.int64)
-        return _masked(graph[algo], x, np.inf)
-
     for a in ("cc", "sssp", "bfs"):
         state, t = res[f"{a}_dense"]
-        if not np.array_equal(as_result(a, state["x"]), fx[a]):
+        if not np.array_equal(_as_result(graph[a], a, state["x"]), fx[a]):
             fail(f"{a}_dense: results differ from the fused route's")
         if t.supersteps != ft[a].supersteps or not np.array_equal(
                 t.local_iters, ft[a].local_iters):
@@ -567,6 +651,194 @@ def staged_path(dev, g, ug, pg, upg, src, fused, path_launches, truth):
         f"blockrank ({info['num_meta']} blocks, {tb.supersteps} supersteps) "
         f"max rel diff {rel.max():.3e} from its CPU run ({cpu_s:.1f} s) — "
         f"all agree")
+    return res
+
+
+def tier_path(dev, pg, src, fused, staged, path_launches, truth):
+    """Phase 4c: tier plans at RN scale, each run checked (see the module
+    docstring). ``fused`` and ``staged`` hold phases 4a's and 4b's results,
+    ``truth`` scipy's. Returns the plain resident loop's run from CC's init
+    state (outputs and CUDA-event ms), which phase 5 holds K4 to."""
+    import torch
+    from repro_torch.core import (GopherEngine, PageRankProgram,
+                                  PhasedTierPlan, SemiringProgram, TierPlan,
+                                  graph_block, host_graph_block,
+                                  init_max_vertex, make_sssp_init,
+                                  update_changed_profile, update_profile)
+    from repro_torch.core import tiers
+    from repro_torch.kernels import megastep as mega
+
+    loc = (int(pg.part_of[src]), int(pg.local_of[src]))
+    progs = {"cc": SemiringProgram("max_first", init_max_vertex),
+             "sssp": SemiringProgram("min_plus", make_sssp_init(*loc))}
+    structural = PhasedTierPlan.from_graph(pg)
+    rb = [p.schedule(1).round_bytes(None) for p in structural.phase_plans()]
+    if mega.resident_enter_round(rb, structural.boundaries) != 0:
+        fail(f"the structural plan's round ({rb} B) does not fit the "
+             f"resident gate ({mega.RESIDENT_ROUND_BYTES_BUDGET} B)")
+    # (ii): the structural table to round HANDOFF, then an all-cold tail,
+    # under a gate lowered to the tail's round: HANDOFF K3 supersteps, K4
+    base = TierPlan.from_graph(pg)
+    cold = np.where(base.tiers == tiers.EXCLUDED, tiers.EXCLUDED,
+                    tiers.COLD).astype(np.int8).tobytes()
+    handoff = PhasedTierPlan(num_parts=base.num_parts, cap=base.cap,
+                             warm_cap=base.warm_cap,
+                             phase_tier_bytes=(base.tier_bytes, cold),
+                             boundaries=(HANDOFF, tiers._NO_BOUNDARY))
+    tail_bytes = handoff.phase_plans()[1].schedule(1).round_bytes(None)
+    narrow = dataclasses.replace(base, tier_bytes=cold)       # (iv)
+    # (v): the plan taught by phase 4b's compact CC run
+    hb = host_graph_block(pg)
+    tc = staged["cc_compact"][1]
+    update_profile(hb, tc.pair_slots, tc.pair_rounds)
+    update_changed_profile(hb, tc.count_hist)
+    taught = PhasedTierPlan.from_block(hb)
+    log(json.dumps({"plans": {
+        "structural_round_bytes": rb,
+        "resident_budget": mega.RESIDENT_ROUND_BYTES_BUDGET,
+        "handoff_tail_round_bytes": tail_bytes,
+        "tiered_round_slots": base.schedule(1).round_slots(),
+        "tiered_counts": base.counts(),
+        "taught_boundaries": [b for b in taught.boundaries],
+        "taught_round_slots": [p.schedule(1).round_slots()
+                               for p in taught.phase_plans()]}}))
+
+    def engine(algo, exchange, plan):
+        return lambda: GopherEngine(pg, progs[algo], exchange=exchange,
+                                    tier_plan=plan).run()
+
+    def lowered(fn):
+        def run():
+            saved = mega.RESIDENT_ROUND_BYTES_BUDGET
+            mega.RESIDENT_ROUND_BYTES_BUDGET = tail_bytes
+            try:
+                return fn()
+            finally:
+                mega.RESIDENT_ROUND_BYTES_BUDGET = saved
+        return run
+
+    k1, k2, k3, k4, k5 = ("semiring_spmv", "semiring_spmv_frontier",
+                          "megastep_semiring", "resident_megastep",
+                          "outbox_pack")
+    runs = {}
+    for a in ("cc", "sssp"):
+        runs[f"{a}_resident"] = (engine(a, "megastep", structural), [k4])
+        runs[f"{a}_handoff"] = (lowered(engine(a, "megastep", handoff)),
+                                [k3, k4])
+        runs[f"{a}_tiered"] = (engine(a, "tiered", base), [k2, k5])
+    runs["cc_tiered_spill"] = (engine("cc", "tiered", narrow), [k2, k5])
+    for a in ("cc", "sssp"):
+        runs[f"{a}_phased"] = (engine(a, "phased", taught), [k2, k5])
+    runs["pagerank_phased"] = (lambda: GopherEngine(
+        pg, PageRankProgram(n_global=pg.n_global, num_iters=30),
+        exchange="phased", tier_plan=taught, max_supersteps=64).run(),
+        [k1, k5])
+    counts = {}
+    res = drive(dev, runs, path_launches, pg.n_global, record=counts)
+
+    # (i) and (ii): resident runs against the fused route, scipy and the
+    # plain resident loop on the card
+    gb = graph_block(pg, dev)
+    cm = mega.compose_mailbox(gb)
+    lab_true, ncc_true = truth["cc"]
+    plain_cc = None
+    for a in ("cc", "sssp"):
+        state, t = res[f"{a}_resident"]
+        got = _as_result(pg, a, state["x"])
+        if not np.array_equal(got, fused[a][0]):
+            fail(f"{a}_resident: results differ from the fused route's")
+        if counts[f"{a}_resident"][k4] != 1 or counts[f"{a}_resident"][k3]:
+            fail(f"{a}_resident: {counts[f'{a}_resident']} launches, not "
+                 f"one K4 launch")
+        st = progs[a].init(gb)
+        start = tuple(st[k].reshape(-1).contiguous()
+                      for k in ("x", "changed_v", "frontier"))
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        ref = mega.resident_megastep_ref(*start, cm, progs[a].semiring,
+                                         4096)
+        t1.record()
+        torch.cuda.synchronize()
+        if int(ref[3]) != t.supersteps or not np.array_equal(
+                ref[4].cpu().numpy(), t.local_iters):
+            fail(f"{a}_resident: {t.supersteps} supersteps, the plain "
+                 f"resident loop {int(ref[3])} rounds (or sweeps differ)")
+        if not np.array_equal(ref[0].cpu().numpy(),
+                              state["x"].reshape(-1)):
+            fail(f"{a}_resident: results differ from the plain loop's")
+        if a == "cc":
+            plain_cc = (ref, t0.elapsed_time(t1))
+            pairs = np.unique(np.stack([lab_true, gather(pg, got)]), axis=1)
+            if pairs.shape[1] != ncc_true:
+                fail("cc_resident: the components differ from scipy's")
+        else:
+            d = gather(pg, got)
+            fin = np.isfinite(truth["sssp"])
+            if not np.array_equal(np.isfinite(d), fin) or not np.allclose(
+                    d[fin], truth["sssp"][fin], rtol=1e-5):
+                fail("sssp_resident: distances differ from scipy's dijkstra")
+        hs, ht = res[f"{a}_handoff"]
+        if not np.array_equal(_as_result(pg, a, hs["x"]), fused[a][0]):
+            fail(f"{a}_handoff: results differ from the fused route's")
+        c = counts[f"{a}_handoff"]
+        if c[k3] != HANDOFF or c[k4] != 1 or ht.supersteps <= HANDOFF:
+            fail(f"{a}_handoff: launches {c}, {ht.supersteps} supersteps: "
+                 f"no hand-off from K3 to K4 after {HANDOFF}")
+        log(json.dumps({"resident": a, "supersteps": t.supersteps,
+                        "plain_rounds": int(ref[3]),
+                        "fused_supersteps": fused[a][-1].supersteps,
+                        "handoff_supersteps": ht.supersteps}))
+
+    # (iii)-(vi): the tiered and phased routes against dense and compact
+    slots = base.schedule(1).round_slots()
+    for a in ("cc", "sssp"):
+        dstate, dt = staged[f"{a}_dense"]
+        names = [f"{a}_tiered", f"{a}_phased"] + (
+            ["cc_tiered_spill"] if a == "cc" else [])
+        for name in names:
+            state, t = res[name]
+            if not np.array_equal(state["x"], dstate["x"]):
+                fail(f"{name}: results differ from dense")
+            if name == "cc_tiered_spill":
+                if not (t.spills > 0 and t.retried and t.escalations > 0):
+                    fail(f"{name}: spills {t.spills}, retried {t.retried}, "
+                         f"escalations {t.escalations}")
+                continue
+            if t.supersteps != dt.supersteps or not np.array_equal(
+                    t.local_iters, dt.local_iters):
+                fail(f"{name}: supersteps/local_iters differ from dense")
+        state, t = res[f"{a}_tiered"]
+        if t.spills or t.retried or not np.all(t.wire_hist == slots):
+            fail(f"{a}_tiered: spills {t.spills}, wire_hist is not the "
+                 f"schedule's {slots} slots a round")
+        state, t = res[f"{a}_phased"]
+        if not np.array_equal(t.count_hist,
+                              staged[f"{a}_compact"][1].count_hist):
+            fail(f"{a}_phased: count_hist differs from compact's")
+        log(json.dumps({
+            "phased": a, "phase_switch_steps": t.phase_switch_steps.tolist(),
+            "phase_wire": t.phase_wire.tolist(),
+            "dense_retry_steps": t.dense_retry_steps, "spills": t.spills,
+            "wire_slots": t.wire_slots, "dense_wire_slots": dt.wire_slots,
+            "tiered_wire_slots": res[f"{a}_tiered"][1].wire_slots}))
+    t = res["cc_tiered_spill"][1]
+    log(json.dumps({"tiered_spill": "cc", "spills": t.spills,
+                    "escalations": t.escalations, "retried": t.retried,
+                    "wire_slots": t.wire_slots}))
+    state, t = res["pagerank_phased"]
+    dstate, dt = staged["pagerank_dense"]
+    if t.supersteps != dt.supersteps or not np.allclose(
+            state["r"], dstate["r"], rtol=1e-5, atol=0.0):
+        fail(f"pagerank_phased: max abs diff "
+             f"{np.abs(state['r'] - dstate['r']).max()} from dense, "
+             f"{t.supersteps} vs {dt.supersteps} supersteps")
+    log(f"tier path checks: resident = fused = scipy for cc/sssp in one K4 "
+        f"launch each; hand-off after {HANDOFF} K3 supersteps bit-equal; "
+        f"tiered and phased = dense; forced spill repaired; phased "
+        f"pagerank max abs diff {np.abs(state['r'] - dstate['r']).max():.3e}"
+        f" — all agree")
+    return plain_cc
 
 
 def breakdown(pg, upg, src):
@@ -660,7 +932,7 @@ def breakdown(pg, upg, src):
 
 # ---------------- phase 5: kernel times at the main path's shapes --------
 
-def kernel_times(dev, pg, path_launches):
+def kernel_times(dev, pg, path_launches, plain_k4):
     import torch
     from repro_torch.core import (SemiringProgram, graph_block,
                                   init_max_vertex)
@@ -741,6 +1013,8 @@ def kernel_times(dev, pg, path_launches):
         f"{k3_dev / max(sweeps, 1):.4f} ms/sweep")
 
     k2 = k2_times(dev, pg, path_launches)
+    k4 = k4_times(dev, pg, cm, path_launches, plain_k4,
+                  k3_dev / max(sweeps, 1), per_sweep)
     k5, k6 = k5_k6_times(dev, pg, path_launches)
     return {"kernels": [
         {"name": "semiring_spmv", "route": "cuda",
@@ -757,8 +1031,65 @@ def kernel_times(dev, pg, path_launches):
          "max_abs_err": k3_err, "ms": k3_dev, "call_ms": k3_ms,
          "plain_ms": k3_plain, "bound_ms": k3_bound, "bound_by": "bytes",
          "library_ms": None},
-        k2, k5, k6,
+        k2, k4, k5, k6,
     ]}
+
+
+def k4_times(dev, pg, cm, path_launches, plain, k3_ms_sweep, k3_sweep_bytes):
+    """K4 at phase 4c (i)'s CC shape: one launch from CC's init state runs
+    the whole resident loop. ``plain`` is the plain resident loop's run
+    from the same state in phase 4c (outputs and CUDA-event ms)."""
+    import torch
+    from repro_torch.core import SemiringProgram, graph_block, init_max_vertex
+    from repro_torch.kernels import megastep as mega
+
+    gb = graph_block(pg, dev)
+    st = SemiringProgram("max_first", init_max_vertex).init(gb)
+    start = tuple(st[k].reshape(-1).contiguous()
+                  for k in ("x", "changed_v", "frontier"))
+    got = mega.resident_megastep_cuda(*start, cm, "max_first", 4096)
+    torch.cuda.synchronize()
+    ref, plain_ms = plain
+    err = compare("max_first", got[0], ref[0], "K4 at the main path x2")
+    for a, b, what in zip(got[1:], ref[1:], ("changed2", "frontier2",
+                                             "iters", "liters")):
+        compare("bool" if what.endswith("2") else "max_first", a, b,
+                f"K4 at the main path {what}")
+    rounds = int(got[3])
+    call_ms = cuda_ms(lambda: mega.resident_megastep_cuda(
+        *start, cm, "max_first", 4096), reps=2)
+    dev_ms = device_ms(lambda: mega.resident_megastep_cuda(
+        *start, cm, "max_first", 4096), "resident_kernel", reps=2)
+    # what a round must move (max_first reads no weights): every adjacency
+    # index (n·D·4; 63 MB at RN, more than the 50 MB L2, so every round),
+    # each feed lane's ok byte and each valid lane's source index, the hub
+    # rows likewise, hub_row_ok and vmask, and the state x, changed and
+    # frontier read and written once (6 + 6 B a vertex)
+    n, d = cm["nbr"].shape
+    m_lo = cm["lo_src"].shape[1]
+    h, m_hi = cm["hub_src"].shape
+    per_round = (n * d * 4 + n * m_lo + int(cm["lo_ok"].sum()) * 4
+                 + h * m_hi + int(cm["hub_ok"].sum()) * 4 + n * 2 + n * 12)
+    bound = rounds * per_round / HBM_BYTES_PER_S * 1e3
+    share = (per_round / HBM_BYTES_PER_S * 1e3) / (dev_ms / rounds)
+    k3_share = (k3_sweep_bytes / HBM_BYTES_PER_S * 1e3) / k3_ms_sweep
+    log(json.dumps({"k4": "cc init state", "rounds": rounds,
+                    "ms_per_launch": dev_ms, "ms_per_round": dev_ms / rounds,
+                    "bytes_per_round": per_round,
+                    "bound_ms_per_round": per_round / HBM_BYTES_PER_S * 1e3,
+                    "share_of_bound_per_round": share,
+                    "k3_ms_per_sweep": k3_ms_sweep,
+                    "k3_share_of_bound_per_sweep": k3_share,
+                    "plain_ms": plain_ms}))
+    return {"name": "resident_megastep", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/megastep.cu",
+            "replaces": "src/repro/kernels/megastep.py:650",
+            "launches": path_launches["resident_megastep"],
+            "max_abs_err": err, "ms": dev_ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": None,
+            "library_note": "no PyTorch call computes a multi-round "
+                            "gated relaxation", "rounds": rounds}
 
 
 def k2_times(dev, pg, path_launches) -> dict:
@@ -912,9 +1243,10 @@ def main() -> None:
     check_k1(dev)
     check_k2(dev)
     check_k3(dev)
+    check_k4(dev)
     check_k5_k6(dev)
-    pg, path_launches = main_path(dev)
-    kernels = kernel_times(dev, pg, path_launches)
+    pg, path_launches, plain_k4 = main_path(dev)
+    kernels = kernel_times(dev, pg, path_launches, plain_k4)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,10 @@ from repro_torch.core.programs import (PageRankProgram, SemiringProgram,
                                        make_sssp_init)
 from repro_torch.core.subgraph import (meta_diameter, meta_graph,
                                        subgraph_sizes, vertex_diameter)
+from repro_torch.core.tiers import (PhasedTierPlan, TierPlan, TierSchedule,
+                                    announce_frontier, expected_horizon,
+                                    update_changed_profile,
+                                    update_phase_profile, update_profile)
 
 __all__ = [
     "GopherEngine", "Telemetry", "resolve_device", "graph_block",
@@ -14,4 +18,7 @@ __all__ = [
     "SemiringProgram", "PageRankProgram",
     "init_max_vertex", "make_sssp_init", "make_bfs_init",
     "meta_graph", "meta_diameter", "vertex_diameter", "subgraph_sizes",
+    "TierPlan", "PhasedTierPlan", "TierSchedule", "announce_frontier",
+    "expected_horizon", "update_profile", "update_changed_profile",
+    "update_phase_profile",
 ]

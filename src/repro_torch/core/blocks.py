@@ -2,21 +2,24 @@
 
 A *graph block* is the per-partition array bundle (leading axis P) derived
 from a PartitionedGraph: the raw GoFS fields and the gather-form mailbox
-inverse maps (``_mailbox_inverse``). The HOST block (numpy) is built once,
-O(E) host work; ``device_block`` uploads it as torch tensors onto one
-device, decoding the feed maps to runtime flat indices on the way.
+inverse maps (``_mailbox_inverse``), and the planning metadata the tier
+plans are built from (``core.tiers``). The HOST block (numpy) is built
+once, O(E) host work; ``device_block`` uploads it as torch tensors onto one
+device, decoding the feed maps to runtime flat indices on the way and
+leaving the host-only planning entries behind.
 
 This is the host half of the JAX package's ``core/blocks.py`` with the same
 arithmetic, so the two host blocks agree entry for entry. Still to come
-(ROADMAP): the planning metadata (``wire_ewma``, ``changed_ewma``,
-``announce_ewma``, ``phase_pair_ewma``), the binned adjacency of the
-serving path, the zero-repack patch path and ``verify_host_block``.
+(ROADMAP): the binned adjacency of the serving path, the zero-repack patch
+path and ``verify_host_block``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.tiers import (MAX_PHASES, PHASE_HIST_LEN,
+                                    occupancy_from_ob_inv)
 from repro_torch.gofs.formats import PAD, PartitionedGraph, _cumcount
 
 _GB_FIELDS = ["nbr", "wgt", "vmask", "out_degree", "global_id", "sg_id",
@@ -26,6 +29,11 @@ _GB_FIELDS = ["nbr", "wgt", "vmask", "out_degree", "global_id", "sg_id",
 # stride is FIXED (not the mailbox cap), so cap growth never invalidates
 # stored positions; device_block re-bases onto the runtime cap at upload.
 _SLOT_STRIDE = 1 << 16
+
+# host-only block entries: planning metadata no run reads. They stay off
+# the device block (their shapes do not follow the per-partition
+# leading-axis convention).
+_HOST_ONLY = ("changed_ewma", "announce_ewma", "phase_pair_ewma")
 
 
 def _mailbox_inverse(pg: PartitionedGraph, lane_pad: int = 8):
@@ -92,11 +100,30 @@ def _mailbox_inverse(pg: PartitionedGraph, lane_pad: int = 8):
 
 def host_graph_block(pg: PartitionedGraph) -> dict:
     """Cold-build the HOST (numpy) graph block: the raw GoFS fields, the
-    partition ids, the mailbox inverse maps and the vertex attributes."""
+    partition ids, the mailbox inverse maps, the planning metadata and the
+    vertex attributes.
+
+    The planning metadata: ``wire_ewma`` (P, P float32), the per-pair
+    traffic profile (an EWMA of packed slot counts per exchange round),
+    seeded with the STRUCTURAL slot occupancy — the worst case any round
+    can ship, so a plan built from a fresh block never overflows; and,
+    host-only, ``changed_ewma`` (PHASE_HIST_LEN, float32), the expected
+    frontier width per round, seeded zero (no history: phased plans
+    degenerate to one structural phase until runs teach it),
+    ``announce_ewma`` (P, P), the pending announce record (zero: no delta
+    pending), and ``phase_pair_ewma`` (MAX_PHASES, P, P), the per-band
+    pair profiles. Runs fold their observations in through
+    ``core.tiers.update_profile`` / ``update_changed_profile`` /
+    ``update_phase_profile``."""
     gb = {k: np.asarray(getattr(pg, k)) for k in _GB_FIELDS}
     gb["part_index"] = np.arange(pg.num_parts, dtype=np.int32)
     (gb["ob_inv"], gb["ib_lo"],
      gb["ib_hub_idx"], gb["ib_hub"]) = _mailbox_inverse(pg)
+    gb["wire_ewma"] = occupancy_from_ob_inv(gb["ob_inv"]).astype(np.float32)
+    gb["changed_ewma"] = np.zeros(PHASE_HIST_LEN, np.float32)
+    gb["announce_ewma"] = np.zeros_like(gb["wire_ewma"])
+    gb["phase_pair_ewma"] = np.zeros(
+        (MAX_PHASES,) + gb["wire_ewma"].shape, np.float32)
     for name, arr in pg.attrs.items():
         gb[f"attr_{name}"] = np.asarray(arr)
     return gb
@@ -117,11 +144,14 @@ def _decode_feeds(host_gb: dict):
 
 def device_block(host_gb: dict, device) -> dict:
     """Upload a host block to ``device`` as torch tensors, decoding the feed
-    maps to runtime flat indices (see _SLOT_STRIDE)."""
+    maps to runtime flat indices (see _SLOT_STRIDE). Host-only metadata
+    (_HOST_ONLY) stays behind."""
     device = torch.device(device)
     ib_lo, ib_hub = _decode_feeds(host_gb)
     out = {}
     for k, v in host_gb.items():
+        if k in _HOST_ONLY:
+            continue
         if k == "ib_lo":
             v = ib_lo
         elif k == "ib_hub":

@@ -13,11 +13,15 @@ The port of the JAX package's ``core/engine.py`` for the ``local`` backend:
   manager sync/resume/terminate       one host read of the halt vote per
                                       superstep
 
-Three wire disciplines (``exchange=``):
+Five wire disciplines (``exchange=``):
   'megastep'  the whole superstep — mailbox delivery, inbox combine, masked
               local fixpoint — fused into one call of ``kernels.megastep``
               (kernel K3) over flat state; the route 'auto' takes for every
-              program with a ``megastep_kind``
+              program with a ``megastep_kind``. With a ``PhasedTierPlan``
+              whose remaining band geometry fits the resident gate
+              (``kernels.megastep.resident_enter_round``), the run switches
+              to the RESIDENT narrow-phase mode: relaxation rounds of one
+              delivery and one sweep each, kernel K4 on the card
   'dense'     the staged route: the program's superstep (its sweeps are
               kernels K1/K2), then the exchange — pack every pair's full
               cap-slot row, route by transpose, gather-combine the inbox.
@@ -26,11 +30,32 @@ Three wire disciplines (``exchange=``):
   'compact'   the staged route with each pair row packed to the prefix of
               its active slots (kernel K5) and rebuilt at the receiver:
               bit-identical to 'dense', with a wire that tracks the frontier
+  'tiered'    the staged route with a ``core.tiers.TierPlan``: hot pairs
+              ship the dense row, warm/cold pairs a packed prefix truncated
+              to their tier width (kernel K5 with the plan's limits),
+              excluded pairs nothing. A pair that overflowed its width
+              makes the run repeat on 'dense' (bit-identical results) and
+              escalates the pair in ``engine.tier_plan``
+  'phased'    the tiered route with a ``PhasedTierPlan``: one segment of
+              the BSP loop per frontier band, each at its phase's tier
+              table; a superstep whose pack overflowed routes dense
+              instead, so no run repeats, and the spilling phase is
+              escalated afterwards
 
 Each BSP loop is a Python loop over supersteps; the telemetry stays on the
-device until the run ends, and the halt vote (how many partitions changed)
-is the only value the host reads per superstep. The fixpoint inside a
-staged superstep reads one "any frontier left" flag per sweep.
+device until the run ends, and the halt vote (how many partitions changed,
+stacked on the phased route with the demotion streak's count) is the only
+value the host reads per superstep. The fixpoint inside a staged superstep
+reads one "any frontier left" flag per sweep.
+
+Two telemetries for one resident run. The JAX package takes its Pallas
+kernel only on a TPU, so on a CPU it folds every resident round into the
+telemetry. The port picks by the tensors' device: on a CUDA tensor the
+resident rounds are ONE K4 launch, which reports totals only, so their
+``changed_hist`` and ``count_hist`` entries stay zero, exactly as on the
+TPU; on a CPU tensor every round is folded. ``supersteps``,
+``local_iters``, ``messages_sent``, ``pair_slots`` and the state agree in
+both cases.
 
 Everything else of the JAX engine raises ``NotImplementedError`` naming the
 ROADMAP item that brings it.
@@ -45,15 +70,12 @@ import torch
 
 from repro_torch.core import messages as msg
 from repro_torch.core.blocks import graph_block
+from repro_torch.core.tiers import DEMOTE_STREAK, PhasedTierPlan, TierPlan
 from repro_torch.gofs.formats import PartitionedGraph
-from repro_torch.kernels import flat
+from repro_torch.kernels import flat, ops
 from repro_torch.kernels import megastep as mega
 
 _EXCHANGES = ("auto", "compact", "dense", "tiered", "phased", "megastep")
-_NOT_YET = {
-    "tiered": "ROADMAP A3 (tiers, phased and resident)",
-    "phased": "ROADMAP A3 (tiers, phased and resident)",
-}
 
 
 def resolve_device(device) -> torch.device:
@@ -74,7 +96,7 @@ def resolve_device(device) -> torch.device:
 @dataclasses.dataclass
 class Telemetry:
     """What a run records (the JAX package's Telemetry fields of the
-    megastep, dense and compact routes)."""
+    local backend's single-query routes)."""
     supersteps: int
     local_iters: np.ndarray        # (P,) cumulative sweep iterations
     changed_hist: np.ndarray       # (supersteps,) #partitions changed
@@ -82,16 +104,36 @@ class Telemetry:
     # round-indexed (length supersteps + 1): round 0 is the inbox prime (the
     # initial state's messages), round s + 1 the exchange after superstep s.
     #   'dense'    PHYSICAL: the P²·cap buffer every round
+    #   'tiered'   PHYSICAL: the tier schedule's routed slots every round
+    #              (core.tiers.TierSchedule.round_slots)
+    #   'phased'   PHYSICAL: the round's phase's routed slots, or P²·cap on
+    #              a round that fell back to the dense route
     #   'compact'  MODELED payload: Σ packed counts per round
     #   'megastep' zeros: nothing is routed
     wire_hist: Optional[np.ndarray] = None
     wire_slots: int = 0            # Σ wire_hist
-    bytes_on_wire: int = 0         # model_bytes (0 on 'megastep')
+    bytes_on_wire: int = 0         # wire bytes under the route's model
     exchange: str = ""
     pair_slots: Optional[np.ndarray] = None    # (P, P) Σ active slot counts
     pair_rounds: int = 0                       # rounds pair_slots covers
+                                               # (the aborted tiered
+                                               # attempt's after a retry)
+    pair_overflow: Optional[np.ndarray] = None # (P, P) #rounds overflowed
+    spills: int = 0                            # Σ pair_overflow
+    escalations: int = 0                       # pairs promoted after spills
+    retried: bool = False                      # the tiered run was repeated
+                                               # on the dense route
     count_hist: Optional[np.ndarray] = None    # (supersteps + 1,) Σ counts;
                                                # None on 'dense'
+    # phased runs only
+    phase_hist: Optional[np.ndarray] = None    # (supersteps + 1,) phase of
+                                               # each round (round 0: 0)
+    phase_switch_steps: Optional[np.ndarray] = None  # supersteps at which
+                                               # the run entered a new phase
+    phase_wire: Optional[np.ndarray] = None    # (K,) routed slots per phase
+    phase_pair_slots: Optional[np.ndarray] = None    # (K, P, P) Σ counts
+    dense_retry_steps: int = 0                 # rounds routed dense after
+                                               # an in-phase overflow
 
     @staticmethod
     def model_bytes(slots: int, num_parts: int, rounds: int, cap: int,
@@ -99,7 +141,8 @@ class Telemetry:
         """The dense/compact comm-volume model of a single-query run: per
         round the dense exchange ships every pair row — P² · cap values at
         4 B — while the compact exchange ships, per pair, a count header
-        (4 B) plus count packed slots at 8 B (value and slot id) each."""
+        (4 B) plus count packed slots at 8 B (value and slot id) each. (The
+        tiered and phased routes use TierSchedule's geometry instead.)"""
         if not compact:
             return rounds * num_parts * num_parts * cap * 4
         return slots * 8 + rounds * num_parts * num_parts * 4
@@ -107,51 +150,116 @@ class Telemetry:
 
 class _Tally:
     """Device-side accumulators of one run's telemetry. ``pairs0`` is None
-    where the route observes no per-pair counts ('dense')."""
+    where the route observes no per-pair counts ('dense'); ``over0`` is the
+    prime's overflow flags on the tiered/phased routes. With ``phases=K``
+    (the phased route) the per-pair counts and overflow flags are kept per
+    phase, (P, K, P), beside each round's phase and the dense-retry
+    count."""
 
-    def __init__(self, P: int, max_s: int, nsent0, wire0, pairs0, device):
+    def __init__(self, P: int, max_s: int, nsent0, wire0, pairs0, device,
+                 over0=None, phases: Optional[int] = None, dstep0=None):
         self.liters = torch.zeros(P, dtype=torch.int32, device=device)
         self.hist = torch.zeros(max_s, dtype=torch.int32, device=device)
         self.whist = torch.zeros(max_s + 1, dtype=torch.int64, device=device)
         self.whist[0] = wire0
         self.sent = torch.as_tensor(nsent0, device=device).to(torch.int64)
-        self.pairs = self.chist = None
+        self.pairs = self.chist = self.over = None
+        self.phases = phases
         if pairs0 is not None:
             self.chist = torch.zeros(max_s + 1, dtype=torch.int32,
                                      device=device)
             self.chist[0] = pairs0.sum()
             self.pairs = pairs0.clone()
+        if over0 is not None:
+            self.over = over0.clone()
+        if phases is not None:
+            self.pairs = torch.zeros((P, phases, P), dtype=torch.int32,
+                                     device=device)
+            self.pairs[:, 0] = pairs0
+            self.over = torch.zeros_like(self.pairs)
+            self.over[:, 0] = over0
+            self.phist = torch.zeros(max_s + 1, dtype=torch.int32,
+                                     device=device)
+            self.dsteps = torch.as_tensor(dstep0, device=device).to(
+                torch.int64)
+            self.seg_end = [0] * phases
 
-    def fold(self, step: int, nchanged, liters, nsent, wire, pairs) -> None:
+    def fold(self, step: int, nchanged, liters, nsent, wire, pairs,
+             over=None, phase: Optional[int] = None, dstep=None) -> None:
         self.liters += liters
         self.hist[step] = nchanged
         self.whist[step + 1] = wire
         self.sent += nsent
         if self.pairs is not None:
             self.chist[step + 1] = pairs.sum()
-            self.pairs += pairs
+        if phase is None:
+            if self.pairs is not None:
+                self.pairs += pairs
+            if over is not None:
+                self.over += over
+        else:
+            self.pairs[:, phase] += pairs
+            self.over[:, phase] += over
+            self.phist[step + 1] = phase
+            self.dsteps += dstep
 
-    def telemetry(self, steps: int, exchange: str, num_parts: int,
-                  cap: int) -> Telemetry:
+    def telemetry(self, steps: int, exchange: str, num_parts: int, cap: int,
+                  plan=None) -> Telemetry:
+        """Close the tally of a run of ``steps`` supersteps on route
+        ``exchange``; ``plan`` is the tier plan the tiered/phased run
+        routed with (its schedules price the wire's bytes)."""
         rounds = steps + 1
         whist = self.whist[:rounds].cpu().numpy()
         wire = int(whist.sum())
-        if exchange == "megastep":
-            nbytes = 0
-        else:
-            nbytes = Telemetry.model_bytes(wire, num_parts, rounds, cap,
-                                           exchange == "compact")
         t = Telemetry(
             supersteps=steps,
             local_iters=self.liters.cpu().numpy(),
             changed_hist=self.hist[:steps].cpu().numpy(),
             messages_sent=int(self.sent),
-            wire_hist=whist, wire_slots=wire, bytes_on_wire=nbytes,
-            exchange=exchange)
+            wire_hist=whist, wire_slots=wire, exchange=exchange)
+        if self.chist is not None:
+            t.count_hist = self.chist[:rounds].cpu().numpy()
+        if self.phases is not None:
+            K = self.phases
+            phist = self.phist[:rounds].cpu().numpy()
+            # each round's routed value slots (wire totals them, retried
+            # rounds at dense geometry) plus each phase's index lanes for
+            # its rounds (a slight overcount on retried rounds — dense
+            # ships no ids)
+            rounds_k = np.bincount(phist, minlength=K)
+            scheds = [p.schedule(1) for p in plan.phase_plans()]
+            t.bytes_on_wire = int(
+                wire * 4 + sum(scheds[k].round_index_slots()
+                               * int(rounds_k[k]) * 4 for k in range(K)))
+            by_phase = np.transpose(self.pairs.cpu().numpy(), (1, 0, 2))
+            over_k = np.transpose(self.over.cpu().numpy(), (1, 0, 2))
+            t.phase_pair_slots = by_phase
+            t.pair_slots = by_phase.sum(0)
+            t.pair_overflow = over_k.sum(0)
+            t.pair_rounds = rounds
+            t.spills = int(over_k.sum())
+            t.phase_hist = phist
+            seg_end = np.asarray(self.seg_end)
+            t.phase_switch_steps = np.unique(
+                seg_end[:-1][seg_end[:-1] < steps])
+            pw = np.zeros(K, np.int64)
+            np.add.at(pw, phist, whist)       # round 0 (the prime) included
+            t.phase_wire = pw
+            t.dense_retry_steps = int(self.dsteps)
+            return t
+        if exchange == "megastep":
+            t.bytes_on_wire = 0
+        elif exchange == "tiered":
+            t.bytes_on_wire = plan.schedule(1).round_bytes(None) * rounds
+        else:
+            t.bytes_on_wire = Telemetry.model_bytes(
+                wire, num_parts, rounds, cap, exchange == "compact")
         if self.pairs is not None:
             t.pair_slots = self.pairs.cpu().numpy()
             t.pair_rounds = rounds
-            t.count_hist = self.chist[:rounds].cpu().numpy()
+        if self.over is not None:
+            t.pair_overflow = self.over.cpu().numpy()
+            t.spills = int(t.pair_overflow.sum())
         return t
 
 
@@ -170,22 +278,19 @@ class GopherEngine:
                 "multi-device backend)")
         if exchange not in _EXCHANGES:
             raise ValueError(f"unknown exchange {exchange!r}")
+        if tier_plan is not None and not isinstance(
+                tier_plan, (TierPlan, PhasedTierPlan)):
+            raise TypeError(f"tier_plan must be a TierPlan or a "
+                            f"PhasedTierPlan, got {type(tier_plan).__name__}")
         kind = getattr(program, "megastep_kind", None)
         if exchange == "auto":
             # 'local' + an eligible program -> the fused route; any other
             # program -> the staged dense route (the single-device
             # transpose is the whole wire, so no compaction pays)
             exchange = "megastep" if kind is not None else "dense"
-        if exchange in _NOT_YET:
-            raise NotImplementedError(
-                f"exchange {exchange!r} is not ported yet: {_NOT_YET[exchange]}")
         if exchange == "megastep" and kind is None:
             raise ValueError(
                 "program is not megastep-eligible (megastep_kind is None)")
-        if tier_plan is not None:
-            raise NotImplementedError(
-                "tier plans are not ported yet: ROADMAP A3 (tiers, phased "
-                "and resident)")
         if tracer is not None or metrics is not None:
             raise NotImplementedError(
                 "tracing and metrics are not ported yet: ROADMAP A7 "
@@ -193,6 +298,26 @@ class GopherEngine:
         if validate:
             raise NotImplementedError(
                 "static validation is not ported yet: ROADMAP A9 (sentinel)")
+        # plan/mode normalisation, both directions: a PhasedTierPlan under
+        # 'tiered' makes the run phased (a one-phase phased loop is the
+        # tiered exchange plus the per-superstep dense retry), a plain
+        # TierPlan under 'phased' wraps as a single phase
+        if exchange == "tiered" and isinstance(tier_plan, PhasedTierPlan):
+            exchange = "phased"
+        if exchange == "tiered" and tier_plan is None:
+            # the structural plan: every pair's width covers its most
+            # possible slots, so it never overflows
+            tier_plan = TierPlan.from_graph(pg)
+        if exchange == "phased":
+            if tier_plan is None:
+                tier_plan = PhasedTierPlan.from_graph(pg)
+            elif isinstance(tier_plan, TierPlan):
+                tier_plan = PhasedTierPlan.from_tier_plan(tier_plan)
+        # the megastep route keeps a plan too: a PhasedTierPlan's band
+        # geometry gates the resident narrow-phase mode
+        self.tier_plan = (tier_plan
+                          if exchange in ("tiered", "phased", "megastep")
+                          else None)
         self.pg = pg
         self.program = program
         self.max_supersteps = max_supersteps
@@ -239,26 +364,65 @@ class GopherEngine:
                 "run(extra=) is not ported yet: ROADMAP A4 (incremental "
                 "analytics)")
         if self.exchange == "megastep":
+            gb = None
             state, steps, tally = self._run_megastep(*self._gb_for_run())
         else:
-            state, steps, tally = self._run_batched(self._gb_for_staged())
-        state = {k: v.cpu().numpy() for k, v in state.items()}
-        return state, tally.telemetry(steps, self.exchange,
-                                      self.pg.num_parts, self.pg.mailbox_cap)
+            gb = self._gb_for_staged()
+            state, steps, tally = self._run_batched(gb)
+        return self._finish(state, steps, tally, gb)
 
     def run_queries(self, extra: Optional[dict] = None):
         raise NotImplementedError(
             "query-batched runs are not ported yet: ROADMAP A5 (serving)")
 
+    def _finish(self, state, steps: int, tally: "_Tally", gb):
+        """Close out a run. On the tiered route a pair whose active slots
+        exceeded its tier width had messages TRUNCATED, so the results
+        cannot be trusted: the repair is a rerun on the dense route
+        (bit-identical by construction) plus an escalation of the
+        overflowed pairs in ``self.tier_plan``, so the next run has the
+        width this pair just showed it needs. A phased run never reruns —
+        an overflowing superstep already routed dense — so it only
+        escalates the phases that spilled."""
+        P, cap = self.pg.num_parts, self.pg.mailbox_cap
+        t = tally.telemetry(steps, self.exchange, P, cap, self.tier_plan)
+        old = self.tier_plan
+        if t.spills and self.exchange == "phased":
+            over_k = np.transpose(tally.over.cpu().numpy(), (1, 0, 2))
+            for k in range(old.num_phases):
+                if over_k[k].any():
+                    self.tier_plan = self.tier_plan.escalate_phase(
+                        k, over_k[k] > 0)
+            t.escalations = self.tier_plan.escalations_from(old)
+        elif t.spills and self.exchange == "tiered":
+            self.tier_plan = old.escalate(t.pair_overflow > 0)
+            state, steps2, tally2 = self._run_batched(gb, mode="dense")
+            t2 = tally2.telemetry(steps2, "dense", P, cap)
+            t2.exchange = "tiered"
+            t2.retried = True
+            t2.spills = t.spills
+            t2.escalations = self.tier_plan.escalations_from(old)
+            t2.pair_overflow = t.pair_overflow
+            # the profile observation comes from the ABORTED tiered
+            # attempt, and pair_rounds records ITS round count
+            t2.pair_slots = t.pair_slots
+            t2.pair_rounds = steps + 1
+            # the aborted attempt's geometry crossed the wire too
+            t2.wire_slots += t.wire_slots
+            t2.bytes_on_wire += old.schedule(1).round_bytes(None) * (steps + 1)
+            t = t2
+        return {k: v.cpu().numpy() for k, v in state.items()}, t
+
     # ---------------- the staged route ----------------
 
-    def make_superstep(self, gb: dict):
+    def make_superstep(self, gb: dict, phase: Optional[int] = None,
+                       mode: Optional[str] = None):
         """One staged BSP superstep over all P partitions: ``sstep(state,
         inbox, step) -> (state, inbox, changed (P,), liters (P,), nsent,
         wire, extras)`` — the program's superstep, then the exchange of its
         new state (see :meth:`make_exchange`)."""
         prog = self.program
-        exchange = self.make_exchange(gb)
+        exchange = self.make_exchange(gb, phase=phase, mode=mode)
 
         def sstep(state, inbox, step):
             state, changed, liters = prog.superstep(state, inbox, gb, step)
@@ -267,12 +431,14 @@ class GopherEngine:
 
         return sstep
 
-    def make_exchange(self, gb: dict):
+    def make_exchange(self, gb: dict, phase: Optional[int] = None,
+                      mode: Optional[str] = None):
         """The mailbox half of a superstep: ``exchange(state) -> (inbox,
         nsent, wire, extras)``. Split out so the BSP loop can PRIME the first
         inbox from the initial state: without it superstep 0 would see an
         empty inbox, which for PageRank drops all remote mass from the first
-        iteration.
+        iteration. ``mode`` overrides the engine's exchange (the tiered
+        route's dense rerun); ``phase`` picks the phased plan's table.
 
         'dense'    every (src, dst) pair ships its full cap-slot row;
                    wire = P·P·cap a round, the routed buffer itself.
@@ -280,28 +446,46 @@ class GopherEngine:
                    slots (kernel K5) and rebuilt at the receiver by a
                    gather, so the inbox is bit-identical to 'dense';
                    wire = Σ counts, the modeled count-prefixed payload.
+        'tiered'   each pair row is packed and TRUNCATED to its tier width
+                   (kernel K5 with the plan's limits, which flags the rows
+                   that overflowed) and routed by ``messages.route_tiered``;
+                   wire = the schedule's round slots, static per plan.
+        'phased'   'tiered' at one phase's table, except that a superstep
+                   whose pack overflowed anywhere routes the dense rows
+                   instead: both routes are computed and one is selected
+                   on the device, so the choice costs no host read.
 
-        ``extras`` is {} on 'dense' and {'pairs': (P, P) counts} on
-        'compact', the per-pair observation ``Telemetry.pair_slots`` sums.
+        ``extras`` is {} on 'dense', {'pairs': (P, P) counts} on 'compact',
+        plus {'over': (P, P) overflow flags} on 'tiered', plus {'dstep':
+        0/1 dense-retry flag} on 'phased' — the per-pair observations the
+        telemetry sums.
         """
-        pack, route = self.make_exchange_stages(gb)
+        pack, route = self.make_exchange_stages(gb, phase=phase, mode=mode)
 
         def exchange(state):
             payload, nsent, wire, extras = pack(state)
-            return (route(payload), nsent, wire, extras)
+            inbox, rex = route(payload)
+            if rex:
+                wire = rex.get("wire", wire)
+                extras = dict(extras, **{k: v for k, v in rex.items()
+                                         if k != "wire"})
+            return inbox, nsent, wire, extras
 
         return exchange
 
-    def make_exchange_stages(self, gb: dict):
+    def make_exchange_stages(self, gb: dict, phase: Optional[int] = None,
+                             mode: Optional[str] = None):
         """The exchange split at its network boundary: ``pack(state) ->
         (payload, nsent, wire, extras)`` builds the messages and the
-        payload that would cross the wire; ``route(payload) -> inbox``
-        transposes it to the receivers and combines their inboxes."""
+        payload that would cross the wire; ``route(payload) -> (inbox,
+        route_extras)`` routes it to the receivers and combines their
+        inboxes. ``route_extras`` is {} except on 'phased': {'wire': the
+        round's routed slots, 'dstep': the 0/1 dense-retry flag}."""
         prog = self.program
         P, cap, v_max = self.pg.num_parts, self.pg.mailbox_cap, self.pg.v_max
         combine = prog.combine
-        mode = self.exchange
-        if mode not in ("dense", "compact"):
+        mode = mode or self.exchange
+        if mode not in ("dense", "compact", "tiered", "phased"):
             raise ValueError(f"the {mode!r} route has no staged exchange")
 
         def finish(iv):
@@ -317,8 +501,10 @@ class GopherEngine:
 
             def route(payload):
                 (slot_vals,) = payload
-                return finish(msg.route_local(slot_vals))
-        else:
+                return finish(msg.route_local(slot_vals)), {}
+            return pack, route
+
+        if mode == "compact":
             def pack(state):
                 vals, send = prog.messages(state, gb)
                 pvals, pinv, counts = msg.build_outbox_compact(
@@ -331,28 +517,138 @@ class GopherEngine:
             def route(payload):
                 pvals, pinv = payload
                 return finish(msg.unpack_slots(msg.route_local(pvals),
-                                               msg.route_local(pinv), combine))
+                                               msg.route_local(pinv),
+                                               combine)), {}
+            return pack, route
+
+        # tiered / phased
+        plan = self.tier_plan
+        if mode == "phased":
+            if phase is None:
+                raise ValueError("the phased exchange needs a phase index")
+            plan = plan.phase_plans()[phase]
+        if plan.num_parts != P or plan.cap != cap:
+            raise ValueError("the tier plan was built for another graph "
+                             "geometry")
+        dev = gb["ob_inv"].device
+        sched = plan.schedule(1)
+        tables = msg.tiered_tables(sched, dev)
+        limits = torch.from_numpy(plan.limits().reshape(-1)).to(dev)
+        ident = flat.COMBINE_IDENTITY[combine]
+        slots = sched.device_round_slots()
+        R = P * P
+
+        def pack(state):
+            vals, send = prog.messages(state, gb)
+            slot_vals = msg.build_outbox_gather(vals, send, gb["ob_inv"], P,
+                                                cap, combine)
+            act = msg.active_slots(send, gb["ob_inv"], P, cap)
+            # the pack truncates each row to its tier width and flags the
+            # rows whose active slots did not fit
+            pvals, sids, _, counts, over = ops.outbox_pack(
+                slot_vals.reshape(R, cap), act.reshape(R, cap), limits, ident)
+            return ((slot_vals, pvals, sids, over), send.sum(), slots,
+                    {"pairs": counts.reshape(P, P),
+                     "over": over.reshape(P, P)})
+
+        def route(payload):
+            slot_vals, pvals, sids, over = payload
+            iv = msg.route_tiered(slot_vals, pvals.reshape(P, P, cap),
+                                  sids.reshape(P, P, cap), sched, combine,
+                                  tables=tables)
+            if mode == "tiered":
+                return finish(iv), {}
+            # phased: on one device the dense route is a transpose, so both
+            # are computed and the overflow flag selects on the device
+            retry = (over > 0).any()
+            iv = torch.where(retry, msg.route_local(slot_vals), iv)
+            dstep = retry.int()
+            return finish(iv), {"wire": slots + dstep * (R * cap - slots),
+                                "dstep": dstep}
 
         return pack, route
 
-    def _run_batched(self, gb: dict):
+    def _run_batched(self, gb: dict, mode: Optional[str] = None):
         """The staged BSP loop: prime the inbox from the initial state, then
-        superstep + exchange until no partition changed."""
+        superstep + exchange until no partition changed. ``mode`` overrides
+        the engine's exchange (the tiered route's dense rerun)."""
+        mode = mode or self.exchange
+        if mode == "phased":
+            return self._run_phased(gb)
         prog = self.program
         P = self.pg.num_parts
         max_s = self.max_supersteps
-        sstep = self.make_superstep(gb)
+        sstep = self.make_superstep(gb, mode=mode)
         state = prog.init(gb)
-        inbox, nsent0, wire0, ex0 = self.make_exchange(gb)(state)
-        tally = _Tally(P, max_s, nsent0, wire0, ex0.get("pairs"), self.device)
+        inbox, nsent0, wire0, ex0 = self.make_exchange(gb, mode=mode)(state)
+        tally = _Tally(P, max_s, nsent0, wire0, ex0.get("pairs"), self.device,
+                       over0=ex0.get("over"))
         step, done = 0, False
         while not done and step < max_s:
             state, inbox, changed, liters, nsent, wire, ex = sstep(
                 state, inbox, step)
             nchanged = changed.sum()
-            tally.fold(step, nchanged, liters, nsent, wire, ex.get("pairs"))
+            tally.fold(step, nchanged, liters, nsent, wire, ex.get("pairs"),
+                       over=ex.get("over"))
             step += 1
             done = int(nchanged) == 0    # the superstep's one host read
+        return state, step, tally
+
+    def _run_phased(self, gb: dict):
+        """Gopher Phases: the staged BSP loop as K SEGMENTS, one per phase
+        of the PhasedTierPlan, each exchanging at its phase's tier table;
+        the (state, inbox, halt vote) carry flows straight across segment
+        boundaries. A segment ends when
+
+          * the predicted boundary arrives: boundaries are in ROUND units
+            (superstep s ships round s + 1), so the segment goes on while
+            round step + 1 is below ``boundaries[k]``;
+          * the DEMOTION trigger fires: the observed per-pair counts fit
+            under the NEXT phase's limits for ``DEMOTE_STREAK`` supersteps
+            in a row (the frontier contracted ahead of prediction);
+          * the global halt vote lands (every later segment then runs no
+            superstep).
+
+        The demotion streak's violation count is stacked with the halt
+        vote, so a superstep still reads the host once."""
+        prog = self.program
+        plan: PhasedTierPlan = self.tier_plan
+        phases = plan.phase_plans()
+        K = plan.num_phases
+        bounds = plan.boundaries
+        P = self.pg.num_parts
+        max_s = self.max_supersteps
+        ssteps = [self.make_superstep(gb, phase=k) for k in range(K)]
+        state = prog.init(gb)
+        inbox, nsent0, wire0, ex0 = self.make_exchange(gb, phase=0)(state)
+        tally = _Tally(P, max_s, nsent0, wire0, ex0["pairs"], self.device,
+                       over0=ex0["over"], phases=K, dstep0=ex0["dstep"])
+        zero = torch.zeros((), dtype=torch.int64, device=self.device)
+        step, done = 0, False
+        for k in range(K):
+            nlim = (torch.from_numpy(phases[k + 1].limits()).to(self.device)
+                    if k < K - 1 else None)
+            streak = 0
+            while (not done and step < max_s
+                   and (k == K - 1
+                        or (step + 1 < bounds[k]
+                            and streak < DEMOTE_STREAK))):
+                state, inbox, changed, liters, nsent, wire, ex = ssteps[k](
+                    state, inbox, step)
+                nchanged = changed.sum()
+                viol = ((ex["pairs"] > nlim).sum() if nlim is not None
+                        else zero)
+                tally.fold(step, nchanged, liters, nsent, wire, ex["pairs"],
+                           over=ex["over"], phase=k, dstep=ex["dstep"])
+                step += 1
+                # the superstep's one host read: halt vote and streak
+                nch, nviol = torch.stack([nchanged.to(torch.int64),
+                                          viol.to(torch.int64)]).tolist()
+                done = nch == 0
+                # a dense-retried superstep's counts are real demand, so
+                # they count like any other round
+                streak = streak + 1 if nviol == 0 else 0
+            tally.seg_end[k] = step
         return state, step, tally
 
     # ---------------- the fused route ----------------
@@ -363,7 +659,15 @@ class GopherEngine:
         from the previous round's send set, so the initial state's messages
         need no separate prime. Telemetry mirrors the JAX fused route:
         ``pairs``/``count_hist`` are the logical frontier observation and
-        ``wire_*`` are zero — nothing ships through buffers."""
+        ``wire_*`` are zero — nothing ships through buffers.
+
+        With a PhasedTierPlan whose band suffix fits the resident gate
+        (scalar semiring programs), the rest of the run is in RESIDENT mode
+        from superstep ``enter`` on: relaxation rounds of one delivery and
+        one sweep each, which reach the same bitwise fixpoint. On a CUDA
+        tensor they are ONE launch of K4, whose telemetry is totals only
+        (no per-round histogram entries), as on the TPU; on a CPU tensor
+        every round is folded (see the module docstring)."""
         prog = self.program
         P, v_max = cm["num_parts"], cm["v_max"]
         max_s = self.max_supersteps
@@ -391,20 +695,51 @@ class GopherEngine:
             state = {"r": r.reshape(P, v_max), "delta": delta.expand(P)}
             return state, step, tally
 
+        semiring = prog.semiring
         x = state0["x"].reshape(-1).contiguous()
         ch = state0["changed_v"].reshape(-1).contiguous()
         fr = state0["frontier"].reshape(-1).contiguous()
         pairs0, nsent0 = mega.round_stats(ch, cm)
         tally = _Tally(P, max_s, nsent0, 0, pairs0, self.device)
-        step, done = 0, False
-        while not done and step < max_s:
-            x, ch, fr, li = mega.megastep_semiring(
-                x, ch, fr, cm, prog.semiring, unroll=prog.fixpoint_unroll)
-            pairs, nsent = mega.round_stats(ch, cm)
-            nchanged = ch.reshape(P, v_max).any(dim=1).sum()
+
+        def fold(step, ch2, li):
+            pairs, nsent = mega.round_stats(ch2, cm)
+            nchanged = ch2.reshape(P, v_max).any(dim=1).sum()
             tally.fold(step, nchanged, li, nsent, 0, pairs)
+            return int(nchanged) == 0    # the superstep's one host read
+
+        # the resident gate: the earliest superstep from which every
+        # remaining phase band's predicted round geometry fits (None
+        # without a PhasedTierPlan, or when no suffix fits)
+        enter = None
+        if isinstance(self.tier_plan, PhasedTierPlan):
+            rb = [p.schedule(1).round_bytes(None)
+                  for p in self.tier_plan.phase_plans()]
+            enter = mega.resident_enter_round(rb, self.tier_plan.boundaries)
+        bsp_end = max_s if enter is None else min(enter, max_s)
+        step, done = 0, False
+        while not done and step < bsp_end:
+            x, ch, fr, li = mega.megastep_semiring(
+                x, ch, fr, cm, semiring, unroll=prog.fixpoint_unroll)
+            done = fold(step, ch, li)
             step += 1
-            done = int(nchanged) == 0    # the superstep's one host read
+        if not done and step < max_s:
+            if x.is_cuda:
+                # one K4 launch for the rest of the run; telemetry is
+                # totals for these rounds
+                x, ch, fr, it, li = mega.resident_megastep(
+                    x, ch, fr, cm, semiring, max_s - step)
+                pairs, nsent = mega.round_stats(ch, cm)
+                tally.liters += li
+                tally.sent += nsent
+                tally.pairs += pairs
+                step += int(it)
+            else:
+                while not done and step < max_s:
+                    x, ch, fr, ap = mega.resident_step_semiring(
+                        x, ch, fr, cm, semiring)
+                    done = fold(step, ch, ap.int())
+                    step += 1
         state = {"x": x.reshape(P, v_max), "changed_v": ch.reshape(P, v_max),
                  "frontier": fr.reshape(P, v_max)}
         return state, step, tally

@@ -19,9 +19,13 @@ leading partition axis out.
   exchange: each pair row is packed to the prefix of its active slots
   (``kernels.ops.outbox_pack``, kernel K5 on the card) and rebuilt at the
   receiver by a gather, bit-identical to the dense exchange.
+- :func:`route_tiered` is the tiered exchange's route along a
+  ``core.tiers.TierSchedule``: hot pairs ship the dense row, warm and cold
+  pairs their packed tier-width prefix, excluded pairs nothing.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.gofs.formats import PAD
@@ -166,6 +170,82 @@ def route_local(outbox_vals):
     return outbox_vals.transpose(0, 1)
 
 
+# ---------------- the tiered exchange ----------------
+
+def tiered_tables(sched, device) -> dict:
+    """The index tensors :func:`route_tiered` moves rows by, from a
+    one-device ``core.tiers.TierSchedule`` (its numpy tables, PAD entries
+    dropped): ``hot_src``/``hot_dst`` the sender's outbox row and the
+    receiver's inbox row of every hot pair (the uniform block and the
+    residual shifts), and per warm/cold shift the same pair of row lists.
+    Built once per run, so no superstep copies a table to the device."""
+    if sched.D != 1:
+        raise NotImplementedError(
+            "tier schedules over several devices are not ported yet: "
+            "ROADMAP A8 (the multi-device backend)")
+
+    def pairs(send, recv):
+        send, recv = np.asarray(send).reshape(-1), np.asarray(recv).reshape(-1)
+        keep = (send != PAD) & (recv != PAD)
+        return (torch.from_numpy(send[keep].astype(np.int64)).to(device),
+                torch.from_numpy(recv[keep].astype(np.int64)).to(device))
+
+    hot = [pairs(sched.hot_send[0], sched.hot_recv[0])] if sched.hot_h else []
+    hot += [pairs(st[0], rt[0]) for _, _, st, rt in sched.hot_res_shifts]
+    hot_src = torch.cat([a for a, _ in hot]) if hot else None
+    hot_dst = torch.cat([b for _, b in hot]) if hot else None
+    return {"hot_src": hot_src, "hot_dst": hot_dst,
+            "packed": [(sched.warm_cap, pairs(st[0], rt[0]))
+                       for _, _, st, rt in sched.warm_shifts]
+                      + [(1, pairs(st[0], rt[0]))
+                         for _, _, st, rt in sched.cold_shifts]}
+
+
+def route_tiered(dense_vals, pvals, sids, sched, combine: str,
+                 axis_name=None, tables=None):
+    """Route one superstep's outboxes along the tier schedule, on one
+    device (D = 1: every "shift" is local and no collective runs).
+
+    dense_vals (v, P, cap)  gather-form dense slot values (hot rows ship
+                            these as they are — no slot ids travel)
+    pvals      (v, P, cap)  packed prefixes (warm/cold rows ship their
+                            first tier-width columns)
+    sids       (v, P, cap)  packed position -> slot id maps
+    sched                   a one-device ``core.tiers.TierSchedule``
+    tables                  its :func:`tiered_tables` (built here if None)
+
+    Returns the received dense slot array (v, P, cap): every occupied slot
+    of a routed pair holds its exact value, everything else the
+    ⊕-identity, so when no pair overflowed its tier width it is
+    bit-identical to :func:`route_local`'s delivery. A write the JAX
+    package drops (``mode="drop"``) goes to one extra sink slot past the
+    end, which is cut off; each real slot is written at most once."""
+    if axis_name is not None:
+        raise NotImplementedError(
+            "route_tiered over a mesh axis is not ported yet: ROADMAP A8 "
+            "(the multi-device backend)")
+    if tables is None:
+        tables = tiered_tables(sched, dense_vals.device)
+    ident = COMBINE_IDENTITY[combine]
+    v, P, cap = dense_vals.shape
+    rows = v * P
+    out = torch.full((rows + 1, cap), ident, dtype=dense_vals.dtype,
+                     device=dense_vals.device)
+    if tables["hot_src"] is not None:
+        out[tables["hot_dst"]] = dense_vals.reshape(rows, cap)[
+            tables["hot_src"]]
+    flat = out.reshape(-1)
+    pflat = pvals.reshape(rows, cap)
+    iflat = sids.reshape(rows, cap)
+    for width, (src, dst) in tables["packed"]:
+        bv = pflat[src][:, :width]
+        bi = iflat[src][:, :width]
+        pos = torch.where(bi != PAD, dst[:, None] * cap + bi.long(),
+                          rows * cap)                  # the sink slot
+        flat[pos.reshape(-1)] = bv.reshape(-1)
+    return out[:rows].reshape(v, P, cap)
+
+
 # ---------------- not ported yet ----------------
 
 def _not_ported(name: str, item: str):
@@ -184,5 +264,3 @@ build_outbox_compact_batched = _not_ported("build_outbox_compact_batched",
 unpack_slots_batched = _not_ported("unpack_slots_batched", "A5 (serving)")
 route_shard_map = _not_ported("route_shard_map",
                               "A8 (the multi-device backend)")
-route_tiered = _not_ported("route_tiered",
-                           "A3 (tiers, phased and resident)")

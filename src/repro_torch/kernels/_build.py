@@ -29,8 +29,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 launches = {"semiring_spmv": 0, "semiring_spmv_frontier": 0,
-            "megastep_semiring": 0, "outbox_pack": 0,
-            "outbox_compact_plan": 0}
+            "megastep_semiring": 0, "resident_megastep": 0,
+            "outbox_pack": 0, "outbox_compact_plan": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -135,6 +135,10 @@ def _declare(lib) -> None:
     #  v_max, unroll, min_plus, device; stream)
     lib.megastep_semiring_launch.argtypes = [vp] * 21 + [i32] * 9 + [vp]
     lib.megastep_semiring_launch.restype = i32
+    # (14 inputs, 8 outputs and scratch; n, d, m_lo, m_hi, num_parts,
+    #  v_max, max_steps, min_plus, device; stream)
+    lib.resident_megastep_launch.argtypes = [vp] * 22 + [i32] * 9 + [vp]
+    lib.resident_megastep_launch.restype = i32
     lib.kernel_error_string.argtypes = [i32]
     lib.kernel_error_string.restype = ctypes.c_char_p
 

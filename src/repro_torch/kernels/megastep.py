@@ -17,6 +17,13 @@ The port of the JAX package's ``kernels/megastep.py`` for scalar programs:
   ``kernels.flat.local_fixpoint`` over the plain masked sweep.
 - :func:`megastep_pagerank` is one PageRank superstep; its pull is
   ``kernels.flat.sweep_flat_dense``, kernel K1 on the card.
+- :func:`resident_megastep` runs the resident narrow-phase mode: many
+  relaxation rounds (:func:`resident_step_semiring`: one delivery and ONE
+  masked sweep each) until a round changes nothing or ``max_steps``. On a
+  CUDA tensor it is ONE launch of kernel K4
+  (:func:`resident_megastep_cuda`); on a CPU tensor the plain loop
+  :func:`resident_megastep_ref`. :func:`resident_enter_round` decides where
+  a run switches to it.
 
 Exactness: for idempotent ⊕ (min/max) every value is a ⊕-fold of the same
 multiset of path sums, and float32 min/max are order-independent, so the
@@ -33,6 +40,16 @@ from repro_torch.kernels.flat import (COMBINE_IDENTITY, combine_ew,
                                       combine_reduce, flat_adjacency,
                                       idempotent_combine, local_fixpoint,
                                       sweep_flat_dense)
+from repro_torch.kernels.ref import semiring_spmv_frontier_ref
+
+# The resident mode's gate: the mode may take over where every remaining
+# phase band's predicted round geometry is at most this many bytes. It is
+# the JAX package's threshold (MEGASTEP_VMEM_BUDGET, the TPU's room for the
+# mailbox in VMEM), kept so the port switches where the reference does —
+# the switch sets the run's superstep count and telemetry. It is not a
+# capacity of this card: K4 keeps its state in HBM and L2. Read when
+# resident_enter_round is called, so a caller can lower it.
+RESIDENT_ROUND_BYTES_BUDGET = 4 * 2 ** 20
 
 
 # ---------------- composed routing maps ----------------
@@ -197,17 +214,11 @@ _K3_INPUTS = (  # (name, dtype) of the mailbox entries K3 reads, in order
     ("hub_row", torch.int32), ("hub_row_ok", torch.bool))
 
 
-def megastep_semiring_cuda(x, changed, frontier, cm: dict, semiring: str,
-                           unroll: int = 1):
-    """The fused superstep as ONE cooperative launch of kernel K3 — same
-    contract and bits as :func:`megastep_semiring_ref`."""
-    idempotent_combine(semiring)
-    if unroll < 1:
-        raise ValueError("unroll must be >= 1")
-    if not x.is_cuda:
-        raise ValueError(f"kernel K3 needs CUDA tensors, got {x.device}")
+def _check_k3_k4_inputs(x, changed, frontier, cm: dict, kernel: str):
+    """Raise unless the state and the mailbox entries are what K3 and K4
+    take: on x's device, of the right dtype and shape, contiguous."""
     dev = x.device
-    n, P, v_max = cm["n"], cm["num_parts"], cm["v_max"]
+    n = cm["n"]
     d, m_lo = cm["nbr"].shape[1], cm["lo_src"].shape[1]
     h, m_hi = cm["hub_src"].shape
     shapes = {"vmask": (n,), "nbr": (n, d), "wgt": (n, d),
@@ -220,7 +231,24 @@ def megastep_semiring_cuda(x, changed, frontier, cm: dict, semiring: str,
     for name, dtype in _K3_INPUTS:
         _build.need(cm[name], name, dtype, dev, shapes[name])
     if max(n * d, n * m_lo, h * m_hi) >= 2 ** 31:
-        raise ValueError("kernel K3 indexes with int32: n·D must be < 2^31")
+        raise ValueError(f"kernel {kernel} indexes with int32: n·D must be "
+                         f"< 2^31")
+
+
+def megastep_semiring_cuda(x, changed, frontier, cm: dict, semiring: str,
+                           unroll: int = 1):
+    """The fused superstep as ONE cooperative launch of kernel K3 — same
+    contract and bits as :func:`megastep_semiring_ref`."""
+    idempotent_combine(semiring)
+    if unroll < 1:
+        raise ValueError("unroll must be >= 1")
+    if not x.is_cuda:
+        raise ValueError(f"kernel K3 needs CUDA tensors, got {x.device}")
+    dev = x.device
+    n, P, v_max = cm["n"], cm["num_parts"], cm["v_max"]
+    d, m_lo = cm["nbr"].shape[1], cm["lo_src"].shape[1]
+    m_hi = cm["hub_src"].shape[1]
+    _check_k3_k4_inputs(x, changed, frontier, cm, "K3")
     x_out = torch.empty_like(x)
     ch_out = torch.empty(n, dtype=torch.bool, device=dev)
     fr_out = torch.empty(n, dtype=torch.bool, device=dev)
@@ -276,3 +304,114 @@ def megastep_pagerank(r, cm: dict, deg, tele, n_global: int, damping: float,
         0.0)
     delta = (r_new - r).abs().reshape(P, -1).sum(dim=1).sum()
     return r_new, delta, step + 1 < num_iters
+
+
+# ---------------- the resident narrow-phase mode ----------------
+
+def resident_step_semiring(x, changed, frontier, cm: dict, semiring: str):
+    """One relaxation round of the resident narrow-phase loop: deliver
+    pending news, then a SINGLE masked sweep (local consequences settle
+    across rounds instead of per-superstep fixpoints — chaotic relaxation).
+    Every improvement is rebroadcast the following round, so the loop
+    converges to the same unique ⊕-fixpoint as the BSP schedule, bitwise
+    for idempotent ⊕. ``changed2``/``frontier2`` keep the BSP state
+    contract (pending sends, locally unsettled rows), so a later superstep
+    can take over. Returns ``(x2, changed2, frontier2, active_p)``;
+    ``active_p`` (P,) bool marks the partitions with a frontier."""
+    combine = idempotent_combine(semiring)
+    vm = cm["vmask"]
+    inbox = deliver_flat(x, changed, cm, combine, semiring == "min_plus")
+    x1 = combine_ew(combine, x, inbox)
+    f = frontier | ((x1 != x) & vm)
+    y, _ = semiring_spmv_frontier_ref(x1, f, cm["nbr"], cm["wgt"], semiring)
+    x2 = combine_ew(combine, x1, y)
+    active_p = f.reshape(cm["num_parts"], -1).any(dim=1)
+    return x2, (x2 != x) & vm, (x2 != x1) & vm, active_p
+
+
+def resident_enter_round(phase_round_bytes, boundaries, budget=None):
+    """Earliest superstep from which the resident narrow-phase mode may
+    take over: the start of the first phase band such that EVERY remaining
+    band's predicted per-round wire geometry fits ``budget`` (default
+    :data:`RESIDENT_ROUND_BYTES_BUDGET`). The frontier only contracts
+    across bands by construction, but a non-monotone profile keeps the
+    conservative suffix rule honest. Returns None when no suffix fits."""
+    if budget is None:
+        budget = RESIDENT_ROUND_BYTES_BUDGET
+    k0 = None
+    for k in range(len(phase_round_bytes) - 1, -1, -1):
+        if phase_round_bytes[k] <= budget:
+            k0 = k
+        else:
+            break
+    if k0 is None:
+        return None
+    return 0 if k0 == 0 else int(boundaries[k0 - 1])
+
+
+def resident_megastep_ref(x, changed, frontier, cm: dict, semiring: str,
+                          max_steps: int):
+    """The plain resident loop: :func:`resident_step_semiring` rounds while
+    any vertex changed in the last round and fewer than ``max_steps`` rounds
+    ran. Returns ``(x2, changed2, frontier2, iters, liters)``: ``iters`` a
+    0-d int32 tensor, ``liters`` (P,) int32, where each round adds 1 to
+    every partition whose frontier was non-empty."""
+    li = torch.zeros(cm["num_parts"], dtype=torch.int32, device=x.device)
+    it = 0
+    while it < max_steps and bool(changed.any()):
+        x, changed, frontier, ap = resident_step_semiring(x, changed,
+                                                          frontier, cm,
+                                                          semiring)
+        li += ap.int()
+        it += 1
+    return (x, changed, frontier,
+            torch.tensor(it, dtype=torch.int32, device=x.device), li)
+
+
+def resident_megastep_cuda(x, changed, frontier, cm: dict, semiring: str,
+                           max_steps: int):
+    """The resident loop as ONE cooperative launch of kernel K4 — same
+    contract and bits as :func:`resident_megastep_ref`."""
+    idempotent_combine(semiring)
+    if not 0 <= max_steps < 2 ** 31:
+        raise ValueError(f"max_steps must be in [0, 2^31), got {max_steps}")
+    if not x.is_cuda:
+        raise ValueError(f"kernel K4 needs CUDA tensors, got {x.device}")
+    dev = x.device
+    n, P, v_max = cm["n"], cm["num_parts"], cm["v_max"]
+    d, m_lo = cm["nbr"].shape[1], cm["lo_src"].shape[1]
+    m_hi = cm["hub_src"].shape[1]
+    _check_k3_k4_inputs(x, changed, frontier, cm, "K4")
+    x_out = torch.empty_like(x)
+    ch_out = torch.empty(n, dtype=torch.bool, device=dev)
+    fr_out = torch.empty(n, dtype=torch.bool, device=dev)
+    iters = torch.empty((), dtype=torch.int32, device=dev)
+    liters = torch.empty(P, dtype=torch.int32, device=dev)
+    x_tmp = torch.empty_like(x)
+    f_tmp = torch.empty(n, dtype=torch.bool, device=dev)
+    flags = torch.zeros(3 * (P + 1) + 1, dtype=torch.int32, device=dev)
+    lib = _build.library()
+    err = lib.resident_megastep_launch(
+        x.data_ptr(), changed.data_ptr(), frontier.data_ptr(),
+        *(cm[name].data_ptr() for name, _ in _K3_INPUTS),
+        x_out.data_ptr(), ch_out.data_ptr(), fr_out.data_ptr(),
+        iters.data_ptr(), liters.data_ptr(), x_tmp.data_ptr(),
+        f_tmp.data_ptr(), flags.data_ptr(), n, d, m_lo, m_hi, P, v_max,
+        max_steps, int(semiring == "min_plus"), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "resident_megastep")
+    _build.launches["resident_megastep"] += 1
+    return x_out, ch_out, fr_out, iters, liters
+
+
+def resident_megastep(x, changed, frontier, cm: dict, semiring: str,
+                      max_steps: int):
+    """The resident narrow-phase loop: kernel K4 for a CUDA tensor, the
+    plain version for a CPU tensor; any other device raises."""
+    if x.is_cuda:
+        return resident_megastep_cuda(x, changed, frontier, cm, semiring,
+                                      max_steps)
+    if x.device.type == "cpu":
+        return resident_megastep_ref(x, changed, frontier, cm, semiring,
+                                     max_steps)
+    raise ValueError(f"resident_megastep has no path for device {x.device}")

@@ -12,8 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (SemiringProgram, graph_block, init_max_vertex,
-                              make_sssp_init)
+from repro_torch.core import (GopherEngine, PhasedTierPlan, SemiringProgram,
+                              graph_block, init_max_vertex, make_sssp_init)
 from repro_torch.gofs import (bfs_grow_partition, partition_graph,
                               powerlaw_social)
 from repro_torch.gofs.formats import PAD
@@ -85,6 +85,61 @@ def test_k3_megastep_matches_plain(cuda_device, semiring, unroll):
         if not bool(ch.any()):
             break
     assert not bool(ch.any())
+
+
+@pytest.mark.parametrize("max_steps", [4096, 2])
+@pytest.mark.parametrize("semiring", ["max_first", "min_plus"])
+def test_k4_resident_megastep_matches_plain(cuda_device, semiring,
+                                            max_steps):
+    """K4 from the init state and after one K3 superstep, on a graph with
+    hub feed rows; ``max_steps=2`` cuts the loop before it quiesces."""
+    g = powerlaw_social(3000, m=5, seed=2)
+    pg = partition_graph(g, bfs_grow_partition(g, 4, seed=0), 4)
+    gb = graph_block(pg, cuda_device)
+    cm = mega.compose_mailbox(gb)
+    init = (init_max_vertex if semiring == "max_first"
+            else make_sssp_init(int(pg.part_of[0]), int(pg.local_of[0])))
+    st = SemiringProgram(semiring=semiring, init_fn=init).init(gb)
+    x, ch, fr = (st[k].reshape(-1).contiguous()
+                 for k in ("x", "changed_v", "frontier"))
+    after = mega.megastep_semiring_cuda(x, ch, fr, cm, semiring)[:3]
+    for start, (x, ch, fr) in enumerate(((x, ch, fr), after)):
+        before = _build.launches["resident_megastep"]
+        got = mega.resident_megastep_cuda(x, ch, fr, cm, semiring, max_steps)
+        want = mega.resident_megastep_ref(x, ch, fr, cm, semiring, max_steps)
+        torch.cuda.synchronize()
+        assert _build.launches["resident_megastep"] == before + 1
+        for g_, w_ in zip(got, want):
+            assert torch.equal(g_, w_)
+        rounds, quiet = int(got[3]), not bool(got[1].any())
+        assert rounds <= max_steps and (rounds == max_steps or quiet)
+        if max_steps == 2 and start == 0:
+            assert rounds == 2 and not quiet      # the cut from init
+        if max_steps > 2:
+            assert quiet
+
+
+@pytest.mark.parametrize("semiring", ["max_first", "min_plus"])
+def test_engine_resident_mode_is_one_k4_launch(cuda_device, semiring):
+    """exchange='megastep' with a PhasedTierPlan that fits the resident
+    gate: the whole run is ONE K4 launch, with the CPU run's results,
+    supersteps and sweeps."""
+    g = powerlaw_social(3000, m=5, seed=2)
+    pg = partition_graph(g, bfs_grow_partition(g, 4, seed=0), 4)
+    init = (init_max_vertex if semiring == "max_first"
+            else make_sssp_init(int(pg.part_of[0]), int(pg.local_of[0])))
+    prog = SemiringProgram(semiring=semiring, init_fn=init)
+    plan = PhasedTierPlan.from_graph(pg)
+    _build.reset_launches()
+    s, t = GopherEngine(pg, prog, exchange="megastep", tier_plan=plan,
+                        device=cuda_device).run()
+    assert _build.launches["resident_megastep"] == 1
+    assert _build.launches["megastep_semiring"] == 0
+    sc, tc = GopherEngine(pg, prog, exchange="megastep", tier_plan=plan,
+                          device="cpu").run()
+    assert np.array_equal(s["x"], sc["x"])
+    assert t.supersteps == tc.supersteps
+    assert np.array_equal(t.local_iters, tc.local_iters)
 
 
 @pytest.mark.parametrize("density", [0.0, 0.01, 0.5, 1.0])

@@ -25,7 +25,8 @@ from repro.gofs.formats import partition_graph  # noqa: E402
 
 import repro_torch.algorithms as talg  # noqa: E402
 from repro_torch.core import (GopherEngine, PageRankProgram,  # noqa: E402
-                              SemiringProgram, init_max_vertex)
+                              PhasedTierPlan, SemiringProgram,
+                              init_max_vertex)
 from repro_torch.gofs.formats import partitioned_graph_from_fields  # noqa: E402
 
 GRAPHS = {
@@ -153,12 +154,12 @@ UNSUPPORTED = {
                                         exchange="compact",
                                         device="cpu").run(), None),
     "tiered": (lambda pg: GopherEngine(pg, _cc_program(), exchange="tiered",
-                                       device="cpu"), "ROADMAP A3"),
+                                       device="cpu").run(), None),
     "phased": (lambda pg: GopherEngine(pg, _cc_program(), exchange="phased",
-                                       device="cpu"), "ROADMAP A3"),
-    "tier_plan": (lambda pg: GopherEngine(pg, _cc_program(),
-                                          tier_plan=object(), device="cpu"),
-                  "ROADMAP A3"),
+                                       device="cpu").run(), None),
+    "tier_plan": (lambda pg: GopherEngine(
+        pg, _cc_program(), tier_plan=PhasedTierPlan.from_graph(pg),
+        device="cpu").run(), None),
     "tracer": (lambda pg: GopherEngine(pg, _cc_program(), tracer=object(),
                                        device="cpu"), "ROADMAP A7"),
     "checkpointer": (lambda pg: GopherEngine(

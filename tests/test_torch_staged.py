@@ -484,8 +484,7 @@ def test_compact_pack_and_unpack_match_jax(blocks, name):
 
 def test_unported_routes_name_their_items():
     for fn, item in ((tmsg.build_outbox_gather_batched, "A5"),
-                     (tmsg.route_shard_map, "A8"),
-                     (tmsg.route_tiered, "A3")):
+                     (tmsg.route_shard_map, "A8")):
         with pytest.raises(NotImplementedError, match=item):
             fn()
     with pytest.raises(NotImplementedError, match="A5"):

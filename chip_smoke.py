@@ -15,7 +15,11 @@ failure exits non-zero and prints no result:
    semirings from the init state, cut by a small max_steps, and entered
    after two K3 supersteps, K5 and K6 on random masks
    (R ∈ {144, 4096}, cap ∈ {969, 4096}, densities 0 / 0.05 / 1, budgets
-   below and above the counts, ±inf values);
+   below and above the counts, ±inf values); K7 at llama3-8b's prefill
+   shape (B 4, S 2048, H 32, KV 8, dh 128, causal, bf16), at gemma3-4b's
+   local layers (dh 256, H 8, KV 4, window 1024), with float32 inputs, and
+   with q_offset 1024 and Sq < Sk; K8 at falcon-mamba-7b's scan width
+   (B 2, L 2048, D 8192, N 16) in float32 and bfloat16;
 4. the paths at full size, on road_grid(1400, 1400) — 1.96M vertices, the
    vertex count of the paper's RN graph — in 12 partitions; one JSON line
    per run, each run after a warm-up call with the launch counts set to 0
@@ -44,6 +48,18 @@ failure exits non-zero and prints no result:
       dense with compact's count_hist; 30-iteration PageRank on 'phased'
       allclose to (b)'s dense PageRank;
    and where each run's time goes (CUDA events around every kernel call);
+   d. LM serving: llama3-8b at full width and depth (8.03 B parameters in
+      bf16, random weights from a seed) through ``make_prefill_step`` on
+      4 × 2048 random prompt tokens, then 32 greedy ``make_decode_step``s,
+      timed after a warm-up: (i) K7 launched once a layer in the prefill
+      and never in decode; (ii) the decode steps' logits within a relative
+      L2 error of 5e-2 of a teacher-forced forward over the prompt and the
+      generated tokens; (iii) the same architecture at full width with its
+      depth cut to 2 layers, in float32, on the card (K7) and on the CPU
+      (the plain versions) with the same weights: logits allclose at
+      rtol = atol = 1e-3 and 8 greedy tokens equal. One JSON line with the
+      serving times, peak memory and K7's event-timed share of a prefill,
+      and the profiler's device breakdown of a prefill and a decode step;
 5. kernel times at the paths' shapes: one ``{"kernels": [...]}`` line.
    ``ms`` is a kernel's device time by torch.profiler; ``call_ms`` the
    CUDA-event time of one wrapper call, which for a small kernel is
@@ -53,7 +69,12 @@ Min/max results are held bit-equal; plus_times allclose (rtol=1e-6,
 atol=1e-7 on the random ELL, whose values are O(1); rtol=1e-5, atol=0 at
 PageRank's pull, whose values are O(1/n), and for phased PageRank against
 dense); K4/K5/K6 outputs bit-equal; BlockRank rtol=1e-4, atol=0 against
-its CPU run. The last line is ``{"ok": true, "device": {...}}``.
+its CPU run; K7 and K8 allclose at rtol = atol = 1e-5 in float32 and
+1e-2 in bfloat16 (both compute in float32 and round once). K7's bound is
+the visible pairs' FLOP at the bf16 tensor peak or its bytes at the HBM
+rate, whichever is larger; its library call is
+``F.scaled_dot_product_attention``. The last line is ``{"ok": true,
+"device": {...}}``.
 """
 import dataclasses
 import json
@@ -367,6 +388,86 @@ def check_k4(dev) -> None:
                         f"{sname}, max_steps {max_steps}: {rounds} rounds "
                         f"bit-equal")
 
+
+# (what, B, Sq, Sk, H, KV, dh, window, q_offset, dtype): llama3-8b's
+# prefill, gemma3-4b's local layers, float32 inputs, and a continuation
+# with Sq < Sk (ragged: 333 queries, 1,357 keys)
+K7_CHECKS = [
+    ("llama3-8b prefill", 4, 2048, 2048, 32, 8, 128, None, 0, "bfloat16"),
+    ("gemma3-4b local", 2, 4096, 4096, 8, 4, 256, 1024, 0, "bfloat16"),
+    ("float32", 1, 2048, 2048, 32, 8, 128, None, 0, "float32"),
+    ("q_offset 1024, Sq < Sk", 2, 333, 1357, 32, 8, 128, None, 1024,
+     "float32"),
+]
+TOL = {"float32": 1e-5, "bfloat16": 1e-2}    # rtol = atol
+
+
+def attention_inputs(dev, seed, B, Sq, Sk, H, KV, dh, dtype):
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(s, generator=gen, device=dev).to(
+        getattr(torch, dtype)) for s in ((B, Sq, H, dh), (B, Sk, KV, dh),
+                                         (B, Sk, KV, dh)))
+
+
+def held(got, want, tol: float, what: str) -> float:
+    """Hold a kernel's output to its plain version at rtol = atol = tol;
+    returns the max absolute error."""
+    import torch
+    g, w = got.float(), want.float()
+    if tuple(g.shape) != tuple(w.shape) or not bool(torch.isfinite(g).all()):
+        fail(f"{what}: shape {tuple(g.shape)} or non-finite entries")
+    if not torch.allclose(g, w, rtol=tol, atol=tol):
+        fail(f"{what}: not allclose to the plain version at {tol} (max abs "
+             f"err {float((g - w).abs().max())})")
+    return float((g - w).abs().max())
+
+
+def check_k7(dev) -> None:
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_ref)
+    for i, (what, B, Sq, Sk, H, KV, dh, win, off, dt) in enumerate(K7_CHECKS):
+        q, k, v = attention_inputs(dev, i, B, Sq, Sk, H, KV, dh, dt)
+        got = flash_attention_cuda(q, k, v, causal=True, window=win,
+                                   q_offset=off)
+        want = flash_attention_ref(q, k, v, causal=True, window=win,
+                                   q_offset=off)
+        torch.cuda.synchronize()
+        err = held(got, want, TOL[dt], f"K7 {what}")
+        log(f"K7 flash_attention {what}: B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} "
+            f"dh={dh} window={win} q_offset={off} {dt} agrees "
+            f"(max_abs_err {err})")
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+
+
+def mamba_inputs(dev, dtype, B=2, L=2048, D=8192, N=16):
+    """falcon-mamba-7b's scan width (D = 2·4096, N = 16)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((B, L, D), generator=gen, device=dev) * 0.5
+    dt = torch.rand((B, L, D), generator=gen, device=dev) * 0.49 + 0.01
+    bv = torch.randn((B, L, N), generator=gen, device=dev)
+    cv = torch.randn((B, L, N), generator=gen, device=dev)
+    a = -(torch.rand((D, N), generator=gen, device=dev) * 1.5 + 0.5)
+    dtype = getattr(torch, dtype)
+    return tuple(t.to(dtype) for t in (x, dt, bv, cv)) + (a,)
+
+
+def check_k8(dev) -> float:
+    import torch
+    from repro_torch.kernels.mamba_scan import mamba1_scan_cuda, mamba1_scan_ref
+    errs = []
+    for dt in ("float32", "bfloat16"):
+        args = mamba_inputs(dev, dt)
+        got = mamba1_scan_cuda(*args)
+        want = mamba1_scan_ref(*args)
+        torch.cuda.synchronize()
+        errs.append(held(got, want, TOL[dt], f"K8 {dt}"))
+        log(f"K8 mamba1_scan {tuple(args[0].shape)} N={args[4].shape[1]} "
+            f"{dt} agrees (max_abs_err {errs[-1]})")
+    return errs[0]
 
 # ---------------- phase 4: the main path ----------------
 
@@ -930,6 +1031,220 @@ def breakdown(pg, upg, src):
             "kernel_share_of_loop": total / 1e3 / (t2 - t1)}))
 
 
+# ---------------- phase 4d: LM serving, llama3-8b at full width ----------
+
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
+
+
+def k7_event_ms(run) -> tuple:
+    """(calls, ms): CUDA events around every K7 call that ``run`` makes
+    through ``ops.flash_attention``."""
+    import torch
+    from repro_torch.kernels import ops
+    calls, orig = [], ops.flash_attention
+
+    def timed(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(*args, **kw)
+        end.record()
+        calls.append((start, end))
+        return out
+    ops.flash_attention = timed
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        ops.flash_attention = orig
+    return len(calls), sum(s.elapsed_time(e) for s, e in calls)
+
+
+def device_breakdown(run, wall_ms: float) -> dict:
+    """Device time of one ``run`` by torch.profiler, by kind of kernel:
+    K7, matrix products (cuBLAS), and the rest, with the card's idle share
+    against ``wall_ms``, the same run's time measured without the profiler
+    (one stream: kernels do not overlap). The profiler slows the host, so
+    its own wall time is reported but not used."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    profiled = (time.perf_counter() - t) * 1e3
+    kinds = {"k7": 0.0, "gemm": 0.0, "other": 0.0}
+    top = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA or not evt.device_time_total:
+            continue
+        ms = evt.device_time_total / 1e3
+        name = evt.key.lower()
+        kind = ("k7" if "flash_kernel" in name else
+                "gemm" if any(s in name for s in ("gemm", "nvjet", "xmma",
+                                                  "cutlass", "cublas"))
+                else "other")
+        kinds[kind] += ms
+        top.append((ms, evt.count, evt.key[:60]))
+    busy = sum(kinds.values())
+    top.sort(reverse=True)
+    return {"wall_ms": wall_ms, "device_ms": busy, "by_kind_ms": kinds,
+            "idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "profiled_wall_ms": profiled,
+            "top": [{"ms": m, "count": c, "kernel": n} for m, c, n in top[:6]]}
+
+
+def lm_path(dev, path_launches: dict) -> None:
+    """Phase 4d (module docstring): llama3-8b served at full width and
+    depth through ``make_prefill_step``/``make_decode_step``, then the
+    decode logits held to a teacher-forced forward, then a 2-layer float32
+    cut held to the same model on the CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as T
+    from repro_torch.training.train_step import (make_decode_step,
+                                                 make_prefill_step)
+    cfg = get_config("llama3-8b")
+    B, S, G = LM_BATCH, LM_PROMPT, LM_GEN
+    max_seq = S + G
+    t = time.perf_counter()
+    model = T.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in model.parameters())
+    prompts = torch.randint(0, cfg.vocab, (B, S), device=dev,
+                            dtype=torch.int32,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(1))
+    prefill = make_prefill_step(cfg, max_seq=max_seq)
+    decode = make_decode_step(cfg)
+
+    tok, cache = prefill(model, {"inputs": prompts})    # warm-up, not counted
+    for _ in range(2):
+        tok, cache = decode(model, tok, cache)
+    torch.cuda.synchronize()
+    del cache
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    t = time.perf_counter()
+    tok, cache = prefill(model, {"inputs": prompts})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    pre = dict(_build.launches)
+    _build.reset_launches()
+    toks = [tok]
+    t = time.perf_counter()
+    for _ in range(G):
+        tok, cache = decode(model, tok, cache)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t) * 1e3 / G
+    dec = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if pre["flash_attention"] != cfg.n_layers:            # (i)
+        fail(f"lm prefill: K7 launched {pre['flash_attention']} times, not "
+             f"once a layer ({cfg.n_layers})")
+    if dec["flash_attention"] != 0:
+        fail(f"lm decode: K7 launched {dec['flash_attention']} times")
+    for k, c in pre.items():
+        path_launches[k] += c
+    if cache["len"] != max_seq:
+        fail(f"lm decode: cache len {cache['len']}, expected {max_seq}")
+    del cache
+
+    # (ii) the decode steps' logits against a teacher-forced forward over
+    # the prompt and the generated tokens, at the same positions
+    gen = torch.stack(toks, dim=1)                         # (B, G + 1)
+    logits, cache, _ = T.prefill(model, prompts, cfg, max_seq=max_seq)
+    del logits
+    dec_logits = []
+    for j in range(G):
+        lg, cache = T.decode_step(model, gen[:, j], cache, cfg)
+        dec_logits.append(lg.float())
+    del cache
+    dec_logits = torch.stack(dec_logits, dim=1)            # (B, G, V)
+    full, _ = T.forward(model, torch.cat([prompts, gen[:, :G]], dim=1), cfg)
+    tf = full[:, S:].float()
+    del full
+    rel = float(torch.linalg.vector_norm(dec_logits - tf)
+                / torch.linalg.vector_norm(tf))
+    agree = float((tf.argmax(-1) == gen[:, 1:]).float().mean())
+    if not (rel <= 5e-2) or not bool(torch.isfinite(dec_logits).all()):
+        fail(f"lm decode: logits' relative L2 error {rel} against the "
+             f"teacher-forced forward (limit 5e-2)")
+    del dec_logits, tf
+
+    k7_calls, k7_ms = k7_event_ms(
+        lambda: prefill(model, {"inputs": prompts}))
+    bd_prefill = device_breakdown(lambda: prefill(model, {"inputs": prompts}),
+                                  prefill_ms)
+    _, c1 = prefill(model, {"inputs": prompts})
+    bd_decode = device_breakdown(lambda: decode(model, gen[:, 0], c1),
+                                 decode_ms)
+    del c1
+    log(json.dumps({
+        "lm": "llama3-8b", "n_layers": cfg.n_layers, "params": n_params,
+        "dtype": cfg.dtype, "batch": B, "prompt": S, "decode_steps": G,
+        "init_s": init_s, "prefill_ms": prefill_ms,
+        "decode_ms_per_token": decode_ms,
+        "decode_tokens_per_s": B * 1e3 / decode_ms,
+        "prefill_tokens_per_s": B * S * 1e3 / prefill_ms,
+        "max_memory_allocated": peak, "k7_launches_prefill":
+        pre["flash_attention"], "k7_launches_decode": dec["flash_attention"],
+        "k7_event_ms_in_prefill": k7_ms, "k7_event_calls": k7_calls,
+        "decode_vs_teacher_forced_rel_l2": rel,
+        "teacher_forced_token_agreement": agree,
+        "first_sequence": gen[0].tolist()}))
+    log(json.dumps({"lm_breakdown": "prefill", **bd_prefill}))
+    log(json.dumps({"lm_breakdown": "decode step", **bd_decode}))
+    del model
+    torch.cuda.empty_cache()
+    lm_cut_against_cpu(dev, cfg)
+
+
+def lm_cut_against_cpu(dev, cfg) -> None:
+    """(iii): llama3-8b at full width cut to 2 layers, in float32, with the
+    same weights on the card (K7) and on the CPU (the plain versions)."""
+    import copy
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as T
+    cut = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    card = T.init_params(cut, seed=2, device=dev)
+    host = copy.deepcopy(card).to("cpu")
+    prompt = torch.randint(0, cut.vocab, (1, 64), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(3))
+    _build.reset_launches()
+    gl, gc, _ = T.prefill(card, prompt.to(dev), cut, max_seq=72)
+    torch.cuda.synchronize()
+    if _build.launches["flash_attention"] != 2:
+        fail(f"lm cut: K7 launched {_build.launches['flash_attention']} "
+             f"times in a 2-layer prefill")
+    hl, hc, _ = T.prefill(host, prompt, cut, max_seq=72)
+    errs = [held(gl.cpu(), hl, 1e-3, "lm cut prefill logits")]
+    gt, ht = gl[:, -1].argmax(-1), hl[:, -1].argmax(-1)
+    steps = []
+    for j in range(8):
+        if int(gt) != int(ht):
+            fail(f"lm cut: greedy token {j} differs: card {int(gt)}, CPU "
+                 f"{int(ht)}")
+        steps.append(int(ht))
+        gl, gc = T.decode_step(card, gt.to(torch.int32), gc, cut)
+        hl, hc = T.decode_step(host, ht.to(torch.int32), hc, cut)
+        errs.append(held(gl.cpu(), hl, 1e-3, f"lm cut decode step {j}"))
+        gt, ht = gl.argmax(-1), hl.argmax(-1)
+    log(json.dumps({"lm_cut": "llama3-8b at full width, depth cut to 2 "
+                    "layers, float32, card against CPU", "batch": 1,
+                    "prompt": 64, "decode_steps": 8, "tokens": steps,
+                    "max_abs_err": max(errs), "tolerance": 1e-3}))
+    del card, host
+    torch.cuda.empty_cache()
+
 # ---------------- phase 5: kernel times at the main path's shapes --------
 
 def kernel_times(dev, pg, path_launches, plain_k4):
@@ -1231,6 +1546,104 @@ def k5_k6_times(dev, pg, path_launches):
              "bound_ms": k6_bytes / HBM_BYTES_PER_S * 1e3, **common})
 
 
+BF16_TENSOR_OPS_PER_S = 989.4e12  # H100 SXM dense bf16 tensor cores, data sheet
+
+
+def k7_times(dev, path_launches) -> dict:
+    """K7 at llama3-8b's prefill shape (every prefill layer), with the
+    gemma3-4b local shape beside it. The bound counts the FLOP of the
+    visible (query, key) pairs only (4·dh a pair: q·k and p·v) at the bf16
+    tensor-core peak, and q, k, v and o moved once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (_mask,
+                                                     flash_attention_cuda,
+                                                     flash_attention_ref)
+
+    def measure(i):
+        what, B, Sq, Sk, H, KV, dh, win, off, dt = K7_CHECKS[i]
+        q, k, v = attention_inputs(dev, i, B, Sq, Sk, H, KV, dh, dt)
+        got = flash_attention_cuda(q, k, v, window=win, q_offset=off)
+        want = flash_attention_ref(q, k, v, window=win, q_offset=off)
+        torch.cuda.synchronize()
+        err = held(got, want, TOL[dt], f"K7 at {what}")
+        del got, want
+        kernel = lambda: flash_attention_cuda(q, k, v, window=win,  # noqa
+                                              q_offset=off)
+        dev_ms = device_ms(kernel, "flash_kernel", reps=10)
+        call_ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(lambda: flash_attention_ref(
+            q, k, v, window=win, q_offset=off), reps=3)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if win is None:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:
+            m = _mask(Sq, Sk, True, win, off, dev)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa
+                qt, kt, vt, attn_mask=m, enable_gqa=True)
+        lib_ms = device_ms(lib, reps=10)
+        lib_call = cuda_ms(lib)
+        pairs = int(_mask(Sq, Sk, True, win, off, dev).sum())
+        flop = 4 * dh * H * B * pairs
+        nbytes = (2 * B * Sq * H + 2 * B * Sk * KV) * dh * q.element_size()
+        bound = max(flop / BF16_TENSOR_OPS_PER_S,
+                    nbytes / HBM_BYTES_PER_S) * 1e3
+        by = ("operations" if flop / BF16_TENSOR_OPS_PER_S
+              >= nbytes / HBM_BYTES_PER_S else "bytes")
+        row = {"shape": what, "ms": dev_ms, "call_ms": call_ms,
+               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+               "library_ms": lib_ms, "library_call_ms": lib_call,
+               "max_abs_err": err, "flop": flop, "bytes": nbytes,
+               "tflop_per_s": flop / dev_ms / 1e9}
+        log(json.dumps({"k7": row}))
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+        return row
+
+    llama, gemma = measure(0), measure(1)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:72",
+            "launches": path_launches["flash_attention"],
+            **{k: llama[k] for k in ("max_abs_err", "ms", "call_ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms", "library_call_ms")},
+            "library": "F.scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True); an explicit bool mask at the "
+                       "windowed shape",
+            "shape": llama["shape"], "gemma3_local": gemma}
+
+
+def k8_times(dev, path_launches, err: float) -> dict:
+    """K8 at falcon-mamba-7b's scan width, float32: B 2, L 2048, D 8192,
+    N 16. The bound is its bytes: x, δ and y once a channel a step, B and
+    C once a row a step, A once."""
+    import torch
+    from repro_torch.kernels.mamba_scan import mamba1_scan_cuda, mamba1_scan_ref
+    args = mamba_inputs(dev, "float32")
+    x = args[0]
+    B, L, D = x.shape
+    N = args[4].shape[1]
+    dev_ms = device_ms(lambda: mamba1_scan_cuda(*args), "scan_kernel",
+                       reps=10)
+    call_ms = cuda_ms(lambda: mamba1_scan_cuda(*args))
+    plain_ms = cuda_ms(lambda: mamba1_scan_ref(*args), reps=2)
+    nbytes = (3 * B * L * D + 2 * B * L * N) * 4 + D * N * 4
+    log(json.dumps({"k8": {"B": B, "L": L, "D": D, "N": N, "ms": dev_ms,
+                           "bytes": nbytes, "gb_per_s": nbytes / dev_ms / 1e6}}))
+    return {"name": "mamba1_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+            "replaces": "src/repro/kernels/mamba_scan.py:48",
+            "launches": path_launches["mamba1_scan"], "max_abs_err": err,
+            "ms": dev_ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None,
+            "library_note": "no PyTorch call computes a selective scan; no "
+                            "model path of the port runs K8 yet",
+            "shape": "falcon-mamba-7b scan, B 2, L 2048, D 8192, N 16, "
+                     "float32"}
+
 def main() -> None:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import torch
@@ -1245,8 +1658,13 @@ def main() -> None:
     check_k3(dev)
     check_k4(dev)
     check_k5_k6(dev)
+    check_k7(dev)
+    k8_err = check_k8(dev)
     pg, path_launches, plain_k4 = main_path(dev)
+    lm_path(dev, path_launches)
     kernels = kernel_times(dev, pg, path_launches, plain_k4)
+    kernels["kernels"] += [k7_times(dev, path_launches),
+                           k8_times(dev, path_launches, k8_err)]
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,7 +30,8 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 launches = {"semiring_spmv": 0, "semiring_spmv_frontier": 0,
             "megastep_semiring": 0, "resident_megastep": 0,
-            "outbox_pack": 0, "outbox_compact_plan": 0}
+            "outbox_pack": 0, "outbox_compact_plan": 0,
+            "flash_attention": 0, "mamba1_scan": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -139,6 +140,14 @@ def _declare(lib) -> None:
     #  v_max, max_steps, min_plus, device; stream)
     lib.resident_megastep_launch.argtypes = [vp] * 22 + [i32] * 9 + [vp]
     lib.resident_megastep_launch.restype = i32
+    # (q, k, v, o, B, Sq, Sk, H, KV, dh, causal, window, q_offset, bf16,
+    #  scale, device, stream)
+    lib.flash_attention_launch.argtypes = ([vp] * 4 + [i32] * 10
+                                           + [ctypes.c_float, i32, vp])
+    lib.flash_attention_launch.restype = i32
+    # (x, delta, Bv, Cv, A, y, B, L, D, N, bf16, device, stream)
+    lib.mamba1_scan_launch.argtypes = [vp] * 6 + [i32] * 6 + [vp]
+    lib.mamba1_scan_launch.restype = i32
     lib.kernel_error_string.argtypes = [i32]
     lib.kernel_error_string.restype = ctypes.c_char_p
 

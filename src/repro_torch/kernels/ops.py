@@ -8,8 +8,13 @@ fails.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_ref)
+from repro_torch.kernels.mamba_scan import mamba1_scan_cuda, mamba1_scan_ref
 from repro_torch.kernels.outbox_compact import (outbox_compact_plan_cuda,
                                                 outbox_pack_cuda)
 from repro_torch.kernels.ref import (outbox_compact_plan_ref, outbox_pack_ref,
@@ -57,3 +62,21 @@ def outbox_compact_plan(active: torch.Tensor):
     ``outbox_compact_plan_ref``."""
     return _pick(active, outbox_compact_plan_cuda, outbox_compact_plan_ref,
                  "outbox_compact_plan")(active)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """(B, Sq, H, dh) attention of q over (B, Sk, KV, dh) keys and values:
+    kernel K7 or ``flash_attention_ref``."""
+    return _pick(q, flash_attention_cuda, flash_attention_ref,
+                 "flash_attention")(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset)
+
+
+def mamba1_scan(x: torch.Tensor, delta: torch.Tensor, Bv: torch.Tensor,
+                Cv: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """The Mamba1 selective scan, y (B, L, D): kernel K8 or
+    ``mamba1_scan_ref``."""
+    return _pick(x, mamba1_scan_cuda, mamba1_scan_ref,
+                 "mamba1_scan")(x, delta, Bv, Cv, A)

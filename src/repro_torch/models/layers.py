@@ -1,0 +1,202 @@
+"""Model building blocks of the dense decoder family: RMS norm, RoPE,
+attention (prefill through kernel K7, decode as plain ops), the attention
+projections, the gated MLP and the embeddings.
+
+The functions mirror the JAX package's ``models/layers.py`` and keep its
+layouts: activations (B, S, d), heads (B, S, H, dh), projections wq (d, H,
+dh) and wo (H, dh, d). Parameters are ``nn.ParameterDict``s: matrices,
+biases and embeddings are stored in the compute dtype (the JAX package
+keeps float32 and casts at every use, which gives the same bits), norm
+scales in float32, where the reference upcasts them. The MoE and Mamba
+blocks, M-RoPE and LayerNorm come with their families (ROADMAP A10).
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import ops
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def _normal(gen: torch.Generator, shape, std: float, dtype,
+            device) -> nn.Parameter:
+    """N(0, std²) drawn in float32 from ``gen`` on ``device``, cast to
+    ``dtype`` at once (so a float32 copy of a bf16 model never exists)."""
+    t = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return _param(t.mul_(std).to(dtype))
+
+
+def _zeros(shape, dtype, device) -> nn.Parameter:
+    return _param(torch.zeros(shape, dtype=dtype, device=device))
+
+
+# ---------------------------------------------------------------- norms
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """x·rsqrt(mean(x²) + eps)·(1 + scale), in float32, cast back."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+# ---------------------------------------------------------------- RoPE
+
+def rope_freqs(dh: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, dh, 2, dtype=np.float32) / dh))
+
+
+@functools.lru_cache(maxsize=16)
+def _rope_freqs_on(dh: int, theta: float, device: torch.device):
+    """``rope_freqs`` uploaded once per device: a copy from host memory
+    waits for the device's queue, which every layer of every step would
+    otherwise do twice."""
+    return torch.from_numpy(rope_freqs(dh, theta)).to(device)
+
+
+def apply_rope(x: torch.Tensor, pos: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, dh); pos: broadcastable to (..., S). Rotates the two
+    halves of dh (not interleaved pairs) by float32 angles."""
+    dh = x.shape[-1]
+    inv = _rope_freqs_on(dh, float(theta), x.device)
+    ang = pos[..., None].float() * inv                      # (..., S, dh/2)
+    ang = ang[..., None, :]                                  # add head dim
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- attention
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q: (B, Sq, H, dh); k, v: (B, Sk, KV, dh) with H % KV == 0 (GQA).
+    ``q_offset`` is the absolute position of q[0]; ``window`` masks keys
+    with q_pos - k_pos >= window. Kernel K7 on the card (as the TPU takes
+    its Pallas kernel), its plain version on the CPU."""
+    return ops.flash_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len: int) -> torch.Tensor:
+    """Single-token attention against a KV cache, as plain ops (the JAX
+    package has no kernel for it either).
+
+    q: (B, H, dh); caches: (B, S, KV, dh); cache_len: #valid entries (the
+    new token's k/v already written at cache_len - 1). A window segment's
+    ring buffer holds only the window, so no window mask is needed."""
+    B, H, dh = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    g = H // KV
+    scale = 1.0 / math.sqrt(dh)
+    qr = q.reshape(B, KV, g, dh).float() * scale
+    s = torch.einsum("bkgd,bskd->bkgs", qr, k_cache.float())
+    kpos = torch.arange(S, device=q.device)
+    s = s.masked_fill(kpos >= cache_len, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return o.reshape(B, H, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------- attention block
+
+def attn_proj_params(gen: torch.Generator, cfg, dtype,
+                     device) -> nn.ParameterDict:
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    std = d ** -0.5
+    p = nn.ParameterDict({
+        "wq": _normal(gen, (d, h, dh), std, dtype, device),
+        "wk": _normal(gen, (d, kv, dh), std, dtype, device),
+        "wv": _normal(gen, (d, kv, dh), std, dtype, device),
+        "wo": _normal(gen, (h, dh, d), (h * dh) ** -0.5, dtype, device),
+    })
+    if cfg.qkv_bias:
+        p["bq"] = _zeros((h, dh), dtype, device)
+        p["bk"] = _zeros((kv, dh), dtype, device)
+        p["bv"] = _zeros((kv, dh), dtype, device)
+    if cfg.qk_norm:
+        p["q_norm"] = _zeros((dh,), torch.float32, device)
+        p["k_norm"] = _zeros((dh,), torch.float32, device)
+    return p
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum('bsd,dhk->bshk') as one matrix product."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def qkv(x: torch.Tensor, p, cfg):
+    """(B, S, d) -> q (B, S, H, dh), k and v (B, S, KV, dh)."""
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def attn_out(o: torch.Tensor, p, x_dtype) -> torch.Tensor:
+    """(B, S, H, dh) -> (B, S, d): einsum('bshk,hkd->bsd')."""
+    h, k, d = p["wo"].shape
+    return (o.flatten(-2) @ p["wo"].reshape(h * k, d)).to(x_dtype)
+
+
+# ---------------------------------------------------------------- MLP
+
+def mlp_params(gen: torch.Generator, d: int, d_ff: int, dtype,
+               device) -> nn.ParameterDict:
+    return nn.ParameterDict({
+        "w_gate": _normal(gen, (d, d_ff), d ** -0.5, dtype, device),
+        "w_up": _normal(gen, (d, d_ff), d ** -0.5, dtype, device),
+        "w_down": _normal(gen, (d_ff, d), d_ff ** -0.5, dtype, device),
+    })
+
+
+def mlp(x: torch.Tensor, p, act: str = "silu") -> torch.Tensor:
+    """The gated MLP. ``gelu`` is the tanh approximation, as
+    ``jax.nn.gelu``'s default."""
+    g = x @ p["w_gate"]
+    u = x @ p["w_up"]
+    h = (F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")) * u
+    return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------- embedding
+
+def embed_params(gen: torch.Generator, cfg, dtype,
+                 device) -> nn.ParameterDict:
+    p = nn.ParameterDict({
+        "tok": _normal(gen, (cfg.vocab, cfg.d_model), 0.02, dtype, device)})
+    if not cfg.tie_embeddings:
+        p["unembed"] = _normal(gen, (cfg.d_model, cfg.vocab),
+                               cfg.d_model ** -0.5, dtype, device)
+    return p
+
+
+def embed(tokens: torch.Tensor, p) -> torch.Tensor:
+    return p["tok"][tokens]
+
+
+def unembed(x: torch.Tensor, p, cfg) -> torch.Tensor:
+    """Logits in x's dtype; tied embeddings unembed by ``tok``ᵀ."""
+    w = p["unembed"] if not cfg.tie_embeddings else p["tok"].T
+    return x @ w

@@ -191,3 +191,93 @@ def test_k5_k6_outbox_pack_matches_plain(cuda_device, rows, cap, density,
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# (B, Sq, Sk, H, KV, dh, causal, window, q_offset)
+K7_CUDA_CASES = [
+    (2, 130, 130, 8, 2, 128, True, None, 0),     # llama3's group, ragged Sq
+    (1, 200, 200, 8, 4, 256, True, 64, 0),       # gemma3's local layers
+    (2, 45, 300, 4, 4, 64, True, None, 255),     # continuation, Sq < Sk
+    (1, 77, 77, 6, 2, 32, False, None, 0),       # g = 3: a 63-row tile
+    (3, 33, 50, 4, 1, 16, True, 9, 17),          # the reduced configs' dh
+    (1, 20, 20, 2, 2, 64, True, None, -8),       # rows with no visible key
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(K7_CUDA_CASES)))
+def test_k7_flash_attention_matches_plain(cuda_device, case, dtype):
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_ref)
+    B, Sq, Sk, H, KV, dh, causal, window, q_offset = K7_CUDA_CASES[case]
+    gen = torch.Generator(device=cuda_device).manual_seed(case)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda_device).to(dtype)
+               for s in ((B, Sq, H, dh), (B, Sk, KV, dh), (B, Sk, KV, dh)))
+    before = _build.launches["flash_attention"]
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert _build.launches["flash_attention"] == before + 1
+    assert got.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+    if q_offset < 0:
+        assert not got[:, :-q_offset].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,D,N", [(2, 300, 200, 16), (1, 64, 64, 4),
+                                     (3, 17, 130, 8)])
+def test_k8_mamba_scan_matches_plain(cuda_device, B, L, D, N, dtype):
+    from repro_torch.kernels.mamba_scan import mamba1_scan_cuda, mamba1_scan_ref
+    gen = torch.Generator(device=cuda_device).manual_seed(L)
+    x = (torch.randn((B, L, D), generator=gen, device=cuda_device) * 0.5)
+    dt = torch.rand((B, L, D), generator=gen, device=cuda_device) * 0.5 + 0.01
+    bv = torch.randn((B, L, N), generator=gen, device=cuda_device)
+    cv = torch.randn((B, L, N), generator=gen, device=cuda_device)
+    a = -(torch.rand((D, N), generator=gen, device=cuda_device) * 1.5 + 0.5)
+    x, dt, bv, cv = (t.to(dtype) for t in (x, dt, bv, cv))
+    before = _build.launches["mamba1_scan"]
+    got = mamba1_scan_cuda(x, dt, bv, cv, a)
+    want = mamba1_scan_ref(x, dt, bv, cv, a)
+    torch.cuda.synchronize()
+    assert _build.launches["mamba1_scan"] == before + 1
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+    wide = torch.zeros((B, L, 17), dtype=dtype, device=cuda_device)
+    with pytest.raises(ValueError, match="at most 16"):
+        mamba1_scan_cuda(x, dt, wide, wide,
+                         torch.zeros((D, 17), device=cuda_device))
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "gemma3-4b"])
+def test_lm_serving_on_the_card_matches_the_cpu(cuda_device, arch):
+    """A reduced dense model with the same weights on the card (K7 in every
+    prefill layer) and on the CPU (K7's plain version)."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch).reduced()
+    model = T.init_params(cfg, seed=0, device=cuda_device)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 12),
+                         generator=torch.Generator().manual_seed(0))
+    _build.reset_launches()
+    gl, gc, _ = T.prefill(model, toks.to(cuda_device), cfg, max_seq=16)
+    assert _build.launches["flash_attention"] == cfg.n_layers
+    wl, wc, _ = T.prefill(cpu_model, toks, cfg, max_seq=16)
+    np.testing.assert_allclose(gl.cpu().numpy(), wl.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    tok = torch.argmax(wl[:, -1], -1)
+    for _ in range(4):
+        gl, gc = T.decode_step(model, tok.to(cuda_device), gc, cfg)
+        wl, wc = T.decode_step(cpu_model, tok, wc, cfg)
+        np.testing.assert_allclose(gl.cpu().numpy(), wl.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+        tok = torch.argmax(wl, -1)
+    assert _build.launches["flash_attention"] == cfg.n_layers

@@ -17,8 +17,12 @@ failure exits non-zero and prints no result:
    (R ∈ {144, 4096}, cap ∈ {969, 4096}, densities 0 / 0.05 / 1, budgets
    below and above the counts, ±inf values); K7 at llama3-8b's prefill
    shape (B 4, S 2048, H 32, KV 8, dh 128, causal, bf16), at gemma3-4b's
-   local layers (dh 256, H 8, KV 4, window 1024), with float32 inputs, and
-   with q_offset 1024 and Sq < Sk; K8 at falcon-mamba-7b's scan width
+   local layers (dh 256, H 8, KV 4, window 1024), at h2o-danube-1.8b's
+   prefill (dh 80, window 4096), with float32 inputs, and with q_offset
+   1024 and Sq < Sk in float32 and bf16, each shape's instantiation
+   checked by the kernel names the profiler records (bf16 at dh 64-256:
+   ``flash_kernel_sm90``; float32: the SIMT ``flash_kernel``); K8 at
+   falcon-mamba-7b's scan width
    (B 2, L 2048, D 8192, N 16) in float32 and bfloat16;
 4. the paths at full size, on road_grid(1400, 1400) — 1.96M vertices, the
    vertex count of the paper's RN graph — in 12 partitions; one JSON line
@@ -63,14 +67,17 @@ failure exits non-zero and prints no result:
 5. kernel times at the paths' shapes: one ``{"kernels": [...]}`` line.
    ``ms`` is a kernel's device time by torch.profiler; ``call_ms`` the
    CUDA-event time of one wrapper call, which for a small kernel is
-   mostly the host's time to enqueue it.
+   mostly the host's time to enqueue it. K7's row adds ``batch_ms`` and
+   ``library_batch_ms``: 20 back-to-back calls of K7 and of its library
+   call timed by CUDA events, in turns, without the profiler.
 
 Min/max results are held bit-equal; plus_times allclose (rtol=1e-6,
 atol=1e-7 on the random ELL, whose values are O(1); rtol=1e-5, atol=0 at
 PageRank's pull, whose values are O(1/n), and for phased PageRank against
 dense); K4/K5/K6 outputs bit-equal; BlockRank rtol=1e-4, atol=0 against
 its CPU run; K7 and K8 allclose at rtol = atol = 1e-5 in float32 and
-1e-2 in bfloat16 (both compute in float32 and round once). K7's bound is
+1e-2 in bfloat16 (K8 computes in float32 and rounds once; K7's bf16
+instantiation also rounds p to bf16 before p·V). K7's bound is
 the visible pairs' FLOP at the bf16 tensor peak or its bytes at the HBM
 rate, whichever is larger; its library call is
 ``F.scaled_dot_product_attention``. The last line is ``{"ok": true,
@@ -120,6 +127,24 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def batch_ms(fn, reps: int = 20) -> float:
+    """Mean wall time of ``reps`` back-to-back calls of ``fn`` on the card,
+    by CUDA events around the batch, after one warm-up call: for a call
+    that keeps the card busy longer than the host takes to enqueue it, its
+    device time without the profiler."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def device_ms(fn, kernel=None, reps: int = 20, traces: int = 5) -> float:
     """Device time of one call of ``fn`` by torch.profiler (the card traced
     only) over ``reps`` calls after a warm-up call: per launch of the
@@ -127,7 +152,10 @@ def device_ms(fn, kernel=None, reps: int = 20, traces: int = 5) -> float:
     the call's kernels. It leaves out the host's time to enqueue the call,
     which sets a small kernel's event-timed call (:func:`cuda_ms`). A trace
     that holds none of the kernels (the profiler on the H100 has lost a
-    whole window's launches) is taken again, up to ``traces`` times."""
+    whole window's launches) is taken again, up to ``traces`` times. With
+    ``kernel=None`` the time is divided by the calls, so the trace must
+    hold every call's launches: each kernel name a whole multiple of
+    ``reps`` times. One that lost part of its window is taken again."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -143,11 +171,15 @@ def device_ms(fn, kernel=None, reps: int = 20, traces: int = 5) -> float:
                 if evt.device_type == DeviceType.CUDA
                 and (kernel is None or kernel in evt.key)]
         launches, ms = sum(c for c, _ in hits), sum(t for _, t in hits)
-        if launches:
-            return ms / (reps if kernel is None else launches)
-        log(f"device_ms: trace {trace + 1} of {traces} saw no launch of "
-            f"{kernel or 'any kernel'}")
-    fail(f"the profiler saw no launch of {kernel or 'any kernel'} in "
+        if kernel is not None and launches:
+            return ms / launches
+        if kernel is None and launches \
+                and all(c % reps == 0 for c, _ in hits):
+            return ms / reps
+        log(f"device_ms: trace {trace + 1} of {traces} saw "
+            f"{[c for c, _ in hits]} launches of {kernel or 'any kernel'} "
+            f"by name in {reps} calls")
+    fail(f"the profiler saw no whole window of {kernel or 'any kernel'} in "
          f"{traces} traces")
 
 
@@ -390,14 +422,19 @@ def check_k4(dev) -> None:
 
 
 # (what, B, Sq, Sk, H, KV, dh, window, q_offset, dtype): llama3-8b's
-# prefill, gemma3-4b's local layers, float32 inputs, and a continuation
-# with Sq < Sk (ragged: 333 queries, 1,357 keys)
+# prefill, gemma3-4b's local layers, float32 inputs, a continuation with
+# Sq < Sk (ragged: 333 queries, 1,357 keys) in float32 and bf16, and
+# h2o-danube-1.8b's prefill (dh 2560 / 32 = 80)
 K7_CHECKS = [
     ("llama3-8b prefill", 4, 2048, 2048, 32, 8, 128, None, 0, "bfloat16"),
     ("gemma3-4b local", 2, 4096, 4096, 8, 4, 256, 1024, 0, "bfloat16"),
     ("float32", 1, 2048, 2048, 32, 8, 128, None, 0, "float32"),
     ("q_offset 1024, Sq < Sk", 2, 333, 1357, 32, 8, 128, None, 1024,
      "float32"),
+    ("h2o-danube-1.8b prefill", 4, 2048, 2048, 32, 8, 80, 4096, 0,
+     "bfloat16"),
+    ("bf16 q_offset 1024, Sq < Sk", 2, 333, 1357, 32, 8, 128, None, 1024,
+     "bfloat16"),
 ]
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}    # rtol = atol
 
@@ -423,6 +460,35 @@ def held(got, want, tol: float, what: str) -> float:
     return float((g - w).abs().max())
 
 
+def kernel_names(fn, kernel: str, traces: int = 5) -> list:
+    """The names of the kernels holding ``kernel`` that one call of ``fn``
+    launched, by torch.profiler; a trace that lost them is taken again, up
+    to ``traces`` times (:func:`device_ms`)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA
+                        and kernel in e.key})
+        if names:
+            return names
+    fail(f"the profiler saw no launch of {kernel} in {traces} traces")
+
+
+def k7_instantiation(dt: str, dh: int) -> str:
+    """The name K7's wrapper must launch for ``dt`` at head width ``dh``
+    (``kernels/flash_attention.py``)."""
+    from repro_torch.kernels.flash_attention import SM90_HEAD_DIMS
+    if dt == "bfloat16" and dh in SM90_HEAD_DIMS:
+        return f"flash_kernel_sm90<{dh}>"
+    elem = "float" if dt == "float32" else "__nv_bfloat16"
+    return f"flash_kernel<{elem}, {dh}>"
+
+
 def check_k7(dev) -> None:
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
@@ -435,10 +501,16 @@ def check_k7(dev) -> None:
                                    q_offset=off)
         torch.cuda.synchronize()
         err = held(got, want, TOL[dt], f"K7 {what}")
+        del got, want
+        names = kernel_names(lambda: flash_attention_cuda(
+            q, k, v, causal=True, window=win, q_offset=off), "flash_kernel")
+        expect = k7_instantiation(dt, dh)
+        if len(names) != 1 or expect not in names[0]:
+            fail(f"K7 {what}: ran {names}, expected {expect}")
         log(f"K7 flash_attention {what}: B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} "
             f"dh={dh} window={win} q_offset={off} {dt} agrees "
-            f"(max_abs_err {err})")
-        del q, k, v, got, want
+            f"(max_abs_err {err}) on {expect}")
+        del q, k, v
         torch.cuda.empty_cache()
 
 
@@ -1551,9 +1623,11 @@ BF16_TENSOR_OPS_PER_S = 989.4e12  # H100 SXM dense bf16 tensor cores, data sheet
 
 def k7_times(dev, path_launches) -> dict:
     """K7 at llama3-8b's prefill shape (every prefill layer), with the
-    gemma3-4b local shape beside it. The bound counts the FLOP of the
-    visible (query, key) pairs only (4·dh a pair: q·k and p·v) at the bf16
-    tensor-core peak, and q, k, v and o moved once."""
+    gemma3-4b local and h2o-danube-1.8b prefill shapes beside it. The
+    bound counts the FLOP of the visible (query, key) pairs only (4·dh a
+    pair: q·k and p·v) at the bf16 tensor-core peak, and q, k, v and o
+    moved once. The library call is SDPA with ``is_causal`` where the
+    window hides no key at the shape, else with the bool mask."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (_mask,
@@ -1575,7 +1649,7 @@ def k7_times(dev, path_launches) -> dict:
         plain_ms = cuda_ms(lambda: flash_attention_ref(
             q, k, v, window=win, q_offset=off), reps=3)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        if win is None:
+        if win is None or win > off + Sq - 1:      # the window hides nothing
             lib = lambda: F.scaled_dot_product_attention(  # noqa
                 qt, kt, vt, is_causal=True, enable_gqa=True)
         else:
@@ -1584,6 +1658,8 @@ def k7_times(dev, path_launches) -> dict:
                 qt, kt, vt, attn_mask=m, enable_gqa=True)
         lib_ms = device_ms(lib, reps=10)
         lib_call = cuda_ms(lib)
+        # the two without the profiler, in turns: lib, K7, K7, lib
+        turns = [batch_ms(f) for f in (lib, kernel, kernel, lib)]
         pairs = int(_mask(Sq, Sk, True, win, off, dev).sum())
         flop = 4 * dh * H * B * pairs
         nbytes = (2 * B * Sq * H + 2 * B * Sk * KV) * dh * q.element_size()
@@ -1591,9 +1667,12 @@ def k7_times(dev, path_launches) -> dict:
                     nbytes / HBM_BYTES_PER_S) * 1e3
         by = ("operations" if flop / BF16_TENSOR_OPS_PER_S
               >= nbytes / HBM_BYTES_PER_S else "bytes")
-        row = {"shape": what, "ms": dev_ms, "call_ms": call_ms,
+        row = {"shape": what, "instantiation": k7_instantiation(dt, dh),
+               "ms": dev_ms, "call_ms": call_ms,
                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                "library_ms": lib_ms, "library_call_ms": lib_call,
+               "batch_ms": (turns[1] + turns[2]) / 2,
+               "library_batch_ms": (turns[0] + turns[3]) / 2,
                "max_abs_err": err, "flop": flop, "bytes": nbytes,
                "tflop_per_s": flop / dev_ms / 1e9}
         log(json.dumps({"k7": row}))
@@ -1601,18 +1680,23 @@ def k7_times(dev, path_launches) -> dict:
         torch.cuda.empty_cache()
         return row
 
-    llama, gemma = measure(0), measure(1)
+    llama, gemma, danube = measure(0), measure(1), measure(4)
     return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
             "replaces": "src/repro/kernels/flash_attention.py:72",
             "launches": path_launches["flash_attention"],
-            **{k: llama[k] for k in ("max_abs_err", "ms", "call_ms",
-                                     "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms", "library_call_ms")},
+            **{k: llama[k] for k in ("instantiation", "max_abs_err", "ms",
+                                     "call_ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms",
+                                     "library_call_ms", "batch_ms",
+                                     "library_batch_ms")},
             "library": "F.scaled_dot_product_attention(is_causal=True, "
-                       "enable_gqa=True); an explicit bool mask at the "
-                       "windowed shape",
-            "shape": llama["shape"], "gemma3_local": gemma}
+                       "enable_gqa=True); an explicit bool mask where the "
+                       "window hides keys",
+            "simt_source": "src/repro_torch/kernels/csrc/flash_attention.cu "
+                           "(float32; bf16 at dh 16 and 32)",
+            "shape": llama["shape"], "gemma3_local": gemma,
+            "h2o_danube_prefill": danube}
 
 
 def k8_times(dev, path_launches, err: float) -> dict:

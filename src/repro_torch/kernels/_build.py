@@ -145,6 +145,11 @@ def _declare(lib) -> None:
     lib.flash_attention_launch.argtypes = ([vp] * 4 + [i32] * 10
                                            + [ctypes.c_float, i32, vp])
     lib.flash_attention_launch.restype = i32
+    # (q, k, v, o, B, Sq, Sk, H, KV, dh, causal, window, q_offset, scale,
+    #  device, stream)
+    lib.flash_attention_sm90_launch.argtypes = ([vp] * 4 + [i32] * 9
+                                                + [ctypes.c_float, i32, vp])
+    lib.flash_attention_sm90_launch.restype = i32
     # (x, delta, Bv, Cv, A, y, B, L, D, N, bf16, device, stream)
     lib.mamba1_scan_launch.argtypes = [vp] * 6 + [i32] * 6 + [vp]
     lib.mamba1_scan_launch.restype = i32

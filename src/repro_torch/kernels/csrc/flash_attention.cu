@@ -3,7 +3,10 @@
 //
 // Replaces: the JAX package's Pallas kernel `flash_attention_pallas`
 // (src/repro/kernels/flash_attention.py, body `_flash_kernel`), which every
-// attention layer of a prefill or forward reaches on a TPU.
+// attention layer of a prefill or forward reaches on a TPU. This SIMT
+// kernel takes float32 inputs, and bf16 at dh 16 and 32 (the reduced
+// configs); bf16 at dh 64, 80, 128 and 256 goes to the tensor-core kernel
+// in flash_attention_sm90.cu.
 //
 // Contract (kernels/flash_attention.py `flash_attention_ref`): q (B, Sq, H,
 // dh), k and v (B, Sk, KV, dh), H = g·KV; query head h reads KV head h / g.
@@ -27,7 +30,7 @@
 // row, p·V by a register tile whose columns run across a warp. Tiles that
 // the causal mask or the window hide in full are never loaded. All of it
 // runs on the CUDA cores in float32 (67 TFLOP/s peak), not on the tensor
-// cores: wgmma with bf16 operands and TMA are later work.
+// cores: that is what float32 inputs ask for.
 //
 // Shared memory: the q tile and one K-or-V tile at a padded row stride of
 // dh + 1 floats, the 64×65 score tile and three row vectors: 83 KB at dh
@@ -61,7 +64,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              int H, int KV, int g, int bq, int causal, int window,
              int q_offset, float scale) {
   constexpr int kLd = DH + 1;               // padded: no bank conflicts
-  constexpr int kTc = DH < 32 ? DH : 32;    // p·V: threads across columns
+  // p·V: threads across columns (16 where 32 does not divide dh, as 80)
+  constexpr int kTc = DH < 32 ? DH : (DH % 32 ? 16 : 32);
   constexpr int kTr = kThreads / kTc;       //      and across rows
   constexpr int kRpt = kRows / kTr;         // rows a thread
   constexpr int kCpt = DH / kTc;            // columns a thread
@@ -268,6 +272,9 @@ int launch_dh(const void* q, const void* k, const void* v, void* o, int B,
                            q_offset, scale, stream);
     case 64:
       return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+                           q_offset, scale, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
                            q_offset, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,

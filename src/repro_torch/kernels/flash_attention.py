@@ -1,13 +1,25 @@
 """Kernel K7 — forward attention with an online softmax, on the card.
 
-``flash_attention_cuda`` launches the kernel in ``csrc/flash_attention.cu``,
-the port of the JAX package's Pallas ``flash_attention_pallas``: causal or
-sliding-window attention with grouped query heads (GQA), queries at the
-absolute positions ``q_offset + i``. ``flash_attention_ref`` is its plain
-version, with the TPU kernel's numerics: every product and sum in float32
+``flash_attention_cuda`` is the port of the JAX package's Pallas
+``flash_attention_pallas``: causal or sliding-window attention with grouped
+query heads (GQA), queries at the absolute positions ``q_offset + i``. It
+has two instantiations, picked by dtype and head width:
+
+* bf16 at dh in ``SM90_HEAD_DIMS`` (64, 80, 128, 256) — every full-width
+  config — runs ``flash_kernel_sm90`` (``csrc/flash_attention_sm90.cu``):
+  TMA loads, wgmma on bf16 tiles, warp-specialised. q·k accumulates in
+  float32; the 1/sqrt(dh) scale is applied to the float32 scores; the row
+  sum adds the float32 p; P·V takes p rounded to bf16 and accumulates in
+  float32; the output is rounded to bf16 once.
+* float32 at any dh of ``HEAD_DIMS``, and bf16 at dh 16 and 32 (the
+  reduced configs), run the SIMT ``flash_kernel`` (``csrc/flash_attention.cu``):
+  every product and sum in float32 on the CUDA cores.
+
+``flash_attention_ref`` is the plain version and the float32 oracle of
+both, with the TPU kernel's numerics: every product and sum in float32
 (including p·V), the output cast to q's dtype, a fully masked row 0.
-``kernels.ops.flash_attention`` picks between the two by the tensors'
-device.
+``kernels.ops.flash_attention`` picks between kernel and plain version by
+the tensors' device.
 """
 from __future__ import annotations
 
@@ -18,7 +30,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 128, 256)   # the head widths the kernel is built for
+# the head widths K7 is built for: every attention config of
+# ``repro_torch.configs`` at full width (64, 80, 128, 256) and reduced (16)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+SM90_HEAD_DIMS = (64, 80, 128, 256)  # bf16 on the tensor-core kernel
 MAX_GROUP = 64                       # query heads per KV head it takes
 
 
@@ -76,7 +91,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: Optional[int] = None,
                          q_offset: int = 0) -> torch.Tensor:
     """The same function by kernel K7, for contiguous float32 or bfloat16
-    CUDA tensors of one dtype with dh in ``HEAD_DIMS``."""
+    CUDA tensors of one dtype with dh in ``HEAD_DIMS`` and at least one
+    key: bf16 at dh in ``SM90_HEAD_DIMS`` launches the tensor-core kernel,
+    everything else the SIMT one (module docstring)."""
     if not q.is_cuda:
         raise ValueError(f"kernel K7 needs CUDA tensors, got {q.device}")
     _check_shapes(q, k, v)
@@ -92,6 +109,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"per KV head, got {H // KV}")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
+    if Sk == 0:
+        raise ValueError("kernel K7 needs at least one key")
     dev = q.device
     _build.need(q, "q", q.dtype, dev, (B, Sq, H, dh))
     _build.need(k, "k", q.dtype, dev, (B, Sk, KV, dh))
@@ -100,12 +119,20 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.numel() == 0:
         return out
     lib = _build.library()
-    err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
-        H, KV, dh, int(bool(causal)), 0 if window is None else int(window),
-        int(q_offset), 1 if q.dtype == torch.bfloat16 else 0,
-        1.0 / math.sqrt(dh), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Sk, H, KV, dh, int(bool(causal)),
+            0 if window is None else int(window), int(q_offset))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if q.dtype == torch.bfloat16 and dh in SM90_HEAD_DIMS:
+        for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+            if t.data_ptr() % 16:     # TMA reads from 16-byte aligned bases
+                raise ValueError(f"kernel K7 needs {name} 16-byte aligned")
+        err = lib.flash_attention_sm90_launch(*args, 1.0 / math.sqrt(dh),
+                                              dev.index, stream)
+    else:
+        err = lib.flash_attention_launch(
+            *args, 1 if q.dtype == torch.bfloat16 else 0,
+            1.0 / math.sqrt(dh), dev.index, stream)
     _build.check(err, "flash_attention")
     _build.launches["flash_attention"] += 1
     return out

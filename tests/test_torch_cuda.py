@@ -193,7 +193,8 @@ def test_k5_k6_outbox_pack_matches_plain(cuda_device, rows, cap, density,
         assert torch.equal(g, w)
 
 
-# (B, Sq, Sk, H, KV, dh, causal, window, q_offset)
+# (B, Sq, Sk, H, KV, dh, causal, window, q_offset). bf16 at dh 64, 80,
+# 128 and 256 runs the tensor-core kernel, the rest the SIMT one.
 K7_CUDA_CASES = [
     (2, 130, 130, 8, 2, 128, True, None, 0),     # llama3's group, ragged Sq
     (1, 200, 200, 8, 4, 256, True, 64, 0),       # gemma3's local layers
@@ -201,6 +202,16 @@ K7_CUDA_CASES = [
     (1, 77, 77, 6, 2, 32, False, None, 0),       # g = 3: a 63-row tile
     (3, 33, 50, 4, 1, 16, True, 9, 17),          # the reduced configs' dh
     (1, 20, 20, 2, 2, 64, True, None, -8),       # rows with no visible key
+    (1, 300, 300, 32, 8, 80, True, 100, 0),      # h2o-danube's dh and group
+    (2, 190, 230, 4, 2, 64, True, None, 40),     # ragged Sq and Sk, dh 64
+    (1, 257, 321, 8, 2, 128, True, None, 64),    # ragged Sq and Sk, dh 128
+    (1, 190, 700, 16, 8, 128, True, None, 510),  # continuation, Sq < Sk
+    (1, 150, 150, 64, 8, 128, True, None, 0),    # g = 8 (qwen1.5-110b)
+    (2, 200, 200, 4, 4, 128, False, None, 0),    # g = 1, not causal
+    (1, 150, 150, 8, 2, 128, True, 40, -70),     # no visible key, 2 groups
+    (1, 130, 260, 4, 2, 80, False, 50, 100),     # a window, not causal
+    (1, 70, 333, 8, 4, 256, True, 100, 263),     # dh 256 continuation
+    (2, 640, 640, 32, 8, 64, True, None, 0),     # 320 tiles: > 2 per SM
 ]
 
 
@@ -226,6 +237,34 @@ def test_k7_flash_attention_matches_plain(cuda_device, case, dtype):
                                want.float().cpu().numpy(), rtol=tol, atol=tol)
     if q_offset < 0:
         assert not got[:, :-q_offset].any()
+
+
+@pytest.mark.parametrize("dtype,dh,instantiation", [
+    (torch.bfloat16, 128, "flash_kernel_sm90"),
+    (torch.bfloat16, 80, "flash_kernel_sm90"),
+    (torch.bfloat16, 32, "flash_kernel<"),
+    (torch.float32, 128, "flash_kernel<"),
+])
+def test_k7_picks_its_instantiation(cuda_device, dtype, dh, instantiation):
+    """bf16 at dh 64-256 runs the tensor-core kernel, the rest the SIMT
+    one: by the kernel names the profiler records (a trace in which the
+    profiler lost the launch is taken again, up to 5 times)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    q = torch.randn((1, 64, 4, dh), device=cuda_device).to(dtype)
+    k = torch.randn((1, 64, 2, dh), device=cuda_device).to(dtype)
+    flash_attention_cuda(q, k, k)
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flash_attention_cuda(q, k, k)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if "flash_kernel" in e.key]
+        if names:
+            break
+    assert len(names) == 1 and instantiation in names[0], names
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -254,15 +293,20 @@ def test_k8_mamba_scan_matches_plain(cuda_device, B, L, D, N, dtype):
                          torch.zeros((D, 17), device=cuda_device))
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "gemma3-4b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "gemma3-4b",
+                                  "h2o-danube-1.8b"])
 def test_lm_serving_on_the_card_matches_the_cpu(cuda_device, arch):
     """A reduced dense model with the same weights on the card (K7 in every
-    prefill layer) and on the CPU (K7's plain version)."""
+    prefill layer) and on the CPU (K7's plain version). h2o-danube keeps
+    its full-width head width of 80 (2560 / 32)."""
     import copy
+    import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     cfg = get_config(arch).reduced()
+    if arch == "h2o-danube-1.8b":
+        cfg = dataclasses.replace(cfg, d_head=80)
     model = T.init_params(cfg, seed=0, device=cuda_device)
     cpu_model = copy.deepcopy(model).to("cpu")
     toks = torch.randint(0, cfg.vocab, (2, 12),

@@ -1,10 +1,10 @@
 """The port's dense LM serving path against the JAX package, on the CPU.
 
-The reduced configs of llama3-8b, h2o-danube-1.8b (every layer windowed),
-gemma3-4b (5 local : 1 global, tied embeddings, qk norm, GELU) and
-qwen1.5-110b (qkv bias): the JAX package's ``init_params(PRNGKey(0))``
-carried into the port by ``params_from_numpy``, the same tokens from a
-numpy seed through both. float32 throughout, so logits and caches are
+The reduced configs of llama3-8b, h2o-danube-1.8b (every layer windowed;
+also with its full-width head width of 80), gemma3-4b (5 local : 1 global,
+tied embeddings, qk norm, GELU) and qwen1.5-110b (qkv bias): the JAX
+package's ``init_params(PRNGKey(0))`` carried into the port by
+``params_from_numpy``, the same tokens from a numpy seed through both. float32 throughout, so logits and caches are
 held to allclose at rtol = atol = 1e-5 and greedy tokens to equality.
 """
 import dataclasses
@@ -29,17 +29,22 @@ from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.training import train_step as S  # noqa: E402
 
 DENSE = ["llama3-8b", "h2o-danube-1.8b", "gemma3-4b", "qwen1.5-110b"]
+# reduced configs that keep a full-width head width: h2o-danube's 80
+WIDE_HEADS = {"h2o-danube-1.8b/d_head=80": ("h2o-danube-1.8b", 80)}
 TOL = dict(rtol=1e-5, atol=1e-5)
 CPU = torch.device("cpu")
 
 
-@pytest.fixture(scope="module", params=DENSE)
+@pytest.fixture(scope="module", params=DENSE + list(WIDE_HEADS))
 def pair(request):
     """(name, JAX cfg, JAX params, port cfg, port model) of one reduced
     dense arch."""
-    name = request.param
+    name, d_head = WIDE_HEADS.get(request.param, (request.param, None))
     jcfg = jax_config(name).reduced()
     pcfg = get_config(name).reduced()
+    if d_head is not None:
+        jcfg = dataclasses.replace(jcfg, d_head=d_head)
+        pcfg = dataclasses.replace(pcfg, d_head=d_head)
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(pcfg)
     jparams = JT.init_params(jax.random.PRNGKey(0), jcfg)
     tree = jax.tree.map(np.asarray, jparams)

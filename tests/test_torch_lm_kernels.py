@@ -46,6 +46,7 @@ K7_CASES = {
     "ragged_sq": (1, 37, 37, 4, 2, 16, True, None, 0),
     "not_causal": (2, 19, 23, 4, 4, 8, False, None, 0),
     "rows_fully_masked": (1, 12, 12, 2, 1, 8, True, None, -4),
+    "head_width_80": (1, 20, 20, 8, 2, 80, True, 8, 0),   # h2o-danube's dh
 }
 
 

@@ -11,7 +11,10 @@ failure exits non-zero and prints no result:
 3. each kernel against its plain PyTorch version on the card: K1 and K2 on
    a random ELL (V = 2e6, D = 8, PAD rows, ±inf; K2 at frontier densities
    of 1 % and 50 %), K3 over every superstep of CC and SSSP on a road grid
-   and on a powerlaw graph with hub feeds, K4 on the same graphs and
+   and on a powerlaw graph with hub feeds, with one partition, with 40
+   partitions (more than the clusters the card holds), with each of its two
+   walks forced and switching mid-fixpoint, with unroll 3 and with SSSP
+   rows no path reaches, K4 on the same graphs and
    semirings from the init state, cut by a small max_steps, and entered
    after two K3 supersteps, K5 and K6 on random masks
    (R ∈ {144, 4096}, cap ∈ {969, 4096}, densities 0 / 0.05 / 1, budgets
@@ -65,6 +68,15 @@ failure exits non-zero and prints no result:
       serving times, peak memory and K7's event-timed share of a prefill,
       and the profiler's device breakdown of a prefill and a decode step;
 5. kernel times at the paths' shapes: one ``{"kernels": [...]}`` line.
+   K3 is also held at the main path's CC superstep 0 with each walk
+   forced. Its ``bound_ms`` counts only the rows with an active
+   in-neighbour, summed over the plain version's sweeps, over the lanes
+   some row uses; its row adds ``bound_dense_ms`` (every row every sweep,
+   all D lanes: the TPU kernel's work) and ``bound_frontier_ms`` (the
+   active rows over all D lanes). A ``k3`` line gives the counts and the
+   cluster shape. A ``barriers`` line times one grid.sync() over K4's
+   cooperative grid and one cluster barrier at K3's cluster shape
+   (``csrc/barrier_probe.cu``).
    ``ms`` is a kernel's device time by torch.profiler; ``call_ms`` the
    CUDA-event time of one wrapper call, which for a small kernel is
    mostly the host's time to enqueue it. K7's row adds ``batch_ms`` and
@@ -150,22 +162,29 @@ def device_ms(fn, kernel=None, reps: int = 20, traces: int = 5) -> float:
     only) over ``reps`` calls after a warm-up call: per launch of the
     kernels whose names hold ``kernel``, or, with ``kernel=None``, of all
     the call's kernels. It leaves out the host's time to enqueue the call,
-    which sets a small kernel's event-timed call (:func:`cuda_ms`). A trace
-    that holds none of the kernels (the profiler on the H100 has lost a
-    whole window's launches) is taken again, up to ``traces`` times. With
-    ``kernel=None`` the time is divided by the calls, so the trace must
-    hold every call's launches: each kernel name a whole multiple of
-    ``reps`` times. One that lost part of its window is taken again."""
+    which sets a small kernel's event-timed call (:func:`cuda_ms`). Each
+    trace records a second window of ``reps`` calls after a warm-up window
+    the profiler runs but discards (the profiler on the H100 lost launches
+    at the start of a window). A trace that holds none of the kernels is
+    taken again, up to ``traces`` times. With ``kernel=None`` a call's time
+    is, over the kernel names, each name's mean time a launch times its
+    launches a call (its count over ``reps``, rounded), taken only where
+    every name's count is within a tenth of ``reps`` (at least 2) below
+    that whole multiple; else the trace is taken again."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
     for trace in range(traces):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            for window in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                if window == 0:
+                    prof.step()         # the warm-up window ends here
         hits = [(evt.count, evt.device_time_total / 1e3)
                 for evt in prof.key_averages()
                 if evt.device_type == DeviceType.CUDA
@@ -173,9 +192,11 @@ def device_ms(fn, kernel=None, reps: int = 20, traces: int = 5) -> float:
         launches, ms = sum(c for c, _ in hits), sum(t for _, t in hits)
         if kernel is not None and launches:
             return ms / launches
-        if kernel is None and launches \
-                and all(c % reps == 0 for c, _ in hits):
-            return ms / reps
+        per_call = [max(1, round(c / reps)) for c, _ in hits]
+        if kernel is None and launches and all(
+                0 <= m * reps - c <= max(2, reps // 10)
+                for m, (c, _) in zip(per_call, hits)):
+            return sum(m * t / c for m, (c, t) in zip(per_call, hits))
         log(f"device_ms: trace {trace + 1} of {traces} saw "
             f"{[c for c, _ in hits]} launches of {kernel or 'any kernel'} "
             f"by name in {reps} calls")
@@ -330,42 +351,93 @@ def check_k5_k6(dev) -> None:
         f"every output bit-equal")
 
 
-def check_k3(dev) -> None:
+def k3_run(what, cm, pg, semiring, unroll=1, check_inf=False) -> int:
+    """Hold K3 bit for bit against its plain version over every superstep
+    of a run from the program's init state; returns the supersteps."""
     import torch
     from repro_torch.core import (SemiringProgram, graph_block,
                                   init_max_vertex, make_sssp_init)
+    from repro_torch.kernels import megastep as mega
+    gb = graph_block(pg, cm["vmask"].device)
+    init = (init_max_vertex if semiring == "max_first"
+            else make_sssp_init(int(pg.part_of[0]), int(pg.local_of[0])))
+    st = SemiringProgram(semiring=semiring, init_fn=init).init(gb)
+    x, ch, fr = (st[k].reshape(-1).contiguous()
+                 for k in ("x", "changed_v", "frontier"))
+    steps = 0
+    while bool(ch.any()) and steps < 4096:
+        got = mega.megastep_semiring_cuda(x, ch, fr, cm, semiring, unroll)
+        want = mega.megastep_semiring_ref(x, ch, fr, cm, semiring, unroll)
+        torch.cuda.synchronize()
+        for name, kind, a, b in zip(
+                ("x2", "changed2", "frontier_left", "liters"),
+                (semiring, "bool", "bool", "max_first"), got, want):
+            compare(kind, a, b, f"K3 {what} {semiring} superstep {steps} "
+                    f"{name}")
+        x, ch, fr = got[:3]
+        steps += 1
+    if bool(ch.any()):
+        fail(f"K3 {what} {semiring}: no quiescence in {steps} supersteps")
+    if check_inf and not bool(torch.isinf(x[cm["vmask"]]).any()):
+        fail(f"K3 {what}: no row stayed unreachable")
+    return steps
+
+
+def check_k3(dev) -> None:
+    """K3 against its plain version over every superstep of CC and SSSP
+    runs: P = 12 on a road grid and P = 8 on a powerlaw graph with hub
+    feed rows; one partition; 40 partitions, more than the clusters the
+    card holds, so clusters take turns; each of K3's two walks forced
+    through the wrapper's constant, and a constant at which they switch
+    inside a fixpoint; unroll 3; SSSP with rows no path reaches."""
+    from repro_torch.core import graph_block
     from repro_torch.gofs import (bfs_grow_partition, partition_graph,
                                   powerlaw_social, road_grid)
     from repro_torch.kernels import megastep as mega
-    cases = [("road_grid(300,300)", road_grid(300, 300, weighted=True,
-                                              seed=1), 12),
-             ("powerlaw_social(20000,m=5)",
-              powerlaw_social(20000, m=5, seed=2), 8)]
-    for gname, g, P in cases:
+
+    def mailbox(g, P):
         pg = partition_graph(g, bfs_grow_partition(g, P, seed=0), P)
-        gb = graph_block(pg, dev)
-        cm = mega.compose_mailbox(gb)
-        hubs = int(cm["hub_row_ok"].sum())
-        for sr, init in (("max_first", init_max_vertex),
-                         ("min_plus", make_sssp_init(int(pg.part_of[0]),
-                                                     int(pg.local_of[0])))):
-            st = SemiringProgram(semiring=sr, init_fn=init).init(gb)
-            x, ch, fr = (st[k].reshape(-1).contiguous()
-                         for k in ("x", "changed_v", "frontier"))
-            steps = 0
-            while bool(ch.any()) and steps < 4096:
-                got = mega.megastep_semiring_cuda(x, ch, fr, cm, sr)
-                want = mega.megastep_semiring_ref(x, ch, fr, cm, sr)
-                torch.cuda.synchronize()
-                for name, kind, a, b in zip(
-                        ("x2", "changed2", "frontier_left", "liters"),
-                        (sr, "bool", "bool", "max_first"), got, want):
-                    compare(kind, a, b, f"K3 {gname} {sr} superstep "
-                            f"{steps} {name}")
-                x, ch, fr = got[:3]
-                steps += 1
+        return pg, mega.compose_mailbox(graph_block(pg, dev))
+
+    both = ("max_first", "min_plus")
+    for gname, g, P in (
+            ("road_grid(300,300)", road_grid(300, 300, weighted=True,
+                                             seed=1), 12),
+            ("powerlaw_social(20000,m=5)",
+             powerlaw_social(20000, m=5, seed=2), 8),
+            ("road_grid(80,80)", road_grid(80, 80, weighted=True, seed=1), 1),
+            ("road_grid(300,300)", road_grid(300, 300, weighted=True,
+                                             seed=1), 40)):
+        pg, cm = mailbox(g, P)
+        shape = mega.k3_cluster_shape(P, "max_first", dev)
+        if P == 40 and shape["clusters"] >= P:
+            fail(f"K3 P=40: {shape['clusters']} clusters, expected fewer "
+                 f"than the partitions")
+        for sr in both:
+            steps = k3_run(f"{gname} P={P}", cm, pg, sr)
             log(f"K3 megastep_semiring {gname} P={P} {sr}: {steps} "
-                f"supersteps bit-equal (hub feed rows {hubs})")
+                f"supersteps bit-equal (hub feed rows "
+                f"{int(cm['hub_row_ok'].sum())}; {shape['clusters']} "
+                f"clusters of {shape['blocks_per_cluster']} blocks)")
+    pg, cm = mailbox(road_grid(120, 120, weighted=True, seed=4), 6)
+    saved = mega.K3_DENSE_FRONTIER
+    try:
+        for frac, walk in ((0.0, "every sweep dense"),
+                           (2.0, "every sweep by work list"),
+                           (0.05, "walks switch mid-fixpoint")):
+            mega.K3_DENSE_FRONTIER = frac
+            for sr in both:
+                k3_run(f"road_grid(120,120) P=6 {walk}", cm, pg, sr)
+    finally:
+        mega.K3_DENSE_FRONTIER = saved
+    for sr in both:
+        k3_run("road_grid(120,120) P=6 unroll 3", cm, pg, sr, unroll=3)
+    pg, cm = mailbox(road_grid(120, 120, drop_frac=0.35, weighted=True,
+                               seed=4), 6)
+    k3_run("road_grid(120,120,drop_frac=0.35) P=6", cm, pg, "min_plus",
+           check_inf=True)
+    log("K3 megastep_semiring: both walks forced, a switch mid-fixpoint, "
+        "unroll 3 and unreachable SSSP rows all bit-equal")
 
 
 def check_k4(dev) -> None:
@@ -1016,8 +1088,10 @@ def tier_path(dev, pg, src, fused, staged, path_launches, truth):
 
 def breakdown(pg, upg, src):
     """Where one warm run's time goes, per run: the engine's set-up (graph
-    block upload, then the mailbox compose on the fused route or the flat
-    adjacency on the staged one), then the BSP loop, and inside it the
+    block upload, then the mailbox compose on the fused route — with K3's
+    out-adjacency, which its first launch would otherwise build, timed
+    apart as ``out_adjacency_s`` — or the flat adjacency on the staged
+    one), then the BSP loop, and inside it the
     kernels' time by CUDA events around every call of the superstep (K3),
     the pull (K1), the masked sweep (K2) and the pack (K5). Where the host
     is the bottleneck, as on the staged route, an event pair also holds the
@@ -1075,6 +1149,10 @@ def breakdown(pg, upg, src):
         t0 = time.perf_counter()
         blocks = eng._gb_for_run() if fused else (eng._gb_for_staged(),)
         torch.cuda.synchronize()
+        t_adj = time.perf_counter()
+        if fused and exchange == "auto" and hooks is k3:
+            mega.out_adjacency(blocks[1])   # K3's, else built at its first
+            torch.cuda.synchronize()        # launch
         t1 = time.perf_counter()
         saved = [(m, a, getattr(m, a)) for m, a in hooks]
         for m, a, kernel in saved:
@@ -1098,7 +1176,8 @@ def breakdown(pg, upg, src):
         total = sum(kernel_ms.values())
         log(json.dumps({
             "breakdown": name, "exchange": eng.exchange,
-            "setup_s": t1 - t0, "loop_s": t2 - t1, "supersteps": steps,
+            "setup_s": t1 - t0, "out_adjacency_s": t1 - t_adj,
+            "loop_s": t2 - t1, "supersteps": steps,
             "kernel_calls": calls, "kernel_ms": kernel_ms,
             "kernel_share_of_loop": total / 1e3 / (t2 - t1)}))
 
@@ -1360,20 +1439,31 @@ def kernel_times(dev, pg, path_launches, plain_k4):
 
     # K3 at CC's first superstep (the widest: every vertex is in the
     # frontier and the fixpoint runs its longest). max_first reads no edge
-    # weights, so the bound counts none
+    # weights, so the bounds count none
     st = SemiringProgram(semiring="max_first",
                          init_fn=init_max_vertex).init(gb)
     xs, ch, fr = (st[k].reshape(-1).contiguous()
                   for k in ("x", "changed_v", "frontier"))
-    got = mega.megastep_semiring_cuda(xs, ch, fr, cm, "max_first")
     want = mega.megastep_semiring_ref(xs, ch, fr, cm, "max_first")
-    torch.cuda.synchronize()
-    k3_err = compare("max_first", got[0], want[0], "K3 at the main path x2")
-    for a, b, what in zip(got[1:], want[1:],
-                          ("changed2", "frontier_left", "liters")):
-        compare("bool" if what != "liters" else "max_first", a, b,
-                f"K3 at the main path {what}")
-    sweeps = int(got[3].max())
+    k3_err = 0.0
+    saved = mega.K3_DENSE_FRONTIER
+    try:  # each walk forced, then the wrapper's own switch
+        for frac in (0.0, 2.0, saved):
+            mega.K3_DENSE_FRONTIER = frac
+            got = mega.megastep_semiring_cuda(xs, ch, fr, cm, "max_first")
+            torch.cuda.synchronize()
+            k3_err = max(k3_err, compare(
+                "max_first", got[0], want[0],
+                f"K3 at the main path x2 (K3_DENSE_FRONTIER {frac})"))
+            for a, b, what in zip(got[1:], want[1:],
+                                  ("changed2", "frontier_left", "liters")):
+                compare("bool" if what != "liters" else "max_first", a, b,
+                        f"K3 at the main path {what} (K3_DENSE_FRONTIER "
+                        f"{frac})")
+    finally:
+        mega.K3_DENSE_FRONTIER = saved
+    liters = got[3].cpu().numpy()
+    sweeps = int(liters.max())
     k3_ms = cuda_ms(lambda: mega.megastep_semiring_cuda(
         xs, ch, fr, cm, "max_first"), reps=3)
     k3_plain = cuda_ms(lambda: mega.megastep_semiring_ref(
@@ -1383,9 +1473,14 @@ def kernel_times(dev, pg, path_launches, plain_k4):
     m_lo = cm["lo_src"].shape[1]
     m_hi = cm["hub_src"].shape[1]
     hub_rows = int(cm["hub_row_ok"].sum())
-    # a sweep reads every lane's index (n·D·4) and each row's x (4), writes
-    # x and f (4 + 1) and reads vmask (1); gathered x and f sit in L2
-    per_sweep = n * d * 4 + n * 10
+    # a sweep of a row reads its lanes' indices (D·4) and its x (4), writes
+    # x and f (4 + 1) and reads vmask (1); gathered x and f sit in L2. The
+    # dense bound takes every row every sweep over all D lanes (the TPU
+    # kernel's work), the frontier bound only the rows with an active
+    # in-neighbour, counted from the plain version's sweeps at this input
+    per_row = d * 4 + 10
+    per_sweep = n * per_row
+    act_rows, sizes = k3_work(cm, xs, ch, fr, "max_first")
     once = (n * m_lo * 5 + hub_rows * (4 + m_hi * 5)  # lo maps, hub rows
                                                      # (src 4 + ok 1 a lane)
             + n * (4 + 1 + 1 + 1 + 1)            # x, changed, frontier,
@@ -1394,10 +1489,44 @@ def kernel_times(dev, pg, path_launches, plain_k4):
     k3_bytes = once + sweeps * per_sweep
     k3_ops = sweeps * n * d * 2
     k3_bound = max(k3_bytes / HBM_BYTES_PER_S, k3_ops / FP32_OPS_PER_S) * 1e3
-    log(f"K3 at CC superstep 0: n={n} D={d} sweeps={sweeps} "
-        f"bytes/sweep={per_sweep} bound/sweep "
-        f"{per_sweep / HBM_BYTES_PER_S * 1e3:.4f} ms, kernel "
-        f"{k3_dev / max(sweeps, 1):.4f} ms/sweep")
+    k3_frontier_bound = max(
+        (once + act_rows * per_row) / HBM_BYTES_PER_S,
+        act_rows * d * 2 / FP32_OPS_PER_S) * 1e3
+    # K3's bound: the frontier bound over the lanes some row uses (the
+    # ELL's width cut by mega.k3_lanes), the least the card must move
+    width = mega.k3_lanes(cm, "max_first")[0].shape[1]
+    k3_lanes_bound = max(
+        (once + act_rows * (width * 4 + 10)) / HBM_BYTES_PER_S,
+        act_rows * width * 2 / FP32_OPS_PER_S) * 1e3
+    if k3_dev < k3_lanes_bound:
+        fail(f"K3 at CC superstep 0: {k3_dev} ms is below its bound over "
+             f"the frontier rows and the lanes it reads, {k3_lanes_bound} "
+             f"ms: the count or the kernel is wrong")
+    shape = mega.k3_cluster_shape(pg.num_parts, "max_first", dev)
+    dense_rows = mega.k3_dense_rows(cm["v_max"])
+    # what K3 keeps in the mailbox (the out-adjacency and the cut lanes,
+    # min_plus adding its weights) and allocates a launch (fgen, stamp,
+    # x_alt, the two lists)
+    kept = {key: cm[key].numel() * cm[key].element_size()
+            for key in ("out_off", "out_src", "k3_nbr")}
+    kept["k3_wgt (min_plus)"] = kept["k3_nbr"]
+    log(json.dumps({"k3": "cc superstep 0", "n": n, "D": d, "sweeps": sweeps,
+                    "kept_bytes": kept, "scratch_bytes": n * 4 * 6,
+                    "liters": liters.tolist(),
+                    "partition_sweeps_sum": int(liters.sum()),
+                    "active_row_sweeps": act_rows,
+                    "active_rows_per_sweep": act_rows / max(sweeps, 1),
+                    "work_list_sweeps": int(((sizes > 0)
+                                             & (sizes < dense_rows)).sum()),
+                    "dense_sweeps": int((sizes >= dense_rows).sum()),
+                    "bytes_per_sweep_dense": per_sweep, "lanes_read": width,
+                    "ms": k3_dev, "bound_ms": k3_lanes_bound,
+                    "share_of_bound": k3_lanes_bound / k3_dev,
+                    "bound_frontier_ms": k3_frontier_bound,
+                    "bound_dense_ms": k3_bound,
+                    "cluster_shape": shape,
+                    "K3_DENSE_FRONTIER": saved, "dense_rows": dense_rows}))
+    barrier_times(dev, n, pg.num_parts, shape)
 
     k2 = k2_times(dev, pg, path_launches)
     k4 = k4_times(dev, pg, cm, path_launches, plain_k4,
@@ -1416,10 +1545,77 @@ def kernel_times(dev, pg, path_launches, plain_k4):
          "replaces": "src/repro/kernels/megastep.py:622",
          "launches": path_launches["megastep_semiring"],
          "max_abs_err": k3_err, "ms": k3_dev, "call_ms": k3_ms,
-         "plain_ms": k3_plain, "bound_ms": k3_bound, "bound_by": "bytes",
-         "library_ms": None},
+         "plain_ms": k3_plain, "bound_ms": k3_lanes_bound,
+         "bound_by": "bytes", "bound_frontier_ms": k3_frontier_bound,
+         "bound_dense_ms": k3_bound, "library_ms": None},
         k2, k4, k5, k6,
     ]}
+
+
+def k3_work(cm, x, ch, fr, semiring):
+    """The work of one superstep's masked fixpoint as the plain version
+    runs it from (x, ch, fr): the rows with an active in-neighbour summed
+    over the sweeps, and the frontier's size per partition at each sweep
+    (sweeps × P). The data decides both, not the implementation."""
+    import torch
+    from repro_torch.kernels import flat
+    from repro_torch.kernels import megastep as mega
+    from repro_torch.kernels.ref import semiring_spmv_frontier_ref
+    act_rows, sizes = [], []
+
+    def sweep(xc, f, nbr, wgt, sr):
+        y, act = semiring_spmv_frontier_ref(xc, f, nbr, wgt, sr)
+        act_rows.append(act.sum())
+        sizes.append(f.reshape(cm["num_parts"], -1).sum(dim=1))
+        return y, act
+
+    combine = flat.idempotent_combine(semiring)
+    vm = cm["vmask"]
+    inbox = mega.deliver_flat(x, ch, cm, combine, semiring == "min_plus")
+    x1 = flat.combine_ew(combine, x, inbox)
+    flat.local_fixpoint(x1, fr | ((x1 != x) & vm), cm, vm, cm["num_parts"],
+                        semiring, sweep=sweep)
+    return (int(torch.stack(act_rows).sum()),
+            torch.stack(sizes).cpu().numpy())
+
+
+def barrier_times(dev, n: int, num_parts: int, k3_shape: dict) -> None:
+    """The two barriers alone (csrc/barrier_probe.cu): one grid.sync()
+    over K4's cooperative grid at the main path's n and P, and one cluster
+    barrier at K3's cluster shape there, each the mean over 10,000 back to
+    back, timed on the card's global timer; with the card's name and power
+    limit."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import _build
+    lib = _build.library()
+    iters = 10000
+    grid = (ctypes.c_int * 2)()
+    _build.check(lib.resident_grid_shape(n, num_parts, 0, dev.index or 0,
+                                         grid), "K4 grid shape")
+    ns = torch.zeros(1, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    size, clusters = k3_shape["blocks_per_cluster"], k3_shape["clusters"]
+    out = {}
+    for what, args in (("grid_sync_us", (0, grid[0], grid[1])),
+                       ("cluster_sync_us", (size, clusters * size, 1024))):
+        runs = []
+        for _ in range(3):
+            _build.check(lib.barrier_probe_launch(
+                *args, iters, ns.data_ptr(), dev.index or 0, stream),
+                f"barrier probe {what}")
+            torch.cuda.synchronize()
+            runs.append(int(ns) / iters / 1e3)
+        out[what] = statistics.mean(runs)
+        out[what + "_runs"] = runs
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    log(json.dumps({"barriers": {
+        **out, "iters": iters, "grid_blocks": grid[0],
+        "grid_threads": grid[1], "cluster_blocks": size,
+        "clusters": clusters, "cluster_threads": 1024, "card": smi}}))
 
 
 def k4_times(dev, pg, cm, path_launches, plain, k3_ms_sweep, k3_sweep_bytes):

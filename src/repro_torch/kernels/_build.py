@@ -117,6 +117,7 @@ def build(verbose: bool = False) -> Path:
 
 def _declare(lib) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
+    ip = ctypes.POINTER(ctypes.c_int)
     # (x, nbr, wgt, y, rows, d, semiring, device, stream)
     lib.semiring_spmv_launch.argtypes = [vp] * 4 + [i32] * 4 + [vp]
     lib.semiring_spmv_launch.restype = i32
@@ -132,14 +133,23 @@ def _declare(lib) -> None:
     # (active, pfwd, pinv, counts, rows, cap, device, stream)
     lib.outbox_compact_plan_launch.argtypes = [vp] * 4 + [i32] * 3 + [vp]
     lib.outbox_compact_plan_launch.restype = i32
-    # (14 inputs, 7 outputs and scratch; n, d, m_lo, m_hi, num_parts,
-    #  v_max, unroll, min_plus, device; stream)
-    lib.megastep_semiring_launch.argtypes = [vp] * 21 + [i32] * 9 + [vp]
+    # (16 inputs, 8 outputs and scratch; n, d, m_lo, m_hi, num_parts,
+    #  v_max, unroll, dense_rows, min_plus, device; stream)
+    lib.megastep_semiring_launch.argtypes = [vp] * 24 + [i32] * 10 + [vp]
     lib.megastep_semiring_launch.restype = i32
+    # (num_parts, min_plus, device, out[8])
+    lib.megastep_cluster_shape.argtypes = [i32] * 3 + [ip]
+    lib.megastep_cluster_shape.restype = i32
     # (14 inputs, 8 outputs and scratch; n, d, m_lo, m_hi, num_parts,
     #  v_max, max_steps, min_plus, device; stream)
     lib.resident_megastep_launch.argtypes = [vp] * 22 + [i32] * 9 + [vp]
     lib.resident_megastep_launch.restype = i32
+    # (n, num_parts, min_plus, device, out[2])
+    lib.resident_grid_shape.argtypes = [i32] * 4 + [ip]
+    lib.resident_grid_shape.restype = i32
+    # (cluster_blocks, blocks, threads, iters, ns, device, stream)
+    lib.barrier_probe_launch.argtypes = [i32] * 4 + [vp, i32, vp]
+    lib.barrier_probe_launch.restype = i32
     # (q, k, v, o, B, Sq, Sk, H, KV, dh, causal, window, q_offset, bf16,
     #  scale, device, stream)
     lib.flash_attention_launch.argtypes = ([vp] * 4 + [i32] * 10

@@ -9,39 +9,86 @@
 // it, and the plain `megastep_semiring_ref`, bit for bit:
 //   x2 (n) f32, changed2 (n) bool, frontier_left (n) bool, liters (P) i32.
 //
-// What bounds it on an H100: memory, per sweep of the fixpoint. A sweep
-// reads the PAD-filled adjacency once, n·D·4 B of nbr (plus n·D·4 B of wgt
-// for min_plus), and n·(4+1) of state, and writes n·(4+1); the gathered x
-// and frontier stay in the 50 MB L2 at the main path's size. The superstep costs that times its sweep
-// count, which the data decides (road networks take hundreds of sweeps).
+// What bounds it on an H100: memory, per sweep of the fixpoint, and only
+// over the rows a sweep must recompute: those with an in-neighbour in the
+// frontier. Such a row reads its lanes' indices (plus as many weights for
+// min_plus) and its own x, and writes x and its frontier stamp; the
+// gathered x stays in the 50 MB L2. The data decides the sweep count
+// (road networks take hundreds) and how fast the frontier shrinks: at
+// the main path's CC superstep 0 the rows with an active
+// in-neighbour are a third of n on average over 972 sweeps, and the
+// frontier falls under 1 % of a partition long before its last sweep.
 //
-// What the design does about it: the TPU kernel ran grid=(1,) with the
-// whole problem in VMEM; one SM's 227 KB cannot hold a road network, so
-// this kernel spreads the rows over every SM. It is ONE cooperative launch
-// per superstep with at most as many blocks as can be co-resident; rows are
-// walked grid-stride and `grid.sync()` separates the phases, so the
-// fixpoint loop never returns to the host. A row whose in-neighbours are all
-// outside the frontier skips the x gather (the frontier pass reads 1 byte a
-// lane), which is most rows once a region settles.
+// What the design does about it. The sub-graph-centric model has an
+// independence the TPU kernel (grid=(1,), the whole problem in VMEM) did
+// not need: local edges never leave a partition, and delivery reads only
+// the INPUT x and changed, which no block writes. So no phase needs a
+// barrier wider than one partition:
+//  * One thread-block CLUSTER per partition (blocks of 1024 threads, one a
+//    SM; the cluster size is chosen at launch from
+//    cudaOccupancyMaxActiveClusters so that the P partitions take the
+//    fewest rounds). Clusters are persistent: cluster c takes partitions
+//    c, c + C, ...; each runs delivery, its own fixpoint loop to its own
+//    quiescence, and the outputs. The blocks of a cluster sync with the
+//    hardware cluster barrier; there is no grid-wide barrier and no
+//    cooperative launch, and a partition that settles early frees its
+//    SMs instead of sweeping no-ops until the last one settles.
+//  * Work lists. A sweep recomputes only the rows with an active
+//    in-neighbour: the out-neighbours of the frontier, walked through the
+//    transpose of the adjacency (out_off/out_src, CSR, built once per
+//    mailbox by the wrapper). A per-row stamp claims each row once a
+//    sweep. While a partition's frontier holds at least `dense_rows` rows
+//    (a constant of the wrapper), the sweep walks all its rows instead,
+//    two rows a thread at once, testing the stamps of each row's lanes;
+//    the two walks give the same iterates.
+//  * A work-list entry takes a group of 8 threads (one round of the list)
+//    or 4 (a longer list): its row and its out-neighbours split among them.
+//  * The counters (the frontier's size per sweep, a list's fill) live in
+//    the shared memory of the cluster's first block and are reached by
+//    distributed-shared-memory atomics, one per block (dense walk) or one
+//    per converged group of threads (work list).
+//  * The ELL pads its width to a multiple of 8; a road network's rows use
+//    4 lanes. The wrapper hands K3 the adjacency cut to the lanes some row
+//    uses (rounded to 4), which halves the index bytes of a dense walk at
+//    the main path's size. A row's indices come in 16-byte loads and its
+//    gathers are issued independently, without a dependent early exit.
+//    Index arithmetic is 32-bit (the wrapper checks n·D < 2^31).
 //
 // Places where bit identity with the JAX kernel is easily lost:
-//  * Sweeps are Jacobi: each reads (xc, fc) and writes (xn, fn) in separate
-//    buffers, swapped after the barrier. Updating in place (Gauss-Seidel)
-//    reaches the same fixpoint but changes liters, changed_hist and the
-//    superstep count.
-//  * The "any f" flags live in a ring of three (P+1)-int slots: sweep k
-//    writes slot (k+1)%3 and clears slot (k+2)%3, the slot every block
-//    finished reading before the previous barrier. With two slots a fast
-//    block would clear a flag a slow block has not read yet.
-//  * `act` follows ref.py's semiring_spmv_frontier_ref: a row with no active
-//    in-neighbour yields the identity, not its recomputed value.
+//  * Sweeps are Jacobi: no row reads a value written in the same sweep.
+//    Each sweep reads one x buffer and writes into the other (x_out and
+//    x_alt swap after one cluster barrier): a dense walk every row; a
+//    work-list sweep the rows whose value may differ between the buffers,
+//    its candidates and the last sweep's frontier rows (the other buffer
+//    holds x from before them), each claimed once. Updating in place
+//    (Gauss-Seidel) reaches the same fixpoint but changes liters,
+//    changed_hist and the superstep count.
+//  * The frontier is a stamp per row in two arrays by the sweep's parity:
+//    a row is in sweep k's frontier iff fgen[k & 1][v] == k. Sweep k
+//    writes k + 1 into the other array for the rows that change, which no
+//    reader of sweep k looks at, and an old stamp never equals a later
+//    sweep, so nothing is cleared.
+//  * The frontier sizes sit in a ring of three counters: sweep k reads
+//    slot k % 3, adds to slot (k + 1) % 3 and clears slot (k + 2) % 3,
+//    whose last reader finished before the previous barrier.
+//  * `act` follows ref.py's semiring_spmv_frontier_ref: a row with no
+//    active in-neighbour keeps its value. Both walks test it (a work-list
+//    candidate has one by construction; a row of the last frontier may
+//    not). Rows outside vmask have no local edge (the wrapper
+//    refuses a mailbox where one does), so a row that changes is always in
+//    the next frontier and the sweeps never read vmask.
+//  * liters keeps `unroll`'s grouping: a partition's loop trip starts only
+//    while its frontier is non-empty and adds `unroll`. A partition that
+//    has settled stays settled under the global loop of the reference, so
+//    its own loop gives the same x2, changed2, frontier_left and liters.
 //  * The identities are ±inf and `x2 != xc` is a float compare; min/max are
 //    plain compares (no NaN reaches them), and the only arithmetic on an
 //    identity is inf + w in min_plus, which stays inf. `__fadd_rn` keeps
 //    nvcc from contracting anything.
-//  * Mutable buffers (xc, fc, flags) are read with `__ldcg` (L2, not the
-//    non-coherent L1), so a row sees what other SMs wrote before the
-//    barrier. Read-only inputs use `__ldg`.
+//  * Buffers other blocks write during the launch (x, x_alt, fgen, stamp,
+//    the lists) are read with `__ldcg` (L2, not the non-coherent L1) or
+//    atomics; read-only inputs use `__ldg`. The cluster barrier is a
+//    release/acquire at cluster scope.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -51,9 +98,11 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;          // K4's blocks
+constexpr int kClusterThreads = 1024;  // K3's blocks: one a SM
 constexpr int kMaxIt = 1 << 30;
 constexpr int kMaxDevices = 64;
+constexpr int kNumSizes = 5;           // K3's cluster sizes: 1, 2, 4, 8, 16
 
 struct Args {
   const float* x;
@@ -70,15 +119,21 @@ struct Args {
   const float* hub_w;
   const int* hub_row;
   const uint8_t* hub_row_ok;
+  const int* out_off;  // K3: the adjacency's transpose, CSR over rows
+  const int* out_src;
   float* x_out;
   uint8_t* ch_out;
   uint8_t* fr_out;
   int* liters;
-  float* x_tmp;
-  uint8_t* f_tmp;
-  int* flags;  // 3 slots of (P+1): per-partition "any f", then global
-  int* iters;  // K4 only: rounds run
-  int n, d, m_lo, m_hi, num_parts, v_max, unroll, max_steps;
+  float* x_tmp;    // K4
+  uint8_t* f_tmp;  // K4
+  int* flags;      // K4: 3 slots of (P+1): per-partition "any f", global
+  int* iters;      // K4: rounds run
+  int* fgen;       // K3: 2·n frontier stamps, by the parity of the sweep
+  int* stamp;      // K3: the sweep that last claimed a row (work list)
+  float* x_alt;    // K3: the other x buffer of dense walks
+  int* lists;      // K3: two work lists of rows, v_max a partition
+  int n, d, m_lo, m_hi, num_parts, v_max, unroll, max_steps, dense_rows;
 };
 
 // a load of a buffer other blocks write during the launch goes through L2
@@ -136,22 +191,10 @@ __device__ __forceinline__ float inbox_of(const Args& a, int64_t v,
   return inbox;
 }
 
-__device__ __forceinline__ void mark(int* sflag, const Args& a, int64_t v) {
-  sflag[v / a.v_max] = 1;
-  sflag[a.num_parts] = 1;
-}
-
 __device__ __forceinline__ void clear_block_flags(int* sflag, int p1) {
   __syncthreads();
   for (int i = threadIdx.x; i < p1; i += blockDim.x) sflag[i] = 0;
   __syncthreads();
-}
-
-__device__ __forceinline__ void flush_block_flags(const int* sflag, int* g,
-                                                  int p1) {
-  __syncthreads();
-  for (int i = threadIdx.x; i < p1; i += blockDim.x)
-    if (sflag[i]) g[i] = 1;  // every writer stores 1: a benign race
 }
 
 // one Jacobi row update of the masked sweep (ref.py semiring_spmv_frontier_ref):
@@ -180,80 +223,253 @@ __device__ __forceinline__ float sweep_value(const Args& a, int64_t v,
   return oplus<MINP>(xv, y);
 }
 
+// ---------------------------------------------------------------------------
+// K3's pieces
+
+__device__ __forceinline__ int load_counter(const int* p) {
+  return *reinterpret_cast<const volatile int*>(p);
+}
+
+// a work-list slot from the counter in the leader's shared memory: one
+// cluster atomic for each group of threads that arrive together
+__device__ __forceinline__ int append_one(int* counter) {
+  cg::coalesced_group g = cg::coalesced_threads();
+  int first = 0;
+  if (g.thread_rank() == 0) first = atomicAdd(counter, (int)g.size());
+  return g.shfl(first, 0) + (int)g.thread_rank();
+}
+
+// add every thread's `mine` to `counter` in the leader's shared memory: a
+// warp sum, a block sum in `s_sum`, one cluster atomic a block. Every
+// thread of the block calls it; the next call comes after a cluster
+// barrier, so thread 0's reset of s_sum is seen.
+__device__ __forceinline__ void block_count_add(int mine, int* s_sum,
+                                                int* counter) {
+  mine = __reduce_add_sync(0xffffffffu, mine);
+  if ((threadIdx.x & 31) == 0 && mine) atomicAdd(s_sum, mine);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (*s_sum) atomicAdd(counter, *s_sum);
+    *s_sum = 0;
+  }
+}
+
+// one lane of a row update: a valid lane gathers x (⊗ w) and tests its
+// source's frontier stamp
 template <bool MINP>
-__device__ __forceinline__ void sweep_row(const Args& a, int64_t v,
-                                          const float* xc, const uint8_t* fc,
-                                          float* xn, uint8_t* fn,
-                                          int* sflag) {
-  float xv;
-  const float x2 = sweep_value<MINP>(a, v, xc, fc, xv);
-  const bool f2 = (x2 != xv) && __ldg(a.vmask + v);
-  xn[v] = x2;
-  fn[v] = f2;
-  if (f2) mark(sflag, a, v);
+__device__ __forceinline__ void lane(int s, float w, const float* xc,
+                                     const int* gc, int k, float& y,
+                                     bool& act) {
+  if (s >= 0) {
+    float g = __ldcg(xc + s);
+    if (MINP) g = __fadd_rn(g, w);
+    y = oplus<MINP>(y, g);
+    act |= __ldcg(gc + s) == k;
+  }
+}
+
+// the lanes of R rows at once (R independent chains of loads in flight):
+// y[i] = ⊕ over row v[i]'s valid lanes; act[i] |= a lane's source is in
+// sweep k's frontier (gc == k)
+template <bool MINP, int R>
+__device__ __forceinline__ void row_lanes(const Args& a, const int* v,
+                                          const float* xc, const int* gc,
+                                          int k, float* y, bool* act) {
+  const int d = a.d;
+  if ((d & 3) == 0) {  // 16-byte rows of indices (and weights)
+#pragma unroll 2
+    for (int c = 0; c < (d >> 2); ++c) {
+      int4 s[R];
+      float4 w[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        s[i] = __ldg(reinterpret_cast<const int4*>(a.nbr + v[i] * d) + c);
+        w[i] = MINP ? __ldg(reinterpret_cast<const float4*>(a.wgt + v[i] * d)
+                            + c)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        lane<MINP>(s[i].x, w[i].x, xc, gc, k, y[i], act[i]);
+        lane<MINP>(s[i].y, w[i].y, xc, gc, k, y[i], act[i]);
+        lane<MINP>(s[i].z, w[i].z, xc, gc, k, y[i], act[i]);
+        lane<MINP>(s[i].w, w[i].w, xc, gc, k, y[i], act[i]);
+      }
+    }
+  } else {
+    for (int j = 0; j < d; ++j)
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        lane<MINP>(__ldg(a.nbr + v[i] * d + j),
+                   MINP ? __ldg(a.wgt + v[i] * d + j) : 0.f, xc, gc, k, y[i],
+                   act[i]);
+  }
+}
+
+// R rows of sweep k: each row's new value (its old one where it has no
+// active in-neighbour) into the other x buffer `xo`, and stamp k + 1 in
+// the next frontier's stamps `gn` where it changes. Rows past the
+// partition (v < 0) are skipped. Returns how many changed. A dense walk
+// takes two rows at a time, a work list one claimed row.
+template <bool MINP, int R>
+__device__ __forceinline__ int dense_rows(const Args& a, const int* v,
+                                          const float* xc, float* xo,
+                                          const int* gc, int* gn, int k) {
+  int u[R];
+  float xu[R], y[R];
+  bool act[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    u[i] = v[i] < 0 ? v[0] : v[i];  // a skipped row repeats the first
+    xu[i] = __ldcg(xc + u[i]);
+    y[i] = ident<MINP>();
+    act[i] = false;
+  }
+  row_lanes<MINP, R>(a, u, xc, gc, k, y, act);
+  int changed = 0;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (v[i] < 0) continue;
+    const float x2 = act[i] ? oplus<MINP>(xu[i], y[i]) : xu[i];
+    __stcg(xo + v[i], x2);
+    if (x2 != xu[i]) {
+      __stcg(gn + v[i], k + 1);
+      ++changed;
+    }
+  }
+  return changed;
 }
 
 template <bool MINP>
-__global__ void __launch_bounds__(kThreads) megastep_kernel(Args a) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ int sflag[];
-  const int P = a.num_parts;
-  const int p1 = P + 1;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(kClusterThreads, 1) megastep_kernel(Args a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  __shared__ int s_cnt[3];  // leader's: sweep k's frontier size in k % 3
+  __shared__ int s_fill;    // leader's: fill of a list built from stamps
+  __shared__ int s_sum;     // this block's partial count
+  const int csize = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int gtid = rank * kClusterThreads + (int)threadIdx.x;
+  const int gstride = csize * kClusterThreads;
+  const int vmax = a.v_max;
+  const bool lead = rank == 0 && threadIdx.x == 0;
+  int* lcnt = cluster.map_shared_rank(s_cnt, 0);
+  int* lfill = cluster.map_shared_rank(&s_fill, 0);
+  if (threadIdx.x == 0) s_sum = 0;
 
-  // phases 1-2: delivery, inbox combine, the fixpoint's starting frontier
-  clear_block_flags(sflag, p1);
-  if (blockIdx.x == 0)
-    for (int p = threadIdx.x; p < P; p += blockDim.x) a.liters[p] = 0;
-  for (int64_t v = first; v < a.n; v += stride) {
-    const float inbox = inbox_of<MINP, false>(a, v, a.x, a.changed);
-    const float xv = __ldg(a.x + v);
-    const float x1 = oplus<MINP>(xv, inbox);
-    const bool f0 = __ldg(a.frontier + v) || ((x1 != xv) && __ldg(a.vmask + v));
-    a.x_out[v] = x1;
-    a.fr_out[v] = f0;
-    if (f0) mark(sflag, a, v);
-  }
-  flush_block_flags(sflag, a.flags, p1);  // slot 0
-  grid.sync();
-
-  // phase 3: the masked local fixpoint (megastep.py's while_loop)
-  float* xc = a.x_out;
-  uint8_t* fc = a.fr_out;
-  float* xn = a.x_tmp;
-  uint8_t* fn = a.f_tmp;
-  int slot = 0;
-  for (int it = 0;; it += a.unroll) {
-    const int* cur = a.flags + slot * p1;
-    if (!__ldcg(cur + P) || it >= kMaxIt) break;  // same value grid-wide
-    if (blockIdx.x == 0)
-      for (int p = threadIdx.x; p < P; p += blockDim.x)
-        a.liters[p] += a.unroll * (__ldcg(cur + p) != 0);
-    for (int u = 0; u < a.unroll; ++u) {
-      const int next = (slot + 1) % 3;
-      if (blockIdx.x == 0) {
-        int* stale = a.flags + ((slot + 2) % 3) * p1;
-        for (int i = threadIdx.x; i < p1; i += blockDim.x) stale[i] = 0;
-      }
-      clear_block_flags(sflag, p1);
-      for (int64_t v = first; v < a.n; v += stride)
-        sweep_row<MINP>(a, v, xc, fc, xn, fn, sflag);
-      flush_block_flags(sflag, a.flags + next * p1, p1);
-      grid.sync();
-      float* xt = xc; xc = xn; xn = xt;
-      uint8_t* ft = fc; fc = fn; fn = ft;
-      slot = next;
+  for (int p = (int)blockIdx.x / csize; p < a.num_parts;
+       p += (int)gridDim.x / csize) {
+    const int base = p * vmax;
+    int* const list0 = a.lists + base;  // the two work lists
+    int* const list1 = a.lists + a.n + base;
+    if (lead) {
+      s_cnt[0] = 0;
+      s_cnt[1] = 0;
+      s_cnt[2] = 0;
+      s_fill = 0;
     }
-  }
+    cluster.sync();
 
-  // phase 4: outputs (each row reads and writes only itself: no barrier)
-  for (int64_t v = first; v < a.n; v += stride) {
-    const float x2 = __ldcg(xc + v);
-    const uint8_t fl = __ldcg(fc + v);
-    a.x_out[v] = x2;
-    a.ch_out[v] = (x2 != __ldg(a.x + v)) && __ldg(a.vmask + v);
-    a.fr_out[v] = fl;
+    // delivery, inbox combine, the fixpoint's starting frontier (sweep 0)
+    int mine = 0;
+    for (int r = gtid; r < vmax; r += gstride) {
+      const int v = base + r;
+      const float inbox = inbox_of<MINP, false>(a, v, a.x, a.changed);
+      const float xv = __ldg(a.x + v);
+      const float x1 = oplus<MINP>(xv, inbox);
+      const bool f0 =
+          __ldg(a.frontier + v) || ((x1 != xv) && __ldg(a.vmask + v));
+      a.x_out[v] = x1;  // both buffers: a work-list sweep writes only the
+      a.x_alt[v] = x1;  // rows it touches into the other one
+      a.fgen[v] = f0 ? 0 : -1;
+      a.fgen[a.n + v] = -1;
+      a.stamp[v] = -1;
+      mine += f0;
+    }
+    block_count_add(mine, &s_sum, lcnt);
+    cluster.sync();
+    int c = load_counter(lcnt);  // the current frontier's size
+    if (c > 0 && c < a.dense_rows) {  // sweep 0 walks a work list
+      for (int r = gtid; r < vmax; r += gstride)
+        if (__ldcg(a.fgen + base + r) == 0)
+          list0[append_one(lfill)] = base + r;
+      cluster.sync();
+    }
+
+    // the partition's own masked fixpoint (megastep.py's while_loop). Each
+    // sweep reads x from xc and writes into xo every row whose value may
+    // differ between the two, then the buffers swap after one barrier
+    float* xc = a.x_out;
+    float* xo = a.x_alt;
+    int k = 0, li = 0;
+    for (int it = 0; it < kMaxIt && c > 0; it += a.unroll) {
+      li += a.unroll;
+      for (int u = 0; u < a.unroll; ++u, ++k) {
+        if (c == 0) continue;  // settled inside the trip: no-op sweeps
+        const int* gc = a.fgen + (k & 1) * a.n;  // sweep k's stamps
+        int* gn = a.fgen + ((k + 1) & 1) * a.n;  // the next frontier's
+        int* nxt = (k & 1) ? list0 : list1;
+        int* ncnt = lcnt + (k + 1) % 3;
+        const bool dense = c >= a.dense_rows;
+        if (lead) {
+          s_cnt[(k + 2) % 3] = 0;  // its last reader synced since
+          s_fill = 0;
+        }
+        if (dense) {  // every row, two a thread
+          mine = 0;
+          for (int r = gtid; r < vmax; r += 2 * gstride) {
+            const int v[2] = {base + r,
+                              r + gstride < vmax ? base + r + gstride : -1};
+            mine += dense_rows<MINP, 2>(a, v, xc, xo, gc, gn, k);
+          }
+          block_count_add(mine, &s_sum, ncnt);
+        } else {
+          // the work list: each frontier row and each of its out-neighbours
+          // (the rows with an active in-neighbour) is claimed once and
+          // written into xo; a frontier row changed in the last sweep, so
+          // xo, which holds x from before it, needs it too. Every other
+          // row is the same in both buffers.
+          // Groups of 8 threads an entry while the list fits one round
+          // (the sweep waits on one chain of loads a thread), else 4.
+          const int* cur = (k & 1) ? list1 : list0;
+          const int lg = c * 8 <= gstride ? 3 : 2;
+          const int sub = gtid & ((1 << lg) - 1);
+          for (int e = gtid >> lg; e < c; e += gstride >> lg) {
+            const int s = __ldcg(cur + e);
+            const int beg = __ldg(a.out_off + s);
+            const int end = __ldg(a.out_off + s + 1);
+            for (int q = beg - 1 + sub; q < end; q += 1 << lg) {
+              const int v = q < beg ? s : __ldg(a.out_src + q);
+              if (atomicExch(a.stamp + v, k) == k) continue;  // claimed
+              if (dense_rows<MINP, 1>(a, &v, xc, xo, gc, gn, k))
+                nxt[append_one(ncnt)] = v;
+            }
+          }
+        }
+        cluster.sync();
+        float* t = xc;
+        xc = xo;
+        xo = t;
+        c = load_counter(ncnt);
+        if (dense && c > 0 && c < a.dense_rows) {  // the next walks a list
+          for (int r = gtid; r < vmax; r += gstride)
+            if (__ldcg(gn + base + r) == k + 1)
+              nxt[append_one(lfill)] = base + r;
+          cluster.sync();
+        }
+      }
+    }
+
+    // outputs (each row reads and writes only itself)
+    const int* gk = a.fgen + (k & 1) * a.n;
+    for (int r = gtid; r < vmax; r += gstride) {
+      const int v = base + r;
+      const float x2 = __ldcg(xc + v);
+      if (xc != a.x_out) a.x_out[v] = x2;
+      a.ch_out[v] = (x2 != __ldg(a.x + v)) && __ldg(a.vmask + v);
+      a.fr_out[v] = __ldcg(gk + v) == k;
+    }
+    if (lead) a.liters[p] = li;
+    cluster.sync();  // the leader's counters are reset for the next one
   }
 }
 
@@ -276,9 +492,11 @@ __global__ void __launch_bounds__(kThreads) megastep_kernel(Args a) {
 // hop each, so a road network takes thousands. On the TPU the whole loop
 // sat in VMEM behind a 4 MiB gate; here the state stays in HBM and L2.
 //
-// What the design does about it: K3's cooperative design. One launch with
-// at most the co-resident blocks, rows grid-stride, grid.sync() after the
-// delivery and after the sweep, so the rounds never return to the host.
+// What the design does about it: one cooperative launch with at most the
+// co-resident blocks, rows grid-stride, grid.sync() after the delivery and
+// after the sweep, so the rounds never return to the host. Unlike K3, a
+// round's delivery reads other partitions' state, so each round needs a
+// barrier across the whole grid.
 //
 // Buffers. The outputs hold the state across rounds: phase 0 copies the
 // input state into them. Delivery reads x and changed at OTHER rows and
@@ -371,16 +589,15 @@ __global__ void __launch_bounds__(kThreads) resident_kernel(Args a) {
   if (blockIdx.x == 0 && threadIdx.x == 0) *a.iters = it;
 }
 
-// one cooperative launch of K3 (RESIDENT false) or K4 (RESIDENT true) with
-// at most the co-resident blocks
-template <bool MINP, bool RESIDENT>
-cudaError_t launch(const Args& a, int device, cudaStream_t stream) {
+// K4's grid: at most the co-resident blocks of 256 threads (occupancy
+// depends on smem, which grows with P)
+template <bool MINP>
+cudaError_t resident_blocks(int64_t n, int num_parts, int device,
+                            int* blocks) {
   static int sms[kMaxDevices] = {0};
   static int per_sm[kMaxDevices] = {0};
   static size_t per_sm_smem[kMaxDevices] = {0};
-  void* kernel = RESIDENT ? (void*)resident_kernel<MINP>
-                          : (void*)megastep_kernel<MINP>;
-  const size_t smem = sizeof(int) * (size_t)(a.num_parts + 1);
+  const size_t smem = sizeof(int) * (size_t)(num_parts + 1);
   cudaError_t err;
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   if (sms[device] == 0) {
@@ -388,23 +605,106 @@ cudaError_t launch(const Args& a, int device, cudaStream_t stream) {
                                  device);
     if (err != cudaSuccess) return err;
   }
-  // occupancy depends on smem (P); recompute when it changes
   if (per_sm[device] == 0 || per_sm_smem[device] != smem) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[device],
-                                                        kernel, kThreads,
-                                                        smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm[device], (void*)resident_kernel<MINP>, kThreads, smem);
     if (err != cudaSuccess) return err;
     per_sm_smem[device] = smem;
   }
   if (per_sm[device] < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int64_t want = ((int64_t)a.n + kThreads - 1) / kThreads;
-  int64_t blocks = (int64_t)per_sm[device] * sms[device];
-  if (want < blocks) blocks = want;
-  if (blocks < 1) blocks = 1;
+  const int64_t want = (n + kThreads - 1) / kThreads;
+  int64_t b = (int64_t)per_sm[device] * sms[device];
+  if (want < b) b = want;
+  *blocks = b < 1 ? 1 : (int)b;
+  return cudaSuccess;
+}
+
+// one cooperative launch of K4 with at most the co-resident blocks
+template <bool MINP>
+cudaError_t launch_resident(const Args& a, int device, cudaStream_t stream) {
+  int blocks = 0;
+  cudaError_t err = resident_blocks<MINP>(a.n, a.num_parts, device, &blocks);
+  if (err != cudaSuccess) return err;
+  const size_t smem = sizeof(int) * (size_t)(a.num_parts + 1);
   Args local = a;
   void* params[] = {(void*)&local};
-  return cudaLaunchCooperativeKernel(kernel, dim3((unsigned)blocks),
-                                     dim3(kThreads), params, smem, stream);
+  return cudaLaunchCooperativeKernel((void*)resident_kernel<MINP>,
+                                     dim3((unsigned)blocks), dim3(kThreads),
+                                     params, smem, stream);
+}
+
+// K3's cluster shape for P partitions: of the sizes 1, 2, 4, 8 and 16
+// blocks, the one whose C = min(P, most co-resident clusters) clusters
+// finish the partitions in the least time, taken as rounds ceil(P / C)
+// over blocks a cluster (the smaller size on a tie). `active` receives
+// cudaOccupancyMaxActiveClusters at each size.
+template <bool MINP>
+cudaError_t cluster_shape(int num_parts, int device, int* size, int* clusters,
+                          int* active) {
+  static int cached[kMaxDevices][kNumSizes];
+  static bool have[kMaxDevices] = {false};
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  void* kernel = (void*)megastep_kernel<MINP>;
+  if (!have[device]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    for (int i = 0; i < kNumSizes; ++i) {
+      cudaLaunchConfig_t cfg = {};
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = 1u << i;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cfg.gridDim = dim3(1u << i);
+      cfg.blockDim = dim3(kClusterThreads);
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      err = cudaOccupancyMaxActiveClusters(&cached[device][i], kernel, &cfg);
+      if (err != cudaSuccess) return err;
+    }
+    have[device] = true;
+  }
+  int best = -1, best_rounds = 0;
+  for (int i = 0; i < kNumSizes; ++i) {
+    active[i] = cached[device][i];
+    if (active[i] < 1) continue;
+    const int c = active[i] < num_parts ? active[i] : num_parts;
+    const int rounds = (num_parts + c - 1) / c;
+    // rounds / size < best_rounds / best_size
+    if (best < 0 || (int64_t)rounds * (1 << best) <
+                        (int64_t)best_rounds * (1 << i)) {
+      best = i;
+      best_rounds = rounds;
+    }
+  }
+  if (best < 0) return cudaErrorInvalidConfiguration;  // no cluster fits
+  *size = 1 << best;
+  *clusters = active[best] < num_parts ? active[best] : num_parts;
+  return cudaSuccess;
+}
+
+// one launch of K3: C clusters of `size` blocks, persistent over the
+// partitions
+template <bool MINP>
+cudaError_t launch_megastep(const Args& a, int device, cudaStream_t stream) {
+  int size = 0, clusters = 0, active[kNumSizes];
+  cudaError_t err =
+      cluster_shape<MINP>(a.num_parts, device, &size, &clusters, active);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)size;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3((unsigned)(clusters * size));
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, megastep_kernel<MINP>, a);
 }
 
 // the arguments both kernels share
@@ -413,10 +713,9 @@ Args make_args(const void* x, const void* changed, const void* frontier,
                const void* lo_src, const void* lo_ok, const void* lo_w,
                const void* hub_src, const void* hub_ok, const void* hub_w,
                const void* hub_row, const void* hub_row_ok, void* x_out,
-               void* ch_out, void* fr_out, void* liters, void* x_tmp,
-               void* f_tmp, void* flags, int n, int d, int m_lo, int m_hi,
-               int num_parts, int v_max) {
-  Args a;
+               void* ch_out, void* fr_out, void* liters, int n, int d,
+               int m_lo, int m_hi, int num_parts, int v_max) {
+  Args a = {};
   a.x = (const float*)x;
   a.changed = (const uint8_t*)changed;
   a.frontier = (const uint8_t*)frontier;
@@ -435,10 +734,6 @@ Args make_args(const void* x, const void* changed, const void* frontier,
   a.ch_out = (uint8_t*)ch_out;
   a.fr_out = (uint8_t*)fr_out;
   a.liters = (int*)liters;
-  a.x_tmp = (float*)x_tmp;
-  a.f_tmp = (uint8_t*)f_tmp;
-  a.flags = (int*)flags;
-  a.iters = nullptr;
   a.n = n;
   a.d = d;
   a.m_lo = m_lo;
@@ -446,7 +741,6 @@ Args make_args(const void* x, const void* changed, const void* frontier,
   a.num_parts = num_parts;
   a.v_max = v_max;
   a.unroll = 1;
-  a.max_steps = 0;
   return a;
 }
 
@@ -457,22 +751,45 @@ extern "C" int megastep_semiring_launch(
     const void* vmask, const void* nbr, const void* wgt,
     const void* lo_src, const void* lo_ok, const void* lo_w,
     const void* hub_src, const void* hub_ok, const void* hub_w,
-    const void* hub_row, const void* hub_row_ok, void* x_out, void* ch_out,
-    void* fr_out, void* liters, void* x_tmp, void* f_tmp, void* flags, int n,
+    const void* hub_row, const void* hub_row_ok, const void* out_off,
+    const void* out_src, void* x_out, void* ch_out, void* fr_out,
+    void* liters, void* fgen, void* stamp, void* x_alt, void* lists, int n,
     int d, int m_lo, int m_hi, int num_parts, int v_max, int unroll,
-    int min_plus, int device, void* stream) {
+    int dense_rows, int min_plus, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   Args a = make_args(x, changed, frontier, vmask, nbr, wgt, lo_src, lo_ok,
                      lo_w, hub_src, hub_ok, hub_w, hub_row, hub_row_ok, x_out,
-                     ch_out, fr_out, liters, x_tmp, f_tmp, flags, n, d, m_lo,
-                     m_hi, num_parts, v_max);
+                     ch_out, fr_out, liters, n, d, m_lo, m_hi, num_parts,
+                     v_max);
+  a.out_off = (const int*)out_off;
+  a.out_src = (const int*)out_src;
+  a.fgen = (int*)fgen;
+  a.stamp = (int*)stamp;
+  a.x_alt = (float*)x_alt;
+  a.lists = (int*)lists;
   a.unroll = unroll;
+  a.dense_rows = dense_rows;
   cudaStream_t s = (cudaStream_t)stream;
-  err = min_plus ? launch<true, false>(a, device, s)
-                 : launch<false, false>(a, device, s);
+  err = min_plus ? launch_megastep<true>(a, device, s)
+                 : launch_megastep<false>(a, device, s);
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
+}
+
+// K3's launch shape for P partitions: out[0] blocks a cluster, out[1]
+// clusters, out[2] threads a block, out[3..7] cudaOccupancyMaxActiveClusters
+// at 1, 2, 4, 8 and 16 blocks a cluster
+extern "C" int megastep_cluster_shape(int num_parts, int min_plus,
+                                      int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = min_plus ? cluster_shape<true>(num_parts, device, out, out + 1,
+                                       out + 3)
+                 : cluster_shape<false>(num_parts, device, out, out + 1,
+                                        out + 3);
+  out[2] = kClusterThreads;
+  return (int)err;
 }
 
 extern "C" int resident_megastep_launch(
@@ -488,13 +805,28 @@ extern "C" int resident_megastep_launch(
   if (err != cudaSuccess) return (int)err;
   Args a = make_args(x, changed, frontier, vmask, nbr, wgt, lo_src, lo_ok,
                      lo_w, hub_src, hub_ok, hub_w, hub_row, hub_row_ok, x_out,
-                     ch_out, fr_out, liters, x_tmp, f_tmp, flags, n, d, m_lo,
-                     m_hi, num_parts, v_max);
+                     ch_out, fr_out, liters, n, d, m_lo, m_hi, num_parts,
+                     v_max);
+  a.x_tmp = (float*)x_tmp;
+  a.f_tmp = (uint8_t*)f_tmp;
+  a.flags = (int*)flags;
   a.iters = (int*)iters;
   a.max_steps = max_steps;
   cudaStream_t s = (cudaStream_t)stream;
-  err = min_plus ? launch<true, true>(a, device, s)
-                 : launch<false, true>(a, device, s);
+  err = min_plus ? launch_resident<true>(a, device, s)
+                 : launch_resident<false>(a, device, s);
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
+}
+
+// K4's cooperative grid for n rows and P partitions: out[0] blocks,
+// out[1] threads a block
+extern "C" int resident_grid_shape(int n, int num_parts, int min_plus,
+                                   int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = min_plus ? resident_blocks<true>(n, num_parts, device, out)
+                 : resident_blocks<false>(n, num_parts, device, out);
+  out[1] = kThreads;
+  return (int)err;
 }

@@ -12,8 +12,10 @@ The port of the JAX package's ``kernels/megastep.py`` for scalar programs:
 - :func:`megastep_semiring` runs one superstep: frontier-gated mailbox
   delivery, inbox ⊕-combine, the masked local fixpoint and the new send
   set. On a CUDA tensor it is ONE launch of kernel K3
-  (``csrc/megastep.cu``, :func:`megastep_semiring_cuda`); on a CPU tensor
-  it is the plain :func:`megastep_semiring_ref`, whose fixpoint is
+  (``csrc/megastep.cu``, :func:`megastep_semiring_cuda`: a thread-block
+  cluster per partition, each sweep over a work list of the rows with an
+  active in-neighbour, read through :func:`out_adjacency`); on a CPU
+  tensor it is the plain :func:`megastep_semiring_ref`, whose fixpoint is
   ``kernels.flat.local_fixpoint`` over the plain masked sweep.
 - :func:`megastep_pagerank` is one PageRank superstep; its pull is
   ``kernels.flat.sweep_flat_dense``, kernel K1 on the card.
@@ -31,6 +33,9 @@ kernel, the plain version and the JAX package agree bit for bit. PageRank's
 ⊕ = sum folds in another association, so its parity class is allclose.
 """
 from __future__ import annotations
+
+import ctypes
+import math
 
 import torch
 
@@ -50,6 +55,13 @@ from repro_torch.kernels.ref import semiring_spmv_frontier_ref
 # capacity of this card: K4 keeps its state in HBM and L2. Read when
 # resident_enter_round is called, so a caller can lower it.
 RESIDENT_ROUND_BYTES_BUDGET = 4 * 2 ** 20
+
+# K3's choice between its two walks of a sweep: a partition whose frontier
+# holds at least this share of its rows walks all of them; a smaller one
+# walks the work list of its frontier's out-neighbours. Both give the same
+# iterates. Read when K3 is launched, so a caller can set it: 0 walks every
+# sweep densely, anything above 1 every sweep by work list.
+K3_DENSE_FRONTIER = 0.125
 
 
 # ---------------- composed routing maps ----------------
@@ -207,10 +219,10 @@ def megastep_semiring_ref(x, changed, frontier, cm: dict, semiring: str,
     return xc, (xc != x) & vm, f, li
 
 
-_K3_INPUTS = (  # (name, dtype) of the mailbox entries K3 reads, in order
-    ("vmask", torch.bool), ("nbr", torch.int32), ("wgt", torch.float32), ("lo_src", torch.int32), ("lo_ok", torch.bool),
-    ("lo_w", torch.float32), ("hub_src", torch.int32),
-    ("hub_ok", torch.bool), ("hub_w", torch.float32),
+_K3_INPUTS = (  # (name, dtype) of the mailbox entries K3 and K4 read
+    ("vmask", torch.bool), ("nbr", torch.int32), ("wgt", torch.float32),
+    ("lo_src", torch.int32), ("lo_ok", torch.bool), ("lo_w", torch.float32),
+    ("hub_src", torch.int32), ("hub_ok", torch.bool), ("hub_w", torch.float32),
     ("hub_row", torch.int32), ("hub_row_ok", torch.bool))
 
 
@@ -235,10 +247,83 @@ def _check_k3_k4_inputs(x, changed, frontier, cm: dict, kernel: str):
                          f"< 2^31")
 
 
+def out_adjacency(cm: dict):
+    """The transpose of the flat local adjacency as CSR, for K3's work
+    lists: ``out_src[out_off[s]:out_off[s + 1]]`` are the rows u whose
+    ``nbr[u]`` lists s, in ascending order (twice if it lists s twice).
+    Local edges never leave a partition, so neither do these. Built on
+    first use with torch ops on the mailbox's device and kept in ``cm``;
+    returns ``(out_off (n+1,) int32, out_src (nnz,) int32)``.
+
+    Raises if a row outside ``vmask`` has a local edge: such a row may
+    change without entering the frontier, and K3's sweeps take every row
+    that changes into it without reading vmask."""
+    if "out_off" not in cm:
+        nbr = cm["nbr"]
+        n = nbr.shape[0]
+        ok = nbr != PAD
+        if bool((ok.any(dim=1) & ~cm["vmask"]).any()):
+            raise ValueError("kernel K3 needs rows outside vmask to have no "
+                             "local edge")
+        rows = torch.arange(n, dtype=torch.int32, device=nbr.device)
+        src = nbr[ok]
+        order = torch.argsort(src, stable=True)
+        off = torch.zeros(n + 1, dtype=torch.int32, device=nbr.device)
+        off[1:] = torch.cumsum(torch.bincount(src, minlength=n), 0)
+        cm["out_off"] = off
+        cm["out_src"] = rows[:, None].expand_as(nbr)[ok][order].contiguous()
+    return cm["out_off"], cm["out_src"]
+
+
+def k3_lanes(cm: dict, semiring: str):
+    """The flat adjacency as K3 reads it: ``nbr`` (and for min_plus
+    ``wgt``) cut to the lanes some row uses, rounded up to a multiple of 4
+    for 16-byte loads. The ELL pads its width to a multiple of 8 (a road
+    network's rows use 4 of 8 lanes), and the lanes past the last used one
+    are PAD in every row, so the sweeps read the same edges in fewer bytes.
+    Built on first use with torch ops on the mailbox's device and kept in
+    ``cm``; returns ``(nbr, wgt)``, where ``wgt`` is None for max_first,
+    which reads no weights."""
+    if "k3_nbr" not in cm:
+        nbr = cm["nbr"]
+        used = (nbr != PAD).any(dim=0).nonzero()
+        width = int(used.max()) + 1 if used.numel() else 0
+        cm["k3_width"] = min(nbr.shape[1], -(-width // 4) * 4)
+        cm["k3_nbr"] = nbr[:, :cm["k3_width"]].contiguous()
+    if semiring == "min_plus" and "k3_wgt" not in cm:
+        cm["k3_wgt"] = cm["wgt"][:, :cm["k3_width"]].contiguous()
+    return cm["k3_nbr"], cm.get("k3_wgt") if semiring == "min_plus" else None
+
+
+def k3_dense_rows(v_max: int) -> int:
+    """The frontier size from which a K3 sweep walks all of a partition's
+    ``v_max`` rows (:data:`K3_DENSE_FRONTIER` of them)."""
+    if K3_DENSE_FRONTIER > 1:
+        return v_max + 1
+    return max(0, math.ceil(K3_DENSE_FRONTIER * v_max))
+
+
+def k3_cluster_shape(num_parts: int, semiring: str, device) -> dict:
+    """K3's launch shape for ``num_parts`` partitions on a card: blocks a
+    cluster, clusters (each takes partitions c, c + C, ...), threads a
+    block, and ``cudaOccupancyMaxActiveClusters`` at each cluster size."""
+    idempotent_combine(semiring)
+    out = (ctypes.c_int * 8)()
+    dev = torch.device(device)
+    _build.check(_build.library().megastep_cluster_shape(
+        num_parts, int(semiring == "min_plus"), dev.index or 0, out),
+        "K3 megastep_semiring cluster shape")
+    return {"blocks_per_cluster": out[0], "clusters": out[1],
+            "threads": out[2],
+            "max_active_clusters": dict(zip((1, 2, 4, 8, 16), out[3:8]))}
+
+
 def megastep_semiring_cuda(x, changed, frontier, cm: dict, semiring: str,
                            unroll: int = 1):
-    """The fused superstep as ONE cooperative launch of kernel K3 — same
-    contract and bits as :func:`megastep_semiring_ref`."""
+    """The fused superstep as ONE launch of kernel K3 — a thread-block
+    cluster per partition, no grid-wide barrier — with the same contract
+    and bits as :func:`megastep_semiring_ref`. Builds the mailbox's
+    :func:`out_adjacency` and :func:`k3_lanes` on first use."""
     idempotent_combine(semiring)
     if unroll < 1:
         raise ValueError("unroll must be >= 1")
@@ -246,26 +331,35 @@ def megastep_semiring_cuda(x, changed, frontier, cm: dict, semiring: str,
         raise ValueError(f"kernel K3 needs CUDA tensors, got {x.device}")
     dev = x.device
     n, P, v_max = cm["n"], cm["num_parts"], cm["v_max"]
-    d, m_lo = cm["nbr"].shape[1], cm["lo_src"].shape[1]
-    m_hi = cm["hub_src"].shape[1]
+    m_lo, m_hi = cm["lo_src"].shape[1], cm["hub_src"].shape[1]
     _check_k3_k4_inputs(x, changed, frontier, cm, "K3")
+    out_off, out_src = out_adjacency(cm)
+    nbr, wgt = k3_lanes(cm, semiring)
+    d = nbr.shape[1]
+    _build.need(out_off, "out_off", torch.int32, dev, (n + 1,))
+    _build.need(out_src, "out_src", torch.int32, dev, (out_src.numel(),))
+    if wgt is None:
+        wgt = nbr          # a placeholder: max_first reads no weights
     x_out = torch.empty_like(x)
     ch_out = torch.empty(n, dtype=torch.bool, device=dev)
     fr_out = torch.empty(n, dtype=torch.bool, device=dev)
     liters = torch.empty(P, dtype=torch.int32, device=dev)
-    x_tmp = torch.empty_like(x)
-    f_tmp = torch.empty(n, dtype=torch.bool, device=dev)
-    flags = torch.zeros(3 * (P + 1), dtype=torch.int32, device=dev)
+    fgen = torch.empty((2, n), dtype=torch.int32, device=dev)
+    stamp = torch.empty(n, dtype=torch.int32, device=dev)
+    x_alt = torch.empty_like(x)
+    lists = torch.empty((2, n), dtype=torch.int32, device=dev)
     lib = _build.library()
     err = lib.megastep_semiring_launch(
         x.data_ptr(), changed.data_ptr(), frontier.data_ptr(),
-        *(cm[name].data_ptr() for name, _ in _K3_INPUTS),
+        cm["vmask"].data_ptr(), nbr.data_ptr(), wgt.data_ptr(),
+        *(cm[name].data_ptr() for name, _ in _K3_INPUTS[3:]),
+        out_off.data_ptr(), out_src.data_ptr(),
         x_out.data_ptr(), ch_out.data_ptr(), fr_out.data_ptr(),
-        liters.data_ptr(), x_tmp.data_ptr(), f_tmp.data_ptr(),
-        flags.data_ptr(), n, d, m_lo, m_hi, P, v_max, unroll,
-        int(semiring == "min_plus"), dev.index,
+        liters.data_ptr(), fgen.data_ptr(), stamp.data_ptr(),
+        x_alt.data_ptr(), lists.data_ptr(), n, d, m_lo, m_hi, P, v_max, unroll,
+        k3_dense_rows(v_max), int(semiring == "min_plus"), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "megastep_semiring")
+    _build.check(err, "K3 megastep_semiring")
     _build.launches["megastep_semiring"] += 1
     return x_out, ch_out, fr_out, liters
 

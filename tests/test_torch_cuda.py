@@ -15,7 +15,7 @@ import torch
 from repro_torch.core import (GopherEngine, PhasedTierPlan, SemiringProgram,
                               graph_block, init_max_vertex, make_sssp_init)
 from repro_torch.gofs import (bfs_grow_partition, partition_graph,
-                              powerlaw_social)
+                              powerlaw_social, road_grid)
 from repro_torch.gofs.formats import PAD
 from repro_torch.kernels import _build
 from repro_torch.kernels import megastep as mega
@@ -85,6 +85,97 @@ def test_k3_megastep_matches_plain(cuda_device, semiring, unroll):
         if not bool(ch.any()):
             break
     assert not bool(ch.any())
+
+
+def _frontier_sizes(cm, x, ch, fr, semiring):
+    """The plain superstep's frontier size per partition at each sweep of
+    its fixpoint, from the state (x, ch, fr): a list of (P,) arrays."""
+    from repro_torch.kernels import flat
+    sizes = []
+
+    def sweep(xc, f, nbr, wgt, sr):
+        sizes.append(f.reshape(cm["num_parts"], -1).sum(dim=1).cpu().numpy())
+        return semiring_spmv_frontier_ref(xc, f, nbr, wgt, sr)
+
+    combine = flat.idempotent_combine(semiring)
+    vm = cm["vmask"]
+    inbox = mega.deliver_flat(x, ch, cm, combine, semiring == "min_plus")
+    x1 = flat.combine_ew(combine, x, inbox)
+    flat.local_fixpoint(x1, fr | ((x1 != x) & vm), cm, vm, cm["num_parts"],
+                        semiring, sweep=sweep)
+    return sizes
+
+
+# (name, graph, P, semirings, K3_DENSE_FRONTIER or None, unroll)
+K3_CLUSTER_CASES = [
+    ("one partition", lambda: road_grid(80, 80, seed=1, weighted=True), 1,
+     ("max_first", "min_plus"), None, 1),
+    ("clusters loop over 40 partitions",
+     lambda: road_grid(300, 300, seed=1, weighted=True), 40,
+     ("max_first", "min_plus"), None, 1),
+    ("every sweep dense", lambda: road_grid(120, 120, seed=4, weighted=True),
+     6, ("max_first", "min_plus"), 0.0, 1),
+    ("every sweep by work list",
+     lambda: road_grid(120, 120, seed=4, weighted=True), 6,
+     ("max_first", "min_plus"), 2.0, 1),
+    ("the walks switch mid-fixpoint",
+     lambda: road_grid(120, 120, seed=4, weighted=True), 6,
+     ("max_first", "min_plus"), 0.05, 1),
+    ("unroll 3", lambda: road_grid(120, 120, seed=4, weighted=True), 6,
+     ("max_first", "min_plus"), None, 3),
+    ("unreachable rows stay +inf",
+     lambda: road_grid(120, 120, drop_frac=0.35, seed=4, weighted=True), 6,
+     ("min_plus",), None, 1),
+    ("hub rows by work list", lambda: powerlaw_social(3000, m=5, seed=2), 4,
+     ("max_first", "min_plus"), 2.0, 1),
+]
+
+
+@pytest.mark.parametrize("case", range(len(K3_CLUSTER_CASES)),
+                         ids=[c[0] for c in K3_CLUSTER_CASES])
+def test_k3_cluster_cases_match_plain(cuda_device, monkeypatch, case):
+    """Every superstep of a run, bit for bit against the plain version,
+    with one K3 launch a call: one partition, more partitions than the
+    clusters the card holds, each walk forced through the wrapper's
+    constant and a switch between them inside a fixpoint, unroll 3, and
+    SSSP rows no path reaches. (P = 12 at the main path's 1.96M vertices
+    is checked by chip_smoke.py.)"""
+    name, make, P, semirings, frac, unroll = K3_CLUSTER_CASES[case]
+    if frac is not None:
+        monkeypatch.setattr(mega, "K3_DENSE_FRONTIER", frac)
+    g = make()
+    pg = partition_graph(g, bfs_grow_partition(g, P, seed=0), P)
+    gb = graph_block(pg, cuda_device)
+    cm = mega.compose_mailbox(gb)
+    for semiring in semirings:
+        shape = mega.k3_cluster_shape(P, semiring, cuda_device)
+        assert 1 <= shape["clusters"] <= P
+        if P == 40:
+            assert shape["clusters"] < P        # clusters take turns
+        init = (init_max_vertex if semiring == "max_first"
+                else make_sssp_init(int(pg.part_of[0]), int(pg.local_of[0])))
+        st = SemiringProgram(semiring=semiring, init_fn=init).init(gb)
+        x, ch, fr = (st[k].reshape(-1).contiguous()
+                     for k in ("x", "changed_v", "frontier"))
+        if name == "the walks switch mid-fixpoint":
+            rows = mega.k3_dense_rows(cm["v_max"])
+            sizes = np.stack(_frontier_sizes(cm, x, ch, fr, semiring))
+            assert ((sizes >= rows).any(axis=0)
+                    & ((sizes > 0) & (sizes < rows)).any(axis=0)).any()
+        steps = 0
+        while bool(ch.any()):
+            before = _build.launches["megastep_semiring"]
+            got = mega.megastep_semiring_cuda(x, ch, fr, cm, semiring, unroll)
+            want = mega.megastep_semiring_ref(x, ch, fr, cm, semiring, unroll)
+            torch.cuda.synchronize()
+            assert _build.launches["megastep_semiring"] == before + 1
+            for g_, w_ in zip(got, want):
+                assert torch.equal(g_, w_), (semiring, steps)
+            x, ch, fr = got[:3]
+            steps += 1
+            assert steps < 4096
+        if name == "unreachable rows stay +inf":
+            assert bool(torch.isinf(x[cm["vmask"]]).any())
 
 
 @pytest.mark.parametrize("max_steps", [4096, 2])

@@ -1,5 +1,5 @@
-"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``)
-imports JAX or anything of the JAX package ``repro``, and importing every
+"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``
+or a script under ``tools/``) imports JAX or anything of the JAX package ``repro``, and importing every
 module of the port loads neither."""
 import ast
 import os
@@ -11,7 +11,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
 
 def _forbidden(module: str) -> bool:

@@ -14,9 +14,11 @@ failure exits non-zero and prints no result:
    and on a powerlaw graph with hub feeds, with one partition, with 40
    partitions (more than the clusters the card holds), with each of its two
    walks forced and switching mid-fixpoint, with unroll 3 and with SSSP
-   rows no path reaches, K4 on the same graphs and
-   semirings from the init state, cut by a small max_steps, and entered
-   after two K3 supersteps, K5 and K6 on random masks
+   rows no path reaches, K4 on the same graphs and on its own cases (one
+   partition, 40 partitions, each of its two walks forced and switching
+   mid-run, hub feed rows, unreachable SSSP rows), from the init state and
+   after K3 supersteps, at every exit (max_steps 0, 1, 2, 7, one round
+   short of quiescence, at it, 4096), K5 and K6 on random masks
    (R ∈ {144, 4096}, cap ∈ {969, 4096}, densities 0 / 0.05 / 1, budgets
    below and above the counts, ±inf values); K7 at llama3-8b's prefill
    shape (B 4, S 2048, H 32, KV 8, dh 128, causal, bf16), at gemma3-4b's
@@ -74,9 +76,15 @@ failure exits non-zero and prints no result:
    some row uses; its row adds ``bound_dense_ms`` (every row every sweep,
    all D lanes: the TPU kernel's work) and ``bound_frontier_ms`` (the
    active rows over all D lanes). A ``k3`` line gives the counts and the
-   cluster shape. A ``barriers`` line times one grid.sync() over K4's
-   cooperative grid and one cluster barrier at K3's cluster shape
-   (``csrc/barrier_probe.cu``).
+   cluster shape. K4 runs from CC's and SSSP's init states; its
+   ``bound_ms`` counts the state in and out once, the rows delivered to
+   over their feed bytes and the rows with an active in-neighbour over the
+   lanes some row uses, summed over the plain loop's rounds
+   (``k4_work``); ``bound_dense_ms`` is every row every round over all D
+   lanes. The run fails if K3 or K4 is faster than its bound. A ``k4``
+   line gives both runs' counts, shares and bytes. A ``barriers`` line
+   times one grid.sync() over K4's cooperative grid and one cluster
+   barrier at K3's cluster shape (``csrc/barrier_probe.cu``).
    ``ms`` is a kernel's device time by torch.profiler; ``call_ms`` the
    CUDA-event time of one wrapper call, which for a small kernel is
    mostly the host's time to enqueue it. K7's row adds ``batch_ms`` and
@@ -440,57 +448,146 @@ def check_k3(dev) -> None:
         "unroll 3 and unreachable SSSP rows all bit-equal")
 
 
-def check_k4(dev) -> None:
+# (name, graph from repro_torch.gofs, P, semirings, K4_DENSE_FRONTIER or
+# None): K4's cases, as
+# tests/test_torch_cuda.py's test_k4_cases_match_plain holds them
+K4_CASES = [
+    ("one partition",
+     lambda gofs: gofs.road_grid(80, 80, seed=1, weighted=True), 1,
+     ("max_first", "min_plus"), None),
+    ("40 partitions",
+     lambda gofs: gofs.road_grid(300, 300, seed=1, weighted=True), 40,
+     ("max_first", "min_plus"), None),
+    ("every sweep dense",
+     lambda gofs: gofs.road_grid(120, 120, seed=4, weighted=True), 6,
+     ("max_first", "min_plus"), 0.0),
+    ("every sweep by work list",
+     lambda gofs: gofs.road_grid(120, 120, seed=4, weighted=True), 6,
+     ("max_first", "min_plus"), 2.0),
+    ("the walks switch mid-run",
+     lambda gofs: gofs.road_grid(120, 120, seed=4, weighted=True), 6,
+     ("max_first", "min_plus"), None),
+    ("hub feed rows",
+     lambda gofs: gofs.powerlaw_social(3000, m=5, seed=2), 4,
+     ("max_first", "min_plus"), None),
+    ("hub feed rows by work list",
+     lambda gofs: gofs.powerlaw_social(3000, m=5, seed=2), 4,
+     ("max_first", "min_plus"), 2.0),
+    ("unreachable rows stay +inf",
+     lambda gofs: gofs.road_grid(120, 120, drop_frac=0.35, seed=4,
+                                 weighted=True), 6,
+     ("min_plus",), None),
+]
+K4_EXITS = (0, 1, 2, 7)          # with rounds - 1, rounds and 4096
+
+
+def k4_exits(what, cm, start, semiring, check_inf=False) -> int:
+    """Hold K4 bit for bit against the plain loop from ``start`` at every
+    exit: max_steps 0, 1, 2, 7, one round short of quiescence, at it, and
+    4096 (a cut before quiescence hands the BSP state on). Returns the
+    rounds to quiescence."""
     import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import megastep as mega
+    rounds = int(mega.resident_megastep_ref(*start, cm, semiring, 4096)[3])
+    for max_steps in sorted({*K4_EXITS, max(rounds - 1, 0), rounds, 4096}):
+        before = _build.launches["resident_megastep"]
+        got = mega.resident_megastep_cuda(*start, cm, semiring, max_steps)
+        want = mega.resident_megastep_ref(*start, cm, semiring, max_steps)
+        torch.cuda.synchronize()
+        if _build.launches["resident_megastep"] != before + 1:
+            fail(f"K4 {what}: not one launch a call")
+        for name, kind, a, b in zip(
+                ("x2", "changed2", "frontier2", "iters", "liters"),
+                (semiring, "bool", "bool", "max_first", "max_first"),
+                got, want):
+            compare(kind, a, b, f"K4 {what} {semiring} max_steps "
+                    f"{max_steps} {name}")
+        if int(got[3]) != min(max_steps, rounds):
+            fail(f"K4 {what} {semiring}: {int(got[3])} rounds at max_steps "
+                 f"{max_steps}, the plain loop quiesces after {rounds}")
+    if check_inf and not bool(torch.isinf(got[0][cm["vmask"]]).any()):
+        fail(f"K4 {what}: no row stayed unreachable")
+    return rounds
+
+
+def check_k4(dev) -> None:
+    """K4 against the plain resident loop at every exit (:func:`k4_exits`)
+    from the init state and after K3 supersteps: P = 12 on a road grid and
+    P = 8 on a powerlaw graph, then :data:`K4_CASES`: one partition, 40
+    partitions, each of K4's two walks forced through the wrapper's
+    constant and the constant at which they switch mid-run, hub feed rows
+    (also by work list), SSSP rows no path reaches, and a feed row outside
+    vmask that its neighbours list."""
+    import torch
+    from repro_torch import gofs
     from repro_torch.core import (SemiringProgram, graph_block,
                                   init_max_vertex, make_sssp_init)
-    from repro_torch.gofs import (bfs_grow_partition, partition_graph,
-                                  powerlaw_social, road_grid)
     from repro_torch.kernels import megastep as mega
-    cases = [("road_grid(300,300)", road_grid(300, 300, weighted=True,
-                                              seed=1), 12),
+
+    def starts(pg, gb, cm, sr, k3_steps):
+        init = (init_max_vertex if sr == "max_first"
+                else make_sssp_init(int(pg.part_of[0]), int(pg.local_of[0])))
+        st = SemiringProgram(semiring=sr, init_fn=init).init(gb)
+        state = tuple(st[k].reshape(-1).contiguous()
+                      for k in ("x", "changed_v", "frontier"))
+        after = state
+        for _ in range(k3_steps):
+            after = mega.megastep_semiring_cuda(*after, cm, sr)[:3]
+        return {"init": state, f"after {k3_steps} K3": after}
+
+    saved = mega.K4_DENSE_FRONTIER
+    cases = [("road_grid(300,300)",
+              lambda gofs: gofs.road_grid(300, 300, weighted=True, seed=1),
+              12, ("max_first", "min_plus"), None),
              ("powerlaw_social(20000,m=5)",
-              powerlaw_social(20000, m=5, seed=2), 8)]
-    for gname, g, P in cases:
-        pg = partition_graph(g, bfs_grow_partition(g, P, seed=0), P)
-        gb = graph_block(pg, dev)
-        cm = mega.compose_mailbox(gb)
-        for sr, init in (("max_first", init_max_vertex),
-                         ("min_plus", make_sssp_init(int(pg.part_of[0]),
-                                                     int(pg.local_of[0])))):
-            st = SemiringProgram(semiring=sr, init_fn=init).init(gb)
-            state = tuple(st[k].reshape(-1).contiguous()
-                          for k in ("x", "changed_v", "frontier"))
-            after = state
-            for _ in range(2):
-                after = mega.megastep_semiring_cuda(*after, cm, sr)[:3]
-            for start, sname in ((state, "init"), (after, "after 2 K3")):
-                for max_steps in (4096, 2):
-                    got = mega.resident_megastep_cuda(*start, cm, sr,
-                                                      max_steps)
-                    want = mega.resident_megastep_ref(*start, cm, sr,
-                                                      max_steps)
-                    torch.cuda.synchronize()
-                    for name, kind, a, b in zip(
-                            ("x2", "changed2", "frontier2", "iters",
-                             "liters"),
-                            (sr, "bool", "bool", "max_first", "max_first"),
-                            got, want):
-                        compare(kind, a, b, f"K4 {gname} {sr} from {sname} "
-                                f"max_steps {max_steps} {name}")
-                    rounds = int(got[3])
-                    quiet = not bool(got[1].any())
-                    if rounds > max_steps or (rounds < max_steps
-                                              and not quiet):
-                        fail(f"K4 {gname} {sr} from {sname}: {rounds} "
-                             f"rounds under max_steps {max_steps}, "
-                             f"quiesced {quiet}")
-                    if max_steps == 4096 and not quiet:
-                        fail(f"K4 {gname} {sr} from {sname}: no quiescence "
-                             f"in {rounds} rounds")
+              lambda gofs: gofs.powerlaw_social(20000, m=5, seed=2), 8,
+              ("max_first", "min_plus"), None)] + K4_CASES
+    try:
+        for gname, make, P, semirings, frac in cases:
+            g = make(gofs)
+            pg = gofs.partition_graph(g, gofs.bfs_grow_partition(g, P,
+                                                                 seed=0), P)
+            gb = graph_block(pg, dev)
+            cm = mega.compose_mailbox(gb)
+            mega.K4_DENSE_FRONTIER = saved if frac is None else frac
+            hubs = int(cm["hub_row_ok"][mega.feed_rows(cm).long()].sum())
+            if gname.startswith("hub") and not hubs:
+                fail(f"K4 {gname}: no hub feed row")
+            for sr in semirings:
+                for sname, start in starts(pg, gb, cm, sr,
+                                           1 if P < 12 else 2).items():
+                    if gname == "the walks switch mid-run" and \
+                            sname == "init":
+                        sizes = k4_work(cm, *start, sr)[0]["frontier"]
+                        rows = mega.k4_dense_rows(cm["n"])
+                        if not ((sizes >= rows).any()
+                                and ((sizes > 0) & (sizes < rows)).any()):
+                            fail("K4: the walks do not switch mid-run")
+                    rounds = k4_exits(
+                        f"{gname} P={P} from {sname}", cm, start, sr,
+                        check_inf=gname.startswith("unreachable"))
                     log(f"K4 resident_megastep {gname} P={P} {sr} from "
-                        f"{sname}, max_steps {max_steps}: {rounds} rounds "
-                        f"bit-equal")
+                        f"{sname}: {rounds} rounds, every exit bit-equal "
+                        f"(feed rows {mega.feed_rows(cm).numel()}, hub "
+                        f"feed rows {hubs})")
+    finally:
+        mega.K4_DENSE_FRONTIER = saved
+    # a feed row outside vmask that its neighbours list: a delivery that
+    # changes it reaches no frontier, and K4 writes it into both arrays
+    g = gofs.road_grid(120, 120, seed=4, weighted=True)
+    pg = gofs.partition_graph(g, gofs.bfs_grow_partition(g, 6, seed=0), 6)
+    gb = graph_block(pg, dev)
+    cm = mega.compose_mailbox(gb)
+    feed = mega.feed_rows(dict(cm))
+    v = int(feed[torch.isin(feed, cm["nbr"])][0])
+    cm["nbr"], cm["vmask"] = cm["nbr"].clone(), cm["vmask"].clone()
+    cm["nbr"][v], cm["vmask"][v] = -1, False
+    for sr in ("max_first", "min_plus"):
+        start = starts(pg, gb, cm, sr, 0)["init"]
+        rounds = k4_exits("a feed row outside vmask", cm, start, sr)
+        log(f"K4 resident_megastep a feed row outside vmask {sr}: {rounds} "
+            f"rounds, every exit bit-equal")
 
 
 # (what, B, Sq, Sk, H, KV, dh, window, q_offset, dtype): llama3-8b's
@@ -902,8 +999,9 @@ def staged_path(dev, g, ug, pg, upg, src, fused, path_launches, truth):
 def tier_path(dev, pg, src, fused, staged, path_launches, truth):
     """Phase 4c: tier plans at RN scale, each run checked (see the module
     docstring). ``fused`` and ``staged`` hold phases 4a's and 4b's results,
-    ``truth`` scipy's. Returns the plain resident loop's run from CC's init
-    state (outputs and CUDA-event ms), which phase 5 holds K4 to."""
+    ``truth`` scipy's. Returns the plain resident loop's runs from CC's and
+    SSSP's init states (outputs and CUDA-event ms), which phase 5 holds K4
+    to."""
     import torch
     from repro_torch.core import (GopherEngine, PageRankProgram,
                                   PhasedTierPlan, SemiringProgram, TierPlan,
@@ -986,7 +1084,7 @@ def tier_path(dev, pg, src, fused, staged, path_launches, truth):
     gb = graph_block(pg, dev)
     cm = mega.compose_mailbox(gb)
     lab_true, ncc_true = truth["cc"]
-    plain_cc = None
+    plain = {}
     for a in ("cc", "sssp"):
         state, t = res[f"{a}_resident"]
         got = _as_result(pg, a, state["x"])
@@ -1012,8 +1110,8 @@ def tier_path(dev, pg, src, fused, staged, path_launches, truth):
         if not np.array_equal(ref[0].cpu().numpy(),
                               state["x"].reshape(-1)):
             fail(f"{a}_resident: results differ from the plain loop's")
+        plain[a] = (ref, t0.elapsed_time(t1))
         if a == "cc":
-            plain_cc = (ref, t0.elapsed_time(t1))
             pairs = np.unique(np.stack([lab_true, gather(pg, got)]), axis=1)
             if pairs.shape[1] != ncc_true:
                 fail("cc_resident: the components differ from scipy's")
@@ -1083,7 +1181,7 @@ def tier_path(dev, pg, src, fused, staged, path_launches, truth):
         f"tiered and phased = dense; forced spill repaired; phased "
         f"pagerank max abs diff {np.abs(state['r'] - dstate['r']).max():.3e}"
         f" — all agree")
-    return plain_cc
+    return plain
 
 
 def breakdown(pg, upg, src):
@@ -1529,8 +1627,7 @@ def kernel_times(dev, pg, path_launches, plain_k4):
     barrier_times(dev, n, pg.num_parts, shape)
 
     k2 = k2_times(dev, pg, path_launches)
-    k4 = k4_times(dev, pg, cm, path_launches, plain_k4,
-                  k3_dev / max(sweeps, 1), per_sweep)
+    k4 = k4_times(dev, pg, cm, path_launches, plain_k4)
     k5, k6 = k5_k6_times(dev, pg, path_launches)
     return {"kernels": [
         {"name": "semiring_spmv", "route": "cuda",
@@ -1579,6 +1676,79 @@ def k3_work(cm, x, ch, fr, semiring):
             torch.stack(sizes).cpu().numpy())
 
 
+def k4_work(cm, x, ch, fr, semiring, max_steps=4096):
+    """The work of the resident loop as the plain version runs it from
+    (x, ch, fr), round by round: the send set's size (``send``), the rows
+    with a feed lane whose source is in it (``delivered``) and the bytes of
+    their feed maps (``feed_bytes``: each lane's ok byte and source index,
+    min_plus adding its weight; hub_row_ok, and the hub row where there is
+    one), the frontier after delivery (``frontier``) and the rows with an
+    active in-neighbour (``active``). The data decides these, not the
+    implementation. Returns (a dict of per-round int64 arrays, the plain
+    loop's outputs (x2, changed2, frontier2, iters, liters)), each round the
+    arithmetic of ``megastep.resident_step_semiring``."""
+    import torch
+    from repro_torch.kernels import flat
+    from repro_torch.kernels import megastep as mega
+    from repro_torch.kernels.ref import semiring_spmv_frontier_ref
+    combine = flat.idempotent_combine(semiring)
+    minp = semiring == "min_plus"
+    vm, P = cm["vmask"], cm["num_parts"]
+    m_lo, m_hi = cm["lo_src"].shape[1], cm["hub_src"].shape[1]
+    lane = 5 + 4 * minp
+    row_feed = m_lo * lane + 1 + torch.where(
+        cm["hub_row_ok"], 4 + m_hi * lane, 0).long()
+    lo_src, hub_src = cm["lo_src"].long(), cm["hub_src"].long()
+    hub_row = cm["hub_row"].long()
+    cols = {k: [] for k in ("send", "delivered", "feed_bytes", "frontier",
+                            "active")}
+    li = torch.zeros(P, dtype=torch.int32, device=x.device)
+    it = 0
+    while it < max_steps and bool(ch.any()):
+        live = (cm["lo_ok"] & ch[lo_src]).any(dim=1)
+        hub_live = (cm["hub_ok"] & ch[hub_src]).any(dim=1)
+        live |= cm["hub_row_ok"] & hub_live[hub_row]
+        inbox = mega.deliver_flat(x, ch, cm, combine, minp)
+        x1 = flat.combine_ew(combine, x, inbox)
+        f = fr | ((x1 != x) & vm)
+        y, act = semiring_spmv_frontier_ref(x1, f, cm["nbr"], cm["wgt"],
+                                            semiring)
+        x2 = flat.combine_ew(combine, x1, y)
+        for key, val in (("send", ch.sum()), ("delivered", live.sum()),
+                         ("feed_bytes", row_feed[live].sum()),
+                         ("frontier", f.sum()), ("active", act.sum())):
+            cols[key].append(val)
+        li += f.reshape(P, -1).any(dim=1).int()
+        x, ch, fr = x2, (x2 != x) & vm, (x2 != x1) & vm
+        it += 1
+    counts = {k: (torch.stack(v).cpu().numpy().astype(np.int64) if v
+                  else np.zeros(0, np.int64)) for k, v in cols.items()}
+    return counts, (x, ch, fr, torch.tensor(it, dtype=torch.int32,
+                                            device=x.device), li)
+
+
+def k4_bound(cm, counts, semiring, width):
+    """K4's tight bound in ms from :func:`k4_work`'s counts: the state in
+    and out once a launch (x, changed, frontier read, written: 12 B a
+    row), the rows delivered to over their feed bytes, and the rows with an
+    active in-neighbour over ``width`` lanes (4 B of index each, as much
+    again of weight for min_plus) plus their x read and written, frontier
+    and changed (10 B); all over the HBM rate. Also the dense figure: every
+    row every round over all D lanes, every feed map and the state (the
+    TPU kernel's work)."""
+    n, d = cm["nbr"].shape
+    lane_b = 4 * (2 if semiring == "min_plus" else 1)
+    rounds = len(counts["active"])
+    tight = (n * 12 + int(counts["feed_bytes"].sum())
+             + int(counts["active"].sum()) * (width * lane_b + 10))
+    m_lo = cm["lo_src"].shape[1]
+    h, m_hi = cm["hub_src"].shape
+    per_round = (n * d * lane_b + n * m_lo + int(cm["lo_ok"].sum()) * 4
+                 + h * m_hi + int(cm["hub_ok"].sum()) * 4 + n * 2 + n * 12)
+    return (tight / HBM_BYTES_PER_S * 1e3,
+            rounds * per_round / HBM_BYTES_PER_S * 1e3)
+
+
 def barrier_times(dev, n: int, num_parts: int, k3_shape: dict) -> None:
     """The two barriers alone (csrc/barrier_probe.cu): one grid.sync()
     over K4's cooperative grid at the main path's n and P, and one cluster
@@ -1618,61 +1788,91 @@ def barrier_times(dev, n: int, num_parts: int, k3_shape: dict) -> None:
         "clusters": clusters, "cluster_threads": 1024, "card": smi}}))
 
 
-def k4_times(dev, pg, cm, path_launches, plain, k3_ms_sweep, k3_sweep_bytes):
-    """K4 at phase 4c (i)'s CC shape: one launch from CC's init state runs
-    the whole resident loop. ``plain`` is the plain resident loop's run
-    from the same state in phase 4c (outputs and CUDA-event ms)."""
+def k4_times(dev, pg, cm, path_launches, plain):
+    """K4 at phase 4c (i)'s shapes: one launch from CC's and from SSSP's
+    init state runs the whole resident loop. ``plain`` holds the plain
+    resident loop's runs from those states in phase 4c (outputs and
+    CUDA-event ms). K4's bound counts the work of this run's rounds
+    (:func:`k4_work`, :func:`k4_bound`); the ``k4`` line gives both runs,
+    the kernels entry CC's."""
     import torch
-    from repro_torch.core import SemiringProgram, graph_block, init_max_vertex
+    from repro_torch.core import (SemiringProgram, graph_block,
+                                  init_max_vertex, make_sssp_init)
     from repro_torch.kernels import megastep as mega
 
     gb = graph_block(pg, dev)
-    st = SemiringProgram("max_first", init_max_vertex).init(gb)
-    start = tuple(st[k].reshape(-1).contiguous()
-                  for k in ("x", "changed_v", "frontier"))
-    got = mega.resident_megastep_cuda(*start, cm, "max_first", 4096)
-    torch.cuda.synchronize()
-    ref, plain_ms = plain
-    err = compare("max_first", got[0], ref[0], "K4 at the main path x2")
-    for a, b, what in zip(got[1:], ref[1:], ("changed2", "frontier2",
-                                             "iters", "liters")):
-        compare("bool" if what.endswith("2") else "max_first", a, b,
-                f"K4 at the main path {what}")
-    rounds = int(got[3])
-    call_ms = cuda_ms(lambda: mega.resident_megastep_cuda(
-        *start, cm, "max_first", 4096), reps=2)
-    dev_ms = device_ms(lambda: mega.resident_megastep_cuda(
-        *start, cm, "max_first", 4096), "resident_kernel", reps=2)
-    # what a round must move (max_first reads no weights): every adjacency
-    # index (n·D·4; 63 MB at RN, more than the 50 MB L2, so every round),
-    # each feed lane's ok byte and each valid lane's source index, the hub
-    # rows likewise, hub_row_ok and vmask, and the state x, changed and
-    # frontier read and written once (6 + 6 B a vertex)
-    n, d = cm["nbr"].shape
-    m_lo = cm["lo_src"].shape[1]
-    h, m_hi = cm["hub_src"].shape
-    per_round = (n * d * 4 + n * m_lo + int(cm["lo_ok"].sum()) * 4
-                 + h * m_hi + int(cm["hub_ok"].sum()) * 4 + n * 2 + n * 12)
-    bound = rounds * per_round / HBM_BYTES_PER_S * 1e3
-    share = (per_round / HBM_BYTES_PER_S * 1e3) / (dev_ms / rounds)
-    k3_share = (k3_sweep_bytes / HBM_BYTES_PER_S * 1e3) / k3_ms_sweep
-    log(json.dumps({"k4": "cc init state", "rounds": rounds,
-                    "ms_per_launch": dev_ms, "ms_per_round": dev_ms / rounds,
-                    "bytes_per_round": per_round,
-                    "bound_ms_per_round": per_round / HBM_BYTES_PER_S * 1e3,
-                    "share_of_bound_per_round": share,
-                    "k3_ms_per_sweep": k3_ms_sweep,
-                    "k3_share_of_bound_per_sweep": k3_share,
-                    "plain_ms": plain_ms}))
-    return {"name": "resident_megastep", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/megastep.cu",
-            "replaces": "src/repro/kernels/megastep.py:650",
-            "launches": path_launches["resident_megastep"],
-            "max_abs_err": err, "ms": dev_ms, "call_ms": call_ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-            "library_ms": None,
-            "library_note": "no PyTorch call computes a multi-round "
-                            "gated relaxation", "rounds": rounds}
+    loc = (int(pg.part_of[0]), int(pg.local_of[0]))
+    n = cm["n"]
+    out, entry = {}, None
+    for algo, sr, init in (("cc", "max_first", init_max_vertex),
+                           ("sssp", "min_plus", make_sssp_init(*loc))):
+        st = SemiringProgram(sr, init).init(gb)
+        start = tuple(st[k].reshape(-1).contiguous()
+                      for k in ("x", "changed_v", "frontier"))
+        counts, work_out = k4_work(cm, *start, sr)
+        got = mega.resident_megastep_cuda(*start, cm, sr, 4096)
+        torch.cuda.synchronize()
+        ref, plain_ms = plain[algo]
+        err = 0.0
+        for want, what in ((ref, "the timed plain loop"),
+                           (work_out, "k4_work's plain loop")):
+            err = max(err, compare(sr, got[0], want[0],
+                                   f"K4 {algo} x2 against {what}"))
+            for a, b, name in zip(got[1:], want[1:], ("changed2",
+                                                      "frontier2", "iters",
+                                                      "liters")):
+                compare("bool" if name.endswith("2") else "max_first", a, b,
+                        f"K4 {algo} {name} against {what}")
+        rounds = int(got[3])
+        call_ms = cuda_ms(lambda: mega.resident_megastep_cuda(
+            *start, cm, sr, 4096), reps=2)
+        dev_ms = device_ms(lambda: mega.resident_megastep_cuda(
+            *start, cm, sr, 4096), "resident_kernel", reps=2)
+        width = mega.k3_lanes(cm, sr)[0].shape[1]
+        bound, dense = k4_bound(cm, counts, sr, width)
+        if dev_ms < bound:
+            fail(f"K4 {algo}: {dev_ms} ms is below its bound over the "
+                 f"rows it must touch, {bound} ms: the count or the kernel "
+                 f"is wrong")
+        cap = max(1, min(mega.k4_dense_rows(n), n))
+        kept = {key: cm[key].numel() * cm[key].element_size()
+                for key in ("out_off", "out_src", "k3_nbr", "feed_rows")}
+        if sr == "min_plus":
+            kept["k3_wgt"] = cm["k3_wgt"].numel() * 4
+        out[algo] = {
+            "rounds": rounds, "ms": dev_ms, "call_ms": call_ms,
+            "ms_per_round": dev_ms / rounds, "plain_ms": plain_ms,
+            "bound_ms": bound, "share_of_bound": bound / dev_ms,
+            "bound_dense_ms": dense, "share_of_dense": dense / dev_ms,
+            "frontier_rows": int(counts["frontier"].sum()),
+            "active_rows": int(counts["active"].sum()),
+            "delivered_rows": int(counts["delivered"].sum()),
+            "feed_bytes": int(counts["feed_bytes"].sum()),
+            "send_rows": int(counts["send"].sum()),
+            "rounds_dense": int((counts["frontier"]
+                                 >= mega.k4_dense_rows(n)).sum()),
+            "lanes": width, "kept_bytes": kept,
+            "launch_bytes": n * (16 + 16 + 4 + 6) + 8 * cap}
+        if algo == "cc":
+            entry = {
+                "name": "resident_megastep", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/megastep.cu",
+                "replaces": "src/repro/kernels/megastep.py:650",
+                "launches": path_launches["resident_megastep"],
+                "max_abs_err": err, "ms": dev_ms, "call_ms": call_ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+                "bound_dense_ms": dense, "library_ms": None,
+                "library_note": "no PyTorch call computes a multi-round "
+                                "gated relaxation", "rounds": rounds,
+                "sssp_ms": None}
+        else:
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            entry["sssp_ms"] = dev_ms
+    log(json.dumps({"k4": "cc and sssp from the init state", "n": n,
+                    "feed_rows": mega.feed_rows(cm).numel(),
+                    "K4_DENSE_FRONTIER": mega.K4_DENSE_FRONTIER,
+                    "dense_rows": mega.k4_dense_rows(n), **out}))
+    return entry
 
 
 def k2_times(dev, pg, path_launches) -> dict:

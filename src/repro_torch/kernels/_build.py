@@ -140,9 +140,10 @@ def _declare(lib) -> None:
     # (num_parts, min_plus, device, out[8])
     lib.megastep_cluster_shape.argtypes = [i32] * 3 + [ip]
     lib.megastep_cluster_shape.restype = i32
-    # (14 inputs, 8 outputs and scratch; n, d, m_lo, m_hi, num_parts,
-    #  v_max, max_steps, min_plus, device; stream)
-    lib.resident_megastep_launch.argtypes = [vp] * 22 + [i32] * 9 + [vp]
+    # (17 inputs, 10 outputs and scratch, the phase timer or NULL; n, d,
+    #  m_lo, m_hi, num_parts, v_max, nf, max_steps, dense_rows, list_cap,
+    #  min_plus, device; stream)
+    lib.resident_megastep_launch.argtypes = [vp] * 28 + [i32] * 12 + [vp]
     lib.resident_megastep_launch.restype = i32
     # (n, num_parts, min_plus, device, out[2])
     lib.resident_grid_shape.argtypes = [i32] * 4 + [ip]

@@ -1,6 +1,8 @@
 // A probe of the two barriers the superstep kernels are built on, for
 // measurement only: one grid.sync() across a cooperative grid (K4's
-// barrier, once per phase of every round) and one hardware cluster barrier
+// barrier, twice a round: after the delivery over the feed rows and after
+// the sweep, with none added when the sweep's walk changes, plus one after
+// its set-up) and one hardware cluster barrier
 // (K3's, once a sweep, plus one when a dense sweep hands over to a work
 // list). Each kernel runs `iters` barriers back to back;
 // thread 0 of block 0 reads the global timer around them and writes the

@@ -2,7 +2,10 @@
 // (n = P·v_max) state: gated mailbox delivery, inbox ⊕-combine, the masked
 // local fixpoint, the new send set and per-partition sweep counts.
 // K4 (below K3): the resident narrow-phase loop, many relaxation rounds of
-// one delivery and ONE masked sweep each, in one launch.
+// one delivery and ONE masked sweep each, in one cooperative launch with
+// two grid-wide barriers a round; its delivery walks the feed rows only
+// and its sweeps, like K3's, walk every row or a work list by the
+// frontier's size (its own notes are with it).
 //
 // Replaces: the JAX package's Pallas kernel `megastep_semiring_pallas`
 // (src/repro/kernels/megastep.py, body `_megastep_kernel`). Outputs match
@@ -125,23 +128,21 @@ struct Args {
   uint8_t* ch_out;
   uint8_t* fr_out;
   int* liters;
-  float* x_tmp;    // K4
-  uint8_t* f_tmp;  // K4
-  int* flags;      // K4: 3 slots of (P+1): per-partition "any f", global
   int* iters;      // K4: rounds run
+  const int* feed;  // K4: the feed rows
+  int2* ys;         // K4: 2·n (x, frontier stamp) words, by round parity
+  int2* snd;        // K4: 2·n (x, send stamp) words, by round parity
+  int* claim;       // K4: the round that last claimed a row (list walks)
+  int* ctr;         // K4: a ring of 3 counter slots of (P + 2)
   int* fgen;       // K3: 2·n frontier stamps, by the parity of the sweep
   int* stamp;      // K3: the sweep that last claimed a row (work list)
   float* x_alt;    // K3: the other x buffer of dense walks
-  int* lists;      // K3: two work lists of rows, v_max a partition
+  int* lists;      // two work lists of rows (K3: v_max a partition; K4:
+                   // list_cap)
+  unsigned long long* phase_ns;  // K4: optional phase timer (see K4)
   int n, d, m_lo, m_hi, num_parts, v_max, unroll, max_steps, dense_rows;
+  int nf, list_cap;  // K4: feed rows, the lists' capacity
 };
-
-// a load of a buffer other blocks write during the launch goes through L2
-// (CG); a read-only input may use the non-coherent path
-template <bool CG, typename T>
-__device__ __forceinline__ T ld(const T* p) {
-  return CG ? __ldcg(p) : __ldg(p);
-}
 
 template <bool MINP>
 __device__ __forceinline__ float ident() {
@@ -153,9 +154,9 @@ __device__ __forceinline__ float oplus(float a, float b) {
   return MINP ? (b < a ? b : a) : (b > a ? b : a);
 }
 
-// ⊕ over one feed row: lanes whose feed is valid AND whose source vertex is
-// in the previous round's send set (``chs``); min_plus adds the edge weight
-template <bool MINP, bool CG>
+// ⊕ over one feed row of K3: lanes whose feed is valid AND whose source
+// vertex is in the input send set (``chs``); min_plus adds the edge weight
+template <bool MINP>
 __device__ __forceinline__ float reduce_feeds(const float* xs,
                                               const uint8_t* chs,
                                               const int* src,
@@ -167,8 +168,8 @@ __device__ __forceinline__ float reduce_feeds(const float* xs,
     const int64_t i = base + k;
     if (!__ldg(ok + i)) continue;
     const int s = __ldg(src + i);
-    if (!ld<CG>(chs + s)) continue;
-    float g = ld<CG>(xs + s);
+    if (!__ldg(chs + s)) continue;
+    float g = __ldg(xs + s);
     if (MINP) g = __fadd_rn(g, __ldg(w + i));
     acc = oplus<MINP>(acc, g);
   }
@@ -177,50 +178,18 @@ __device__ __forceinline__ float reduce_feeds(const float* xs,
 
 // the inbox of row v: its lo feed lanes and, where it has one, its hub row
 // (each vertex has at most one hub feed row: a gather, no scatter)
-template <bool MINP, bool CG>
+template <bool MINP>
 __device__ __forceinline__ float inbox_of(const Args& a, int64_t v,
                                           const float* xs,
                                           const uint8_t* chs) {
-  float inbox = reduce_feeds<MINP, CG>(xs, chs, a.lo_src, a.lo_ok, a.lo_w,
+  float inbox = reduce_feeds<MINP>(xs, chs, a.lo_src, a.lo_ok, a.lo_w,
                                        v * a.m_lo, a.m_lo);
   if (__ldg(a.hub_row_ok + v)) {
     const int64_t r = __ldg(a.hub_row + v);
-    inbox = oplus<MINP>(inbox, reduce_feeds<MINP, CG>(
+    inbox = oplus<MINP>(inbox, reduce_feeds<MINP>(
         xs, chs, a.hub_src, a.hub_ok, a.hub_w, r * a.m_hi, a.m_hi));
   }
   return inbox;
-}
-
-__device__ __forceinline__ void clear_block_flags(int* sflag, int p1) {
-  __syncthreads();
-  for (int i = threadIdx.x; i < p1; i += blockDim.x) sflag[i] = 0;
-  __syncthreads();
-}
-
-// one Jacobi row update of the masked sweep (ref.py semiring_spmv_frontier_ref):
-// row v's new value from (xc, fc); xv is set to xc[v]
-template <bool MINP>
-__device__ __forceinline__ float sweep_value(const Args& a, int64_t v,
-                                             const float* xc,
-                                             const uint8_t* fc, float& xv) {
-  const int64_t base = v * a.d;
-  bool act = false;
-  for (int j = 0; j < a.d && !act; ++j) {
-    const int s = __ldg(a.nbr + base + j);
-    act = s >= 0 && __ldcg(fc + s);
-  }
-  xv = __ldcg(xc + v);
-  if (!act) return xv;
-  float y = ident<MINP>();
-  for (int j = 0; j < a.d; ++j) {
-    const int64_t i = base + j;
-    const int s = __ldg(a.nbr + i);
-    if (s < 0) continue;
-    float g = __ldcg(xc + s);
-    if (MINP) g = __fadd_rn(g, __ldg(a.wgt + i));
-    y = oplus<MINP>(y, g);
-  }
-  return oplus<MINP>(xv, y);
 }
 
 // ---------------------------------------------------------------------------
@@ -373,7 +342,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1) megastep_kernel(Args a) {
     int mine = 0;
     for (int r = gtid; r < vmax; r += gstride) {
       const int v = base + r;
-      const float inbox = inbox_of<MINP, false>(a, v, a.x, a.changed);
+      const float inbox = inbox_of<MINP>(a, v, a.x, a.changed);
       const float xv = __ldg(a.x + v);
       const float x1 = oplus<MINP>(xv, inbox);
       const bool f0 =
@@ -475,7 +444,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1) megastep_kernel(Args a) {
 
 // ---------------------------------------------------------------------------
 // K4: the resident narrow-phase loop. Up to max_steps relaxation rounds in
-// ONE launch; each round delivers the previous round's news, ⊕-combines it,
+// one launch; each round delivers the previous round's news, ⊕-combines it,
 // and runs ONE masked Jacobi sweep (chaotic relaxation: local consequences
 // settle across rounds instead of per-superstep fixpoints). The loop ends
 // when a round changes no vertex or at max_steps.
@@ -486,118 +455,412 @@ __global__ void __launch_bounds__(kClusterThreads, 1) megastep_kernel(Args a) {
 //   x2 (n) f32, changed2 (n) bool, frontier2 (n) bool, iters (1) i32,
 //   liters (P) i32 (Σ over rounds of "partition had a frontier").
 //
-// What bounds it on an H100: memory, per round. A round reads the feed maps
-// (n·m_lo·(4+1+4) B) and the adjacency (n·D·4, plus n·D·4 of wgt for
-// min_plus), and reads and writes the state a few times; the rounds run one
-// hop each, so a road network takes thousands. On the TPU the whole loop
-// sat in VMEM behind a 4 MiB gate; here the state stays in HBM and L2.
+// What bounds it on an H100: memory, per round, and only over the rows a
+// round must touch: the rows that receive a message (a feed lane whose
+// source changed last round: under 1 % of n on the main path's grid) read
+// their feed maps, and the rows with an active in-neighbour (on average
+// 53 % of n in CC's rounds, 7 % in SSSP's) read their lanes' indices (plus
+// as many weights for min_plus). The rounds run one hop each, so a road
+// network takes thousands, and a round's delivery reads state other
+// partitions wrote in the round before, so each round needs a barrier
+// across the whole grid (1.6 µs over K4's grid on an H100).
 //
-// What the design does about it: one cooperative launch with at most the
-// co-resident blocks, rows grid-stride, grid.sync() after the delivery and
-// after the sweep, so the rounds never return to the host. Unlike K3, a
-// round's delivery reads other partitions' state, so each round needs a
-// barrier across the whole grid.
+// What the design does about it: one cooperative launch of the co-resident
+// blocks, two grid.sync() a round (after the delivery, after the sweep;
+// one more after the set-up), and each phase walks only what it must:
+//  * Delivery walks the feed rows (`feed`: the rows with a valid lo lane or
+//    a hub row, a static list the wrapper builds once per mailbox). Every
+//    other row has x1 = xc and its feed maps are never read.
+//  * The sweep has two walks, chosen each round by the frontier's size c
+//    after delivery: while c >= `dense_rows` (a constant of the wrapper)
+//    it walks every row, two a thread, testing each row's lanes; below it,
+//    it walks the frontier's rows and their out-neighbours through the
+//    adjacency's transpose (out_off/out_src, K3's), each row claimed once
+//    by a round stamp in `claim`. The frontier's rows come from a list the
+//    previous sweep and this round's delivery append to; after a dense
+//    sweep, which builds no list, the round finds them by a scan of the
+//    stamps instead (no extra barrier). Both walks give the same iterates.
+//  * Both walks read K3's copy of the adjacency cut to its used lanes, a
+//    row's indices (and weights) in 16-byte loads.
+//  * One 8-byte load a lane: each row's x and its frontier stamp sit side
+//    by side in `ys` (an int2: the x bits and the round whose frontier
+//    holds the row), so a lane's value and its frontier test come from one
+//    sector.
 //
-// Buffers. The outputs hold the state across rounds: phase 0 copies the
-// input state into them. Delivery reads x and changed at OTHER rows and
-// writes x1 and the full frontier f into scratch (x_tmp, f_tmp); the sweep
-// reads x1 and f at other rows and writes x2, changed2 and frontier2 over
-// the state IN PLACE, one row per thread: after the delivery's barrier no
-// thread reads the state at another row until the next round's delivery,
-// which starts after the sweep's barrier. So two x buffers do what the
-// TPU kernel's three loop values (xc, x1, x2) do.
+// Buffers. `ys` holds two (x, stamp) arrays by the round's parity: round r
+// reads ys[r & 1] (after its delivery, x1 and f_r at every row) and writes
+// x2 into ys[(r + 1) & 1]. `snd` holds two (x, stamp) arrays of the send
+// set: snd[r & 1][s] has stamp r iff s changed in round r - 1, and then
+// its x. Counters: a ring of three slots of (P + 2) ints, slot r % 3
+// holding round r's frontier size, "round r runs" (round r - 1 changed a
+// row) and per partition "f_r is not empty"; each slot is cleared by block
+// 0 two phases before anyone writes it again.
 //
-// Flags. A ring of three (P+1)-int slots: round r writes slot r%3 —
-// per-partition "any f" during the delivery (read by block 0 for liters
-// after the barrier), "any changed" during the sweep (read by every block
-// at the top of round r+1) — and block 0 clears slot (r+1)%3, whose last
-// readers finished before round r-1's first barrier. One more int holds
-// "any changed" of the input state, the condition of round 0.
+// Places where bit identity with the JAX kernel is easily lost:
+//  * Jacobi order. The sweep of round r reads ys[r & 1] at other rows and
+//    writes only ys[(r + 1) & 1], so it never reads a value written in the
+//    same round. Delivery updates ys[r & 1] in place at the feed rows, so
+//    it reads the sources' xc and send-set membership from snd[r & 1],
+//    which no one writes in that phase, never from ys.
+//  * Rows a round does not touch. A stamp is a round number, so an old
+//    stamp never equals a later round and nothing is cleared each round.
+//    ys[(r + 1) & 1] held x1 of round r - 1; the rows whose value may have
+//    moved since are round r's frontier (changed by sweep r - 1 or by
+//    delivery r), the rows sweep r changes, and rows outside vmask that
+//    delivery r changes (they enter no frontier, so delivery writes them
+//    into both arrays). The sweep writes the first two, so after it every
+//    row of ys[(r + 1) & 1] holds x2. Rows outside vmask have no local
+//    edge (the wrapper refuses a mailbox where one does), so no sweep
+//    moves them. At exit the outputs are read from the final arrays at all
+//    n rows: frontier2 = (stamp == iters), changed2 = (send stamp ==
+//    iters).
+//  * frontier2 ⊆ changed2. x2 != x1 implies x2 != xc, since x1 = xc ⊕
+//    inbox and x2 = x1 ⊕ y; so the send set of round r is delivery r's
+//    changed rows in vmask (written into snd by the delivery, with x1)
+//    and sweep r's changed rows (written again, with x2).
+//  * iters counts the rounds run: round r runs while r < max_steps and
+//    round r - 1 changed a row (round 0: some input row is changed).
+//    liters[p] adds 1 in each round whose f (after delivery) holds a row
+//    of partition p, read from the flags in the ring, so a partition with
+//    no work is counted as the reference counts it.
+//  * `act` follows ref.py's semiring_spmv_frontier_ref: a row with no lane
+//    in f_r keeps x1; a row with one folds ALL its lanes.
+//  * max_steps 0, or no changed input row: no round runs and the outputs
+//    are the inputs, iters 0.
+//  * Buffers written during the launch are read with `__ldcg` (L2, not the
+//    non-coherent L1); read-only inputs with `__ldg`.
+
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ int2 pack(float x, int stamp) {
+  return make_int2(__float_as_int(x), stamp);
+}
+
+// ⊕ over one feed row of K4: lanes whose feed is valid AND whose source is
+// in round r's send set, read with its value from one (x, stamp) word
 template <bool MINP>
-__global__ void __launch_bounds__(kThreads) resident_kernel(Args a) {
+__device__ __forceinline__ float k4_feeds(const int2* snd, const int* src,
+                                          const uint8_t* ok, const float* w,
+                                          int64_t base, int m, int r) {
+  float acc = ident<MINP>();
+  for (int k = 0; k < m; ++k) {
+    const int64_t i = base + k;
+    if (!__ldg(ok + i)) continue;
+    const int2 s = __ldcg(snd + __ldg(src + i));
+    if (s.y != r) continue;
+    float g = __int_as_float(s.x);
+    if (MINP) g = __fadd_rn(g, __ldg(w + i));
+    acc = oplus<MINP>(acc, g);
+  }
+  return acc;
+}
+
+// one lane of K4's sweep: x1 of its source (⊗ w) and whether the source is
+// in round r's frontier, from one 8-byte load
+template <bool MINP>
+__device__ __forceinline__ void k4_lane(int s, float w, const int2* yc,
+                                        int r, float& y, bool& act) {
+  if (s >= 0) {
+    const int2 p = __ldcg(yc + s);
+    float g = __int_as_float(p.x);
+    if (MINP) g = __fadd_rn(g, w);
+    y = oplus<MINP>(y, g);
+    act |= p.y == r;
+  }
+}
+
+// the shared-memory flags of a K4 block: [0, P) "partition p", [P] a
+// count, [P + 1] "any"
+__device__ __forceinline__ void k4_flags_begin(int* sflag, int P) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < P + 2; i += blockDim.x) sflag[i] = 0;
+  __syncthreads();
+}
+
+// a phase's flags out to a ring slot: the block's count added to *cnt,
+// "any" stored to *any, each partition's flag to pf[p]. Every thread of
+// the block calls it, converged.
+__device__ __forceinline__ void k4_flags_flush(int* sflag, int P, int mine,
+                                               bool any, int* pf, int* cnt,
+                                               int* anyp) {
+  mine = __reduce_add_sync(0xffffffffu, mine);
+  any = __any_sync(0xffffffffu, any);
+  if ((threadIdx.x & 31) == 0) {
+    if (mine) atomicAdd(sflag + P, mine);
+    if (any) sflag[P + 1] = 1;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (sflag[P]) atomicAdd(cnt, sflag[P]);
+    if (sflag[P + 1]) *anyp = 1;
+  }
+  for (int i = threadIdx.x; i < P; i += blockDim.x)
+    if (sflag[i]) pf[i] = 1;  // every writer stores 1: a benign race
+}
+
+// R rows of round r's sweep (v < 0: no row): x2 from ys[r & 1] into `yn`
+// where the row is in f_r or changes; a changed row (in vmask) also goes
+// into the send set `sn` and into the next frontier, appended to `ln` in
+// list walks (LIST) or counted in `cnt` in dense ones.
+template <bool MINP, int R, bool LIST>
+__device__ __forceinline__ void k4_rows(const Args& a, const int* v,
+                                        const int2* yc, int2* yn, int2* sn,
+                                        int r, int* ncnt, int* ln, int& cnt,
+                                        bool& any, int* sflag) {
+  const int d = a.d;
+  int u[R];
+  int2 own[R];
+  float y[R];
+  bool act[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    u[i] = v[i] < 0 ? v[0] : v[i];  // a skipped row repeats the first
+    own[i] = __ldcg(yc + u[i]);
+    y[i] = ident<MINP>();
+    act[i] = false;
+  }
+  if ((d & 3) == 0) {  // 16-byte rows of indices (and weights)
+#pragma unroll 2
+    for (int c = 0; c < (d >> 2); ++c) {
+      int4 s[R];
+      float4 w[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        s[i] = __ldg(reinterpret_cast<const int4*>(a.nbr + u[i] * d) + c);
+        w[i] = MINP ? __ldg(reinterpret_cast<const float4*>(a.wgt + u[i] * d)
+                            + c)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        k4_lane<MINP>(s[i].x, w[i].x, yc, r, y[i], act[i]);
+        k4_lane<MINP>(s[i].y, w[i].y, yc, r, y[i], act[i]);
+        k4_lane<MINP>(s[i].z, w[i].z, yc, r, y[i], act[i]);
+        k4_lane<MINP>(s[i].w, w[i].w, yc, r, y[i], act[i]);
+      }
+    }
+  } else {
+    for (int j = 0; j < d; ++j)
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        k4_lane<MINP>(__ldg(a.nbr + u[i] * d + j),
+                      MINP ? __ldg(a.wgt + u[i] * d + j) : 0.f, yc, r, y[i],
+                      act[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (v[i] < 0) continue;
+    const float x1 = __int_as_float(own[i].x);
+    const float x2 = act[i] ? oplus<MINP>(x1, y[i]) : x1;
+    const bool moved = x2 != x1 && __ldg(a.vmask + v[i]);
+    if (own[i].y == r || moved) __stcg(yn + v[i], pack(x2, moved ? r + 1 : -1));
+    if (!moved) continue;
+    __stcg(sn + v[i], pack(x2, r + 1));
+    any = true;
+    sflag[v[i] / a.v_max] = 1;
+    if (LIST) {
+      const int pos = append_one(ncnt);
+      if (pos < a.list_cap) ln[pos] = v[i];
+    } else {
+      ++cnt;
+    }
+  }
+}
+
+// a frontier row `s` of a list or scan walk and its out-neighbours, items
+// sub, sub + step, ... of [s, out_src[out_off[s]], ...], each row claimed
+// once a round
+template <bool MINP>
+__device__ __forceinline__ void k4_entry(const Args& a, int s, int sub,
+                                         int step, const int2* yc, int2* yn,
+                                         int2* sn, int r, int* ncnt, int* ln,
+                                         int& cnt, bool& any, int* sflag) {
+  const int beg = __ldg(a.out_off + s);
+  const int end = __ldg(a.out_off + s + 1);
+  for (int q = beg - 1 + sub; q < end; q += step) {
+    const int v = q < beg ? s : __ldg(a.out_src + q);
+    if (atomicExch(a.claim + v, r) == r) continue;  // claimed
+    k4_rows<MINP, 1, true>(a, &v, yc, yn, sn, r, ncnt, ln, cnt, any, sflag);
+  }
+}
+
+template <bool MINP>
+__global__ void __launch_bounds__(kThreads, 4) resident_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ int sflag[];
   const int P = a.num_parts;
-  const int p1 = P + 1;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  int* init = a.flags + 3 * p1;
+  const int slot = P + 2;  // a ring slot: [0] |f_r|, [1] runs, [2..] per p
+  const int n = a.n;
+  const int stride = (int)(gridDim.x * blockDim.x);
+  const int gtid = (int)(blockIdx.x * blockDim.x + threadIdx.x);
+  int2* const ys0 = a.ys;
+  int2* const ys1 = a.ys + n;
+  int2* const sn0 = a.snd;
+  int2* const sn1 = a.snd + n;
+  // the phase timer (optional): block 0's thread 0 reads the global timer
+  // after each grid-wide barrier, so each phase's time includes the wait
+  // at its barrier; [0] the set-up, [1] the deliveries, [2] the sweeps
+  const bool timer = a.phase_ns && blockIdx.x == 0 && threadIdx.x == 0;
+  unsigned long long t_prev = timer ? now_ns() : 0, t_d = 0, t_s = 0;
+  const unsigned long long t_start = t_prev;
 
-  // phase 0: the input state into the outputs; "any changed" of it
-  clear_block_flags(sflag, p1);
+  // set-up: the input state into both (x, stamp) arrays and the send set
+  // (round 0's frontier and send set stamped 0), claims cleared, round 0's
+  // counters
+  k4_flags_begin(sflag, P);
   if (blockIdx.x == 0)
     for (int p = threadIdx.x; p < P; p += blockDim.x) a.liters[p] = 0;
-  for (int64_t v = first; v < a.n; v += stride) {
-    const uint8_t ch = __ldg(a.changed + v);
-    a.x_out[v] = __ldg(a.x + v);
-    a.ch_out[v] = ch;
-    a.fr_out[v] = __ldg(a.frontier + v);
-    if (ch) sflag[P] = 1;
+  int mine = 0;
+  bool any = false;
+  for (int v = gtid; v < n; v += stride) {
+    const float x = __ldg(a.x + v);
+    const bool f = __ldg(a.frontier + v);
+    const bool ch = __ldg(a.changed + v);
+    ys0[v] = pack(x, f ? 0 : -1);
+    ys1[v] = pack(x, -1);
+    sn0[v] = pack(x, ch ? 0 : -1);
+    sn1[v] = pack(x, -1);
+    a.claim[v] = -1;
+    if (f) {
+      ++mine;
+      sflag[v / a.v_max] = 1;
+    }
+    any |= ch;
   }
-  __syncthreads();
-  if (threadIdx.x == 0 && sflag[P]) *init = 1;
+  k4_flags_flush(sflag, P, mine, any, a.ctr + 2, a.ctr, a.ctr + 1);
   grid.sync();
-
-  int it = 0;
-  for (;; ++it) {
-    const int go = it == 0 ? __ldcg(init)
-                           : __ldcg(a.flags + ((it + 2) % 3) * p1 + P);
-    if (!go || it >= a.max_steps) break;  // same value grid-wide
-    int* cur = a.flags + (it % 3) * p1;
-    if (blockIdx.x == 0) {
-      int* nxt = a.flags + ((it + 1) % 3) * p1;
-      for (int i = threadIdx.x; i < p1; i += blockDim.x) nxt[i] = 0;
-    }
-
-    // delivery from the state's send set, inbox ⊕-combine, the frontier
-    clear_block_flags(sflag, p1);
-    for (int64_t v = first; v < a.n; v += stride) {
-      const float inbox = inbox_of<MINP, true>(a, v, a.x_out, a.ch_out);
-      const float xv = __ldcg(a.x_out + v);
-      const float x1 = oplus<MINP>(xv, inbox);
-      const bool f = __ldcg(a.fr_out + v) ||
-                     ((x1 != xv) && __ldg(a.vmask + v));
-      a.x_tmp[v] = x1;
-      a.f_tmp[v] = f;
-      if (f) sflag[v / a.v_max] = 1;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < P; i += blockDim.x)
-      if (sflag[i]) cur[i] = 1;  // every writer stores 1: a benign race
-    grid.sync();
-
-    // one masked sweep over x1; changed2 = x2 != xc, frontier2 = x2 != x1
-    if (blockIdx.x == 0)
-      for (int p = threadIdx.x; p < P; p += blockDim.x)
-        a.liters[p] += (__ldcg(cur + p) != 0);
-    clear_block_flags(sflag, p1);
-    for (int64_t v = first; v < a.n; v += stride) {
-      float x1;
-      const float x2 = sweep_value<MINP>(a, v, a.x_tmp, a.f_tmp, x1);
-      const float xc = __ldcg(a.x_out + v);
-      const bool vm = __ldg(a.vmask + v);
-      const bool ch2 = (x2 != xc) && vm;
-      a.x_out[v] = x2;
-      a.ch_out[v] = ch2;
-      a.fr_out[v] = (x2 != x1) && vm;
-      if (ch2) sflag[P] = 1;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0 && sflag[P]) cur[P] = 1;
-    grid.sync();
+  if (timer) {
+    t_prev = now_ns();
+    a.phase_ns[0] = t_prev - t_start;
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) *a.iters = it;
+
+  bool listed = false;  // the frontier list of this round is whole
+  int r = 0;
+  for (;; ++r) {
+    int* const cur = a.ctr + (r % 3) * slot;
+    int* const nxt = a.ctr + ((r + 1) % 3) * slot;
+    if (r >= a.max_steps || !__ldcg(cur + 1)) break;  // same grid-wide
+    int2* const yc = (r & 1) ? ys1 : ys0;
+    int2* const yn = (r & 1) ? ys0 : ys1;
+    const int2* sc = (r & 1) ? sn1 : sn0;
+    int2* const sn = (r & 1) ? sn0 : sn1;
+    int* const lc = a.lists + (r & 1) * a.list_cap;
+    int* const ln = a.lists + ((r + 1) & 1) * a.list_cap;
+
+    // delivery over the feed rows: inbox ⊕-combine from round r's send
+    // set; a row it changes enters f_r (and the next send set) unless it
+    // lies outside vmask
+    k4_flags_begin(sflag, P);
+    mine = 0;
+    any = false;
+    for (int i = gtid; i < a.nf; i += stride) {
+      const int v = __ldg(a.feed + i);
+      const int2 own = __ldcg(yc + v);
+      const float xc = __int_as_float(own.x);
+      float inbox = k4_feeds<MINP>(sc, a.lo_src, a.lo_ok, a.lo_w,
+                                   (int64_t)v * a.m_lo, a.m_lo, r);
+      if (__ldg(a.hub_row_ok + v))
+        inbox = oplus<MINP>(inbox, k4_feeds<MINP>(
+            sc, a.hub_src, a.hub_ok, a.hub_w,
+            (int64_t)__ldg(a.hub_row + v) * a.m_hi, a.m_hi, r));
+      const float x1 = oplus<MINP>(xc, inbox);
+      if (x1 == xc) continue;
+      if (!__ldg(a.vmask + v)) {  // no frontier, no send: both arrays
+        yc[v] = pack(x1, own.y);
+        yn[v] = pack(x1, -1);
+        continue;
+      }
+      yc[v] = pack(x1, r);
+      sn[v] = pack(x1, r + 1);
+      any = true;
+      if (own.y == r) continue;  // already in f_r (sweep r - 1 moved it)
+      sflag[v / a.v_max] = 1;
+      if (listed) {
+        const int pos = append_one(cur);
+        if (pos < a.list_cap) lc[pos] = v;
+      } else {
+        ++mine;
+      }
+    }
+    k4_flags_flush(sflag, P, mine, any, cur + 2, cur, nxt + 1);
+    grid.sync();
+    if (timer) {
+      const unsigned long long t = now_ns();
+      t_d += t - t_prev;
+      t_prev = t;
+    }
+
+    // one masked sweep of f_r, by the walk its size picks
+    const int c = __ldcg(cur);
+    if (blockIdx.x == 0) {
+      for (int p = threadIdx.x; p < P; p += blockDim.x)
+        a.liters[p] += __ldcg(cur + 2 + p) != 0;
+      int* const old = a.ctr + ((r + 2) % 3) * slot;  // last read in r - 1
+      for (int i = threadIdx.x; i < slot; i += blockDim.x) old[i] = 0;
+    }
+    k4_flags_begin(sflag, P);
+    mine = 0;
+    any = false;
+    const bool dense = c >= a.dense_rows;
+    if (c == 0) {
+      // nothing to sweep: x2 = x1, and f_{r+1} is empty
+    } else if (dense) {  // every row, two a thread
+      for (int v0 = gtid; v0 < n; v0 += 2 * stride) {
+        const int v[2] = {v0, v0 + stride < n ? v0 + stride : -1};
+        k4_rows<MINP, 2, false>(a, v, yc, yn, sn, r, nxt, ln, mine, any,
+                                sflag);
+      }
+    } else if (listed) {  // the list: a group of 8 (or 4) threads an entry
+      const int lg = c * 8 <= stride ? 3 : 2;
+      const int sub = gtid & ((1 << lg) - 1);
+      for (int e = gtid >> lg; e < c; e += stride >> lg)
+        k4_entry<MINP>(a, __ldcg(lc + e), sub, 1 << lg, yc, yn, sn, r, nxt,
+                       ln, mine, any, sflag);
+    } else {  // after a dense sweep: the entries found by their stamps
+      for (int v = gtid; v < n; v += stride)
+        if (__ldcg(yc + v).y == r)
+          k4_entry<MINP>(a, v, 0, 1, yc, yn, sn, r, nxt, ln, mine, any,
+                         sflag);
+    }
+    listed = !dense;
+    k4_flags_flush(sflag, P, mine, any, nxt + 2, nxt, nxt + 1);
+    grid.sync();
+    if (timer) {
+      const unsigned long long t = now_ns();
+      t_s += t - t_prev;
+      t_prev = t;
+    }
+  }
+
+  // outputs from the final arrays, every row
+  const int2* yr = (r & 1) ? ys1 : ys0;
+  const int2* sr = (r & 1) ? sn1 : sn0;
+  for (int v = gtid; v < n; v += stride) {
+    const int2 p = __ldcg(yr + v);
+    a.x_out[v] = __int_as_float(p.x);
+    a.fr_out[v] = p.y == r;
+    a.ch_out[v] = __ldcg(sr + v).y == r;
+  }
+  if (gtid == 0) *a.iters = r;
+  if (timer) {
+    a.phase_ns[1] = t_d;
+    a.phase_ns[2] = t_s;
+  }
 }
 
 // K4's grid: at most the co-resident blocks of 256 threads (occupancy
-// depends on smem, which grows with P)
+// depends on shared memory, which grows with P)
 template <bool MINP>
 cudaError_t resident_blocks(int64_t n, int num_parts, int device,
                             int* blocks) {
   static int sms[kMaxDevices] = {0};
   static int per_sm[kMaxDevices] = {0};
   static size_t per_sm_smem[kMaxDevices] = {0};
-  const size_t smem = sizeof(int) * (size_t)(num_parts + 1);
+  const size_t smem = sizeof(int) * (size_t)(num_parts + 2);
   cudaError_t err;
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   if (sms[device] == 0) {
@@ -619,13 +882,15 @@ cudaError_t resident_blocks(int64_t n, int num_parts, int device,
   return cudaSuccess;
 }
 
-// one cooperative launch of K4 with at most the co-resident blocks
+// one cooperative launch of K4 with at most the co-resident blocks: the
+// runtime refuses a grid that would not be co-resident, and the wrapper
+// raises
 template <bool MINP>
 cudaError_t launch_resident(const Args& a, int device, cudaStream_t stream) {
   int blocks = 0;
   cudaError_t err = resident_blocks<MINP>(a.n, a.num_parts, device, &blocks);
   if (err != cudaSuccess) return err;
-  const size_t smem = sizeof(int) * (size_t)(a.num_parts + 1);
+  const size_t smem = sizeof(int) * (size_t)(a.num_parts + 2);
   Args local = a;
   void* params[] = {(void*)&local};
   return cudaLaunchCooperativeKernel((void*)resident_kernel<MINP>,
@@ -797,21 +1062,32 @@ extern "C" int resident_megastep_launch(
     const void* vmask, const void* nbr, const void* wgt,
     const void* lo_src, const void* lo_ok, const void* lo_w,
     const void* hub_src, const void* hub_ok, const void* hub_w,
-    const void* hub_row, const void* hub_row_ok, void* x_out, void* ch_out,
-    void* fr_out, void* iters, void* liters, void* x_tmp, void* f_tmp,
-    void* flags, int n, int d, int m_lo, int m_hi, int num_parts, int v_max,
-    int max_steps, int min_plus, int device, void* stream) {
+    const void* hub_row, const void* hub_row_ok, const void* feed,
+    const void* out_off, const void* out_src, void* x_out, void* ch_out,
+    void* fr_out, void* iters, void* liters, void* ys, void* snd,
+    void* claim, void* lists, void* ctr, void* phase_ns, int n, int d,
+    int m_lo, int m_hi, int num_parts, int v_max, int nf, int max_steps,
+    int dense_rows, int list_cap, int min_plus, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   Args a = make_args(x, changed, frontier, vmask, nbr, wgt, lo_src, lo_ok,
                      lo_w, hub_src, hub_ok, hub_w, hub_row, hub_row_ok, x_out,
                      ch_out, fr_out, liters, n, d, m_lo, m_hi, num_parts,
                      v_max);
-  a.x_tmp = (float*)x_tmp;
-  a.f_tmp = (uint8_t*)f_tmp;
-  a.flags = (int*)flags;
+  a.feed = (const int*)feed;
+  a.out_off = (const int*)out_off;
+  a.out_src = (const int*)out_src;
   a.iters = (int*)iters;
+  a.ys = (int2*)ys;
+  a.snd = (int2*)snd;
+  a.claim = (int*)claim;
+  a.lists = (int*)lists;
+  a.ctr = (int*)ctr;
+  a.phase_ns = (unsigned long long*)phase_ns;
+  a.nf = nf;
   a.max_steps = max_steps;
+  a.dense_rows = dense_rows;
+  a.list_cap = list_cap;
   cudaStream_t s = (cudaStream_t)stream;
   err = min_plus ? launch_resident<true>(a, device, s)
                  : launch_resident<false>(a, device, s);

@@ -23,7 +23,9 @@ The port of the JAX package's ``kernels/megastep.py`` for scalar programs:
   relaxation rounds (:func:`resident_step_semiring`: one delivery and ONE
   masked sweep each) until a round changes nothing or ``max_steps``. On a
   CUDA tensor it is ONE launch of kernel K4
-  (:func:`resident_megastep_cuda`); on a CPU tensor the plain loop
+  (:func:`resident_megastep_cuda`: deliveries over the :func:`feed_rows`,
+  sweeps over every row or a work list, as K3's); on a CPU tensor the
+  plain loop
   :func:`resident_megastep_ref`. :func:`resident_enter_round` decides where
   a run switches to it.
 
@@ -62,6 +64,14 @@ RESIDENT_ROUND_BYTES_BUDGET = 4 * 2 ** 20
 # iterates. Read when K3 is launched, so a caller can set it: 0 walks every
 # sweep densely, anything above 1 every sweep by work list.
 K3_DENSE_FRONTIER = 0.125
+
+# K4's choice between its two walks of a round's sweep: a round whose
+# frontier holds at least this share of all n rows walks every row; a
+# smaller one walks its frontier's rows and their out-neighbours. Both
+# give the same iterates. Set from tools/k4_rounds.py's timings at the
+# main path's size; read when K4 is launched, so a caller can set it: 0
+# walks every sweep densely, anything above 1 every sweep by work list.
+K4_DENSE_FRONTIER = 0.0625
 
 
 # ---------------- composed routing maps ----------------
@@ -257,14 +267,15 @@ def out_adjacency(cm: dict):
 
     Raises if a row outside ``vmask`` has a local edge: such a row may
     change without entering the frontier, and K3's sweeps take every row
-    that changes into it without reading vmask."""
+    that changes into it without reading vmask (K4's sweeps write only the
+    rows that are or enter a frontier)."""
     if "out_off" not in cm:
         nbr = cm["nbr"]
         n = nbr.shape[0]
         ok = nbr != PAD
         if bool((ok.any(dim=1) & ~cm["vmask"]).any()):
-            raise ValueError("kernel K3 needs rows outside vmask to have no "
-                             "local edge")
+            raise ValueError("kernels K3 and K4 need rows outside vmask to "
+                             "have no local edge")
         rows = torch.arange(n, dtype=torch.int32, device=nbr.device)
         src = nbr[ok]
         order = torch.argsort(src, stable=True)
@@ -293,6 +304,19 @@ def k3_lanes(cm: dict, semiring: str):
     if semiring == "min_plus" and "k3_wgt" not in cm:
         cm["k3_wgt"] = cm["wgt"][:, :cm["k3_width"]].contiguous()
     return cm["k3_nbr"], cm.get("k3_wgt") if semiring == "min_plus" else None
+
+
+def _walk_inputs(cm: dict, semiring: str):
+    """What K3's and K4's walks read beside the mailbox, built into it on
+    first use and checked: ``(out_off, out_src, nbr, wgt)``, the
+    :func:`out_adjacency` and the :func:`k3_lanes` (``wgt`` is ``nbr`` as
+    a placeholder for max_first, which reads no weights)."""
+    out_off, out_src = out_adjacency(cm)
+    nbr, wgt = k3_lanes(cm, semiring)
+    dev = nbr.device
+    _build.need(out_off, "out_off", torch.int32, dev, (cm["n"] + 1,))
+    _build.need(out_src, "out_src", torch.int32, dev, (out_src.numel(),))
+    return out_off, out_src, nbr, nbr if wgt is None else wgt
 
 
 def k3_dense_rows(v_max: int) -> int:
@@ -333,13 +357,8 @@ def megastep_semiring_cuda(x, changed, frontier, cm: dict, semiring: str,
     n, P, v_max = cm["n"], cm["num_parts"], cm["v_max"]
     m_lo, m_hi = cm["lo_src"].shape[1], cm["hub_src"].shape[1]
     _check_k3_k4_inputs(x, changed, frontier, cm, "K3")
-    out_off, out_src = out_adjacency(cm)
-    nbr, wgt = k3_lanes(cm, semiring)
+    out_off, out_src, nbr, wgt = _walk_inputs(cm, semiring)
     d = nbr.shape[1]
-    _build.need(out_off, "out_off", torch.int32, dev, (n + 1,))
-    _build.need(out_src, "out_src", torch.int32, dev, (out_src.numel(),))
-    if wgt is None:
-        wgt = nbr          # a placeholder: max_first reads no weights
     x_out = torch.empty_like(x)
     ch_out = torch.empty(n, dtype=torch.bool, device=dev)
     fr_out = torch.empty(n, dtype=torch.bool, device=dev)
@@ -462,10 +481,35 @@ def resident_megastep_ref(x, changed, frontier, cm: dict, semiring: str,
             torch.tensor(it, dtype=torch.int32, device=x.device), li)
 
 
+def feed_rows(cm: dict) -> torch.Tensor:
+    """The rows K4's deliveries walk: those with a valid lo feed lane or a
+    hub feed row, ascending, (nf,) int32. Every other row receives nothing,
+    so its x1 is its x. Built on first use on the mailbox's device and kept
+    in ``cm``."""
+    if "feed_rows" not in cm:
+        feed = cm["lo_ok"].any(dim=1) | cm["hub_row_ok"]
+        cm["feed_rows"] = feed.nonzero().reshape(-1).int().contiguous()
+    return cm["feed_rows"]
+
+
+def k4_dense_rows(n: int) -> int:
+    """The frontier size from which a K4 sweep walks all ``n`` rows
+    (:data:`K4_DENSE_FRONTIER` of them)."""
+    if K4_DENSE_FRONTIER > 1:
+        return n + 1
+    return max(0, math.ceil(K4_DENSE_FRONTIER * n))
+
+
 def resident_megastep_cuda(x, changed, frontier, cm: dict, semiring: str,
-                           max_steps: int):
-    """The resident loop as ONE cooperative launch of kernel K4 — same
-    contract and bits as :func:`resident_megastep_ref`."""
+                           max_steps: int, phase_ns=None):
+    """The resident loop as ONE cooperative launch of kernel K4 — two
+    grid-wide barriers a round, deliveries over :func:`feed_rows`, sweeps
+    over every row or a work list through :func:`out_adjacency` by the
+    frontier's size, on the lanes of :func:`k3_lanes` — with the same
+    contract and bits as :func:`resident_megastep_ref`. Builds those three
+    into the mailbox on first use. ``phase_ns``, a (3,) int64 CUDA tensor
+    or None, receives the kernel's own timing of its set-up, deliveries
+    and sweeps in nanoseconds (each with the wait at its barrier)."""
     idempotent_combine(semiring)
     if not 0 <= max_steps < 2 ** 31:
         raise ValueError(f"max_steps must be in [0, 2^31), got {max_steps}")
@@ -473,27 +517,39 @@ def resident_megastep_cuda(x, changed, frontier, cm: dict, semiring: str,
         raise ValueError(f"kernel K4 needs CUDA tensors, got {x.device}")
     dev = x.device
     n, P, v_max = cm["n"], cm["num_parts"], cm["v_max"]
-    d, m_lo = cm["nbr"].shape[1], cm["lo_src"].shape[1]
-    m_hi = cm["hub_src"].shape[1]
+    m_lo, m_hi = cm["lo_src"].shape[1], cm["hub_src"].shape[1]
     _check_k3_k4_inputs(x, changed, frontier, cm, "K4")
+    out_off, out_src, nbr, wgt = _walk_inputs(cm, semiring)
+    feed = feed_rows(cm)
+    _build.need(feed, "feed_rows", torch.int32, dev, (feed.numel(),))
+    if phase_ns is not None:
+        _build.need(phase_ns, "phase_ns", torch.int64, dev, (3,))
+    dense_rows = k4_dense_rows(n)
+    cap = max(1, min(dense_rows, n))   # a walked list holds < dense_rows
     x_out = torch.empty_like(x)
     ch_out = torch.empty(n, dtype=torch.bool, device=dev)
     fr_out = torch.empty(n, dtype=torch.bool, device=dev)
     iters = torch.empty((), dtype=torch.int32, device=dev)
     liters = torch.empty(P, dtype=torch.int32, device=dev)
-    x_tmp = torch.empty_like(x)
-    f_tmp = torch.empty(n, dtype=torch.bool, device=dev)
-    flags = torch.zeros(3 * (P + 1) + 1, dtype=torch.int32, device=dev)
+    ys = torch.empty((2, n, 2), dtype=torch.int32, device=dev)
+    snd = torch.empty((2, n, 2), dtype=torch.int32, device=dev)
+    claim = torch.empty(n, dtype=torch.int32, device=dev)
+    lists = torch.empty((2, cap), dtype=torch.int32, device=dev)
+    ctr = torch.zeros(3 * (P + 2), dtype=torch.int32, device=dev)
     lib = _build.library()
     err = lib.resident_megastep_launch(
         x.data_ptr(), changed.data_ptr(), frontier.data_ptr(),
-        *(cm[name].data_ptr() for name, _ in _K3_INPUTS),
+        cm["vmask"].data_ptr(), nbr.data_ptr(), wgt.data_ptr(),
+        *(cm[name].data_ptr() for name, _ in _K3_INPUTS[3:]),
+        feed.data_ptr(), out_off.data_ptr(), out_src.data_ptr(),
         x_out.data_ptr(), ch_out.data_ptr(), fr_out.data_ptr(),
-        iters.data_ptr(), liters.data_ptr(), x_tmp.data_ptr(),
-        f_tmp.data_ptr(), flags.data_ptr(), n, d, m_lo, m_hi, P, v_max,
-        max_steps, int(semiring == "min_plus"), dev.index,
+        iters.data_ptr(), liters.data_ptr(), ys.data_ptr(), snd.data_ptr(),
+        claim.data_ptr(), lists.data_ptr(), ctr.data_ptr(),
+        None if phase_ns is None else phase_ns.data_ptr(), n, nbr.shape[1],
+        m_lo, m_hi, P, v_max, feed.numel(), max_steps, dense_rows, cap,
+        int(semiring == "min_plus"), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "resident_megastep")
+    _build.check(err, "K4 resident_megastep")
     _build.launches["resident_megastep"] += 1
     return x_out, ch_out, fr_out, iters, liters
 

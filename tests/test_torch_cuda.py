@@ -210,6 +210,147 @@ def test_k4_resident_megastep_matches_plain(cuda_device, semiring,
             assert quiet
 
 
+# (name, graph, P, semirings, K4_DENSE_FRONTIER or None)
+K4_CASES = [
+    ("one partition", lambda: road_grid(80, 80, seed=1, weighted=True), 1,
+     ("max_first", "min_plus"), None),
+    ("40 partitions", lambda: road_grid(300, 300, seed=1, weighted=True), 40,
+     ("max_first", "min_plus"), None),
+    ("every sweep dense", lambda: road_grid(120, 120, seed=4, weighted=True),
+     6, ("max_first", "min_plus"), 0.0),
+    ("every sweep by work list",
+     lambda: road_grid(120, 120, seed=4, weighted=True), 6,
+     ("max_first", "min_plus"), 2.0),
+    ("the walks switch mid-run",
+     lambda: road_grid(120, 120, seed=4, weighted=True), 6,
+     ("max_first", "min_plus"), None),
+    ("hub feed rows", lambda: powerlaw_social(3000, m=5, seed=2), 4,
+     ("max_first", "min_plus"), None),
+    ("hub feed rows by work list", lambda: powerlaw_social(3000, m=5, seed=2),
+     4, ("max_first", "min_plus"), 2.0),
+    ("unreachable rows stay +inf",
+     lambda: road_grid(120, 120, drop_frac=0.35, seed=4, weighted=True), 6,
+     ("min_plus",), None),
+]
+
+
+def _resident_frontier_sizes(cm, x, ch, fr, semiring):
+    """The plain resident loop's frontier size after each round's
+    delivery, from the state (x, ch, fr): an array, one entry a round."""
+    from repro_torch.kernels import flat
+    combine = flat.idempotent_combine(semiring)
+    sizes = []
+    while bool(ch.any()):
+        inbox = mega.deliver_flat(x, ch, cm, combine, semiring == "min_plus")
+        x1 = flat.combine_ew(combine, x, inbox)
+        sizes.append(int((fr | ((x1 != x) & cm["vmask"])).sum()))
+        x, ch, fr, _ = mega.resident_step_semiring(x, ch, fr, cm, semiring)
+    return np.array(sizes)
+
+
+@pytest.mark.parametrize("case", range(len(K4_CASES)),
+                         ids=[c[0] for c in K4_CASES])
+def test_k4_cases_match_plain(cuda_device, monkeypatch, case):
+    """K4 against the plain loop at every exit — max_steps 0, 1, 2, 7, one
+    round short of quiescence, at it, and 4096 — from the init state and
+    after one K3 superstep, one K4 launch a call: one partition, 40
+    partitions, each of its two walks forced through the wrapper's
+    constant and the constant at which they switch mid-run, hub feed rows
+    (also by work list), and SSSP rows no path reaches. (P = 12 at the main
+    path's 1.96M vertices is checked by chip_smoke.py.)"""
+    name, make, P, semirings, frac = K4_CASES[case]
+    if frac is not None:
+        monkeypatch.setattr(mega, "K4_DENSE_FRONTIER", frac)
+    g = make()
+    pg = partition_graph(g, bfs_grow_partition(g, P, seed=0), P)
+    gb = graph_block(pg, cuda_device)
+    cm = mega.compose_mailbox(gb)
+    if name.startswith("hub"):
+        assert bool(cm["hub_row_ok"][mega.feed_rows(cm).long()].any())
+    rows = mega.k4_dense_rows(cm["n"])
+    for semiring in semirings:
+        init = (init_max_vertex if semiring == "max_first"
+                else make_sssp_init(int(pg.part_of[0]), int(pg.local_of[0])))
+        st = SemiringProgram(semiring=semiring, init_fn=init).init(gb)
+        start = tuple(st[k].reshape(-1).contiguous()
+                      for k in ("x", "changed_v", "frontier"))
+        after = mega.megastep_semiring_cuda(*start, cm, semiring)[:3]
+        for begin, state in (("init", start), ("after one K3", after)):
+            if name == "the walks switch mid-run" and begin == "init":
+                sizes = _resident_frontier_sizes(cm, *state, semiring)
+                assert (sizes >= rows).any()
+                assert ((sizes > 0) & (sizes < rows)).any()
+            rounds = int(mega.resident_megastep_ref(*state, cm, semiring,
+                                                    4096)[3])
+            for max_steps in sorted({0, 1, 2, 7, max(rounds - 1, 0), rounds,
+                                     4096}):
+                before = _build.launches["resident_megastep"]
+                got = mega.resident_megastep_cuda(*state, cm, semiring,
+                                                  max_steps)
+                want = mega.resident_megastep_ref(*state, cm, semiring,
+                                                  max_steps)
+                torch.cuda.synchronize()
+                assert _build.launches["resident_megastep"] == before + 1
+                for g_, w_ in zip(got, want):
+                    assert torch.equal(g_, w_), (semiring, begin, max_steps)
+                assert int(got[3]) == min(max_steps, rounds)
+            if name == "unreachable rows stay +inf":
+                assert bool(torch.isinf(got[0][cm["vmask"]]).any())
+
+
+@pytest.mark.parametrize("semiring", ["max_first", "min_plus"])
+def test_k4_feed_row_outside_vmask_matches_plain(cuda_device, semiring):
+    """A feed row outside vmask that its neighbours list: a delivery that
+    changes it reaches no frontier, so no sweep rewrites it, and K4 writes
+    it into both of its (x, stamp) arrays."""
+    g = road_grid(120, 120, seed=4, weighted=True)
+    pg = partition_graph(g, bfs_grow_partition(g, 6, seed=0), 6)
+    gb = graph_block(pg, cuda_device)
+    cm = mega.compose_mailbox(gb)
+    feed = mega.feed_rows(dict(cm))
+    v = int(feed[torch.isin(feed, cm["nbr"])][0])
+    cm["nbr"], cm["vmask"] = cm["nbr"].clone(), cm["vmask"].clone()
+    cm["nbr"][v], cm["vmask"][v] = PAD, False
+    init = (init_max_vertex if semiring == "max_first"
+            else make_sssp_init(int(pg.part_of[0]), int(pg.local_of[0])))
+    st = SemiringProgram(semiring=semiring, init_fn=init).init(gb)
+    x, ch, fr = (st[k].reshape(-1).contiguous()
+                 for k in ("x", "changed_v", "frontier"))
+    for max_steps in (1, 7, 4096):
+        got = mega.resident_megastep_cuda(x, ch, fr, cm, semiring, max_steps)
+        want = mega.resident_megastep_ref(x, ch, fr, cm, semiring, max_steps)
+        torch.cuda.synchronize()
+        for g_, w_ in zip(got, want):
+            assert torch.equal(g_, w_), max_steps
+    assert bool(got[0][v] != x[v])
+
+
+def test_k4_phase_timer_reports_each_phase(cuda_device):
+    """``phase_ns`` receives K4's own timing of its set-up, deliveries and
+    sweeps (tools/k4_rounds.py reads it), and leaves the results alone."""
+    g = road_grid(120, 120, seed=4, weighted=True)
+    pg = partition_graph(g, bfs_grow_partition(g, 6, seed=0), 6)
+    gb = graph_block(pg, cuda_device)
+    cm = mega.compose_mailbox(gb)
+    st = SemiringProgram(semiring="max_first",
+                         init_fn=init_max_vertex).init(gb)
+    x, ch, fr = (st[k].reshape(-1).contiguous()
+                 for k in ("x", "changed_v", "frontier"))
+    phase = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    got = mega.resident_megastep_cuda(x, ch, fr, cm, "max_first", 4096,
+                                      phase_ns=phase)
+    end.record()
+    torch.cuda.synchronize()
+    want = mega.resident_megastep_cuda(x, ch, fr, cm, "max_first", 4096)
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_, w_)
+    ns = phase.cpu().numpy()
+    assert (ns > 0).all()
+    assert ns.sum() / 1e6 <= start.elapsed_time(end)
+
+
 @pytest.mark.parametrize("semiring", ["max_first", "min_plus"])
 def test_engine_resident_mode_is_one_k4_launch(cuda_device, semiring):
     """exchange='megastep' with a PhasedTierPlan that fits the resident

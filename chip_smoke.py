@@ -28,7 +28,9 @@ failure exits non-zero and prints no result:
    checked by the kernel names the profiler records (bf16 at dh 64-256:
    ``flash_kernel_sm90``; float32: the SIMT ``flash_kernel``); K8 at
    falcon-mamba-7b's scan width
-   (B 2, L 2048, D 8192, N 16) in float32 and bfloat16;
+   (B 2, L 2048, D 8192, N 16) in float32 and bfloat16, and in the ssm
+   path's call form (bf16 inputs, a nonzero initial state, float32 y and
+   the final state, both held at 1e-5);
 4. the paths at full size, on road_grid(1400, 1400) — 1.96M vertices, the
    vertex count of the paper's RN graph — in 12 partitions; one JSON line
    per run, each run after a warm-up call with the launch counts set to 0
@@ -65,10 +67,21 @@ failure exits non-zero and prints no result:
       L2 error of 5e-2 of a teacher-forced forward over the prompt and the
       generated tokens; (iii) the same architecture at full width with its
       depth cut to 2 layers, in float32, on the card (K7) and on the CPU
-      (the plain versions) with the same weights: logits allclose at
-      rtol = atol = 1e-3 and 8 greedy tokens equal. One JSON line with the
+      (the plain versions) with the same weights: prefill logits and
+      caches, then 8 decode steps' logits, allclose at rtol = atol = 1e-3
+      and the greedy tokens equal. One JSON line with the
       serving times, peak memory and K7's event-timed share of a prefill,
       and the profiler's device breakdown of a prefill and a decode step;
+   e. LM serving of the ssm family, after 4d's model is freed:
+      falcon-mamba-7b at full width and depth (64 Mamba1 layers, d 4096,
+      d_inner 8192, N 16, 7.27 B parameters in bf16, random weights from
+      seed 0) through the same serve steps on the same 4 × 2048 prompts
+      (seed 1) and 32 decode steps: (i) K8 launched once a layer in the
+      timed prefill and never in decode (the one-step recurrence as plain
+      ops); (ii) the cache's len; (iii) the decode logits within a
+      relative L2 error of 5e-2 of a teacher-forced forward, and finite;
+      (iv) the 2-layer float32 cut of 4d (iii) with K8. The same JSON
+      lines as 4d, K8 in place of K7;
 5. kernel times at the paths' shapes: one ``{"kernels": [...]}`` line.
    K3 is also held at the main path's CC superstep 0 with each walk
    forced. Its ``bound_ms`` counts only the rows with an active
@@ -89,7 +102,10 @@ failure exits non-zero and prints no result:
    CUDA-event time of one wrapper call, which for a small kernel is
    mostly the host's time to enqueue it. K7's row adds ``batch_ms`` and
    ``library_batch_ms``: 20 back-to-back calls of K7 and of its library
-   call timed by CUDA events, in turns, without the profiler.
+   call timed by CUDA events, in turns, without the profiler. K8's row is
+   at phase 4e's shape (B 4, L 2048, bf16 in, float32 y and the final
+   state), its bound the bytes it must move; the float32 row at B 2 with
+   no state stands beside it, comparable with earlier runs.
 
 Min/max results are held bit-equal; plus_times allclose (rtol=1e-6,
 atol=1e-7 on the random ELL, whose values are O(1); rtol=1e-5, atol=0 at
@@ -697,6 +713,11 @@ def mamba_inputs(dev, dtype, B=2, L=2048, D=8192, N=16):
 
 
 def check_k8(dev) -> float:
+    """K8 against its plain version at falcon-mamba-7b's scan width in the
+    Pallas kernel's contract (float32 and bf16, h from 0, y in the inputs'
+    dtype), then in the ssm path's call form: bf16 inputs, a nonzero h0,
+    float32 y and the final state, both held at float32's 1e-5 (the same
+    float32 recurrence on the same inputs). Returns the float32 error."""
     import torch
     from repro_torch.kernels.mamba_scan import mamba1_scan_cuda, mamba1_scan_ref
     errs = []
@@ -708,6 +729,21 @@ def check_k8(dev) -> float:
         errs.append(held(got, want, TOL[dt], f"K8 {dt}"))
         log(f"K8 mamba1_scan {tuple(args[0].shape)} N={args[4].shape[1]} "
             f"{dt} agrees (max_abs_err {errs[-1]})")
+    args = mamba_inputs(dev, "bfloat16")
+    B, _, D = args[0].shape
+    h0 = torch.randn((B, D, args[4].shape[1]), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(8))
+    got = mamba1_scan_cuda(*args, h0, return_state=True,
+                           y_dtype=torch.float32)
+    want = mamba1_scan_ref(*args, h0, return_state=True,
+                           y_dtype=torch.float32)
+    torch.cuda.synchronize()
+    if got[0].dtype != torch.float32:
+        fail(f"K8 path form: y is {got[0].dtype}, not float32")
+    err_y = held(got[0], want[0], TOL["float32"], "K8 path form y")
+    err_h = held(got[1], want[1], TOL["float32"], "K8 path form h_last")
+    log(f"K8 mamba1_scan {tuple(args[0].shape)} bf16 in, h0, float32 y and "
+        f"h_last agree (max_abs_err y {err_y}, h_last {err_h})")
     return errs[0]
 
 # ---------------- phase 4: the main path ----------------
@@ -1280,17 +1316,22 @@ def breakdown(pg, upg, src):
             "kernel_share_of_loop": total / 1e3 / (t2 - t1)}))
 
 
-# ---------------- phase 4d: LM serving, llama3-8b at full width ----------
+# ---------------- phases 4d and 4e: LM serving at full width --------------
 
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
+# (config, the kernel in each of its prefill layers: its launch count's key,
+# its key in the JSON lines, a piece of its name for the profiler): phase
+# 4d the dense family, phase 4e the ssm family
+LM_PATHS = [("llama3-8b", "flash_attention", "k7", "flash_kernel"),
+            ("falcon-mamba-7b", "mamba1_scan", "k8", "scan_kernel")]
 
 
-def k7_event_ms(run) -> tuple:
-    """(calls, ms): CUDA events around every K7 call that ``run`` makes
-    through ``ops.flash_attention``."""
+def op_event_ms(run, op: str) -> tuple:
+    """(calls, ms): CUDA events around every call that ``run`` makes
+    through ``ops.<op>`` (K7's ``flash_attention``, K8's ``mamba1_scan``)."""
     import torch
     from repro_torch.kernels import ops
-    calls, orig = [], ops.flash_attention
+    calls, orig = [], getattr(ops, op)
 
     def timed(*args, **kw):
         start = torch.cuda.Event(enable_timing=True)
@@ -1300,21 +1341,23 @@ def k7_event_ms(run) -> tuple:
         end.record()
         calls.append((start, end))
         return out
-    ops.flash_attention = timed
+    setattr(ops, op, timed)
     try:
         run()
         torch.cuda.synchronize()
     finally:
-        ops.flash_attention = orig
+        setattr(ops, op, orig)
     return len(calls), sum(s.elapsed_time(e) for s, e in calls)
 
 
-def device_breakdown(run, wall_ms: float) -> dict:
+def device_breakdown(run, wall_ms: float, kernel: tuple) -> dict:
     """Device time of one ``run`` by torch.profiler, by kind of kernel:
-    K7, matrix products (cuBLAS), and the rest, with the card's idle share
-    against ``wall_ms``, the same run's time measured without the profiler
-    (one stream: kernels do not overlap). The profiler slows the host, so
-    its own wall time is reported but not used."""
+    the hand-written one (``kernel``: its key and a piece of its name, as
+    in ``LM_PATHS``), matrix products (cuBLAS) and the rest, with the
+    count of launches and the card's idle share against ``wall_ms``, the
+    same run's time measured without the profiler (one stream: kernels do
+    not overlap). The profiler slows the host, so its own wall time is
+    reported but not used."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1324,14 +1367,15 @@ def device_breakdown(run, wall_ms: float) -> dict:
         run()
         torch.cuda.synchronize()
     profiled = (time.perf_counter() - t) * 1e3
-    kinds = {"k7": 0.0, "gemm": 0.0, "other": 0.0}
+    key, piece = kernel
+    kinds = {key: 0.0, "gemm": 0.0, "other": 0.0}
     top = []
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA or not evt.device_time_total:
             continue
         ms = evt.device_time_total / 1e3
         name = evt.key.lower()
-        kind = ("k7" if "flash_kernel" in name else
+        kind = (key if piece in name else
                 "gemm" if any(s in name for s in ("gemm", "nvjet", "xmma",
                                                   "cutlass", "cublas"))
                 else "other")
@@ -1340,30 +1384,34 @@ def device_breakdown(run, wall_ms: float) -> dict:
     busy = sum(kinds.values())
     top.sort(reverse=True)
     return {"wall_ms": wall_ms, "device_ms": busy, "by_kind_ms": kinds,
+            "kernel_launches": sum(c for _, c, _ in top),
             "idle_share": max(0.0, 1.0 - busy / wall_ms),
             "profiled_wall_ms": profiled,
             "top": [{"ms": m, "count": c, "kernel": n} for m, c, n in top[:6]]}
 
 
-def lm_path(dev, path_launches: dict) -> None:
-    """Phase 4d (module docstring): llama3-8b served at full width and
-    depth through ``make_prefill_step``/``make_decode_step``, then the
+def lm_path(dev, path_launches: dict, arch: str, op: str, key: str,
+            piece: str) -> None:
+    """Phases 4d and 4e (module docstring): ``arch`` served at full width
+    and depth through ``make_prefill_step``/``make_decode_step``, its
+    kernel ``op`` once a prefill layer and never in decode, then the
     decode logits held to a teacher-forced forward, then a 2-layer float32
-    cut held to the same model on the CPU."""
+    cut held to the same model on the CPU. The model is freed at the end,
+    before the next phase."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
-    from repro_torch.models import transformer as T
+    from repro_torch.models import model as M
     from repro_torch.training.train_step import (make_decode_step,
                                                  make_prefill_step)
-    cfg = get_config("llama3-8b")
+    cfg = get_config(arch)
     B, S, G = LM_BATCH, LM_PROMPT, LM_GEN
     max_seq = S + G
     t = time.perf_counter()
-    model = T.init_params(cfg, seed=0, device=dev)
+    model = M.init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
-    n_params = sum(p.numel() for p in model.parameters())
+    n_params = M.param_count(model)
     prompts = torch.randint(0, cfg.vocab, (B, S), device=dev,
                             dtype=torch.int32,
                             generator=torch.Generator(device=dev)
@@ -1393,101 +1441,123 @@ def lm_path(dev, path_launches: dict) -> None:
     decode_ms = (time.perf_counter() - t) * 1e3 / G
     dec = dict(_build.launches)
     peak = torch.cuda.max_memory_allocated(dev)
-    if pre["flash_attention"] != cfg.n_layers:            # (i)
-        fail(f"lm prefill: K7 launched {pre['flash_attention']} times, not "
-             f"once a layer ({cfg.n_layers})")
-    if dec["flash_attention"] != 0:
-        fail(f"lm decode: K7 launched {dec['flash_attention']} times")
+    if pre[op] != cfg.n_layers:                           # (i)
+        fail(f"{arch} prefill: {op} launched {pre[op]} times, not once a "
+             f"layer ({cfg.n_layers})")
+    if dec[op] != 0:
+        fail(f"{arch} decode: {op} launched {dec[op]} times")
     for k, c in pre.items():
         path_launches[k] += c
     if cache["len"] != max_seq:
-        fail(f"lm decode: cache len {cache['len']}, expected {max_seq}")
+        fail(f"{arch} decode: cache len {cache['len']}, expected {max_seq}")
     del cache
 
-    # (ii) the decode steps' logits against a teacher-forced forward over
-    # the prompt and the generated tokens, at the same positions
+    # the decode steps' logits against a teacher-forced forward over the
+    # prompt and the generated tokens, at the same positions
     gen = torch.stack(toks, dim=1)                         # (B, G + 1)
-    logits, cache, _ = T.prefill(model, prompts, cfg, max_seq=max_seq)
+    logits, cache, _ = M.prefill(model, prompts, cfg, max_seq=max_seq)
     del logits
     dec_logits = []
     for j in range(G):
-        lg, cache = T.decode_step(model, gen[:, j], cache, cfg)
+        lg, cache = M.decode_step(model, gen[:, j], cache, cfg)
         dec_logits.append(lg.float())
     del cache
     dec_logits = torch.stack(dec_logits, dim=1)            # (B, G, V)
-    full, _ = T.forward(model, torch.cat([prompts, gen[:, :G]], dim=1), cfg)
+    full, _ = M.forward(model, torch.cat([prompts, gen[:, :G]], dim=1), cfg)
     tf = full[:, S:].float()
     del full
     rel = float(torch.linalg.vector_norm(dec_logits - tf)
                 / torch.linalg.vector_norm(tf))
     agree = float((tf.argmax(-1) == gen[:, 1:]).float().mean())
     if not (rel <= 5e-2) or not bool(torch.isfinite(dec_logits).all()):
-        fail(f"lm decode: logits' relative L2 error {rel} against the "
+        fail(f"{arch} decode: logits' relative L2 error {rel} against the "
              f"teacher-forced forward (limit 5e-2)")
     del dec_logits, tf
 
-    k7_calls, k7_ms = k7_event_ms(
-        lambda: prefill(model, {"inputs": prompts}))
+    calls, op_ms = op_event_ms(
+        lambda: prefill(model, {"inputs": prompts}), op)
     bd_prefill = device_breakdown(lambda: prefill(model, {"inputs": prompts}),
-                                  prefill_ms)
+                                  prefill_ms, (key, piece))
     _, c1 = prefill(model, {"inputs": prompts})
     bd_decode = device_breakdown(lambda: decode(model, gen[:, 0], c1),
-                                 decode_ms)
+                                 decode_ms, (key, piece))
     del c1
     log(json.dumps({
-        "lm": "llama3-8b", "n_layers": cfg.n_layers, "params": n_params,
+        "lm": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
         "dtype": cfg.dtype, "batch": B, "prompt": S, "decode_steps": G,
         "init_s": init_s, "prefill_ms": prefill_ms,
         "decode_ms_per_token": decode_ms,
         "decode_tokens_per_s": B * 1e3 / decode_ms,
         "prefill_tokens_per_s": B * S * 1e3 / prefill_ms,
-        "max_memory_allocated": peak, "k7_launches_prefill":
-        pre["flash_attention"], "k7_launches_decode": dec["flash_attention"],
-        "k7_event_ms_in_prefill": k7_ms, "k7_event_calls": k7_calls,
+        "max_memory_allocated": peak,
+        "k7_launches_prefill": pre["flash_attention"],
+        "k7_launches_decode": dec["flash_attention"],
+        "k8_launches_prefill": pre["mamba1_scan"],
+        "k8_launches_decode": dec["mamba1_scan"],
+        f"{key}_event_ms_in_prefill": op_ms, f"{key}_event_calls": calls,
         "decode_vs_teacher_forced_rel_l2": rel,
         "teacher_forced_token_agreement": agree,
         "first_sequence": gen[0].tolist()}))
-    log(json.dumps({"lm_breakdown": "prefill", **bd_prefill}))
-    log(json.dumps({"lm_breakdown": "decode step", **bd_decode}))
+    log(json.dumps({"lm_breakdown": "prefill", "lm": cfg.name,
+                    **bd_prefill}))
+    log(json.dumps({"lm_breakdown": "decode step", "lm": cfg.name,
+                    **bd_decode}))
     del model
     torch.cuda.empty_cache()
-    lm_cut_against_cpu(dev, cfg)
+    lm_cut_against_cpu(dev, cfg, op)
 
 
-def lm_cut_against_cpu(dev, cfg) -> None:
-    """(iii): llama3-8b at full width cut to 2 layers, in float32, with the
-    same weights on the card (K7) and on the CPU (the plain versions)."""
+def _cache_tensors(cache: dict) -> dict:
+    """A serving cache's tensors by name: the ssm family's conv and ssm
+    state, the dense family's keys and values of each segment."""
+    out = {k: v for k, v in cache.items() if hasattr(v, "shape")}
+    for i, seg in enumerate(cache.get("segs", [])):
+        out.update({f"segs[{i}].{k}": v for k, v in seg.items()})
+    return out
+
+
+def lm_cut_against_cpu(dev, cfg, op: str) -> None:
+    """``cfg`` at full width cut to 2 layers, in float32, with the same
+    weights on the card (kernel ``op`` in each prefill layer) and on the
+    CPU (the plain versions): prefill logits and cache, then 8 greedy
+    decode steps, held at rtol = atol = 1e-3 with the tokens equal."""
     import copy
     import dataclasses
 
     import torch
     from repro_torch.kernels import _build
-    from repro_torch.models import transformer as T
+    from repro_torch.models import model as M
     cut = dataclasses.replace(cfg, n_layers=2, dtype="float32")
-    card = T.init_params(cut, seed=2, device=dev)
+    card = M.init_params(cut, seed=2, device=dev)
     host = copy.deepcopy(card).to("cpu")
     prompt = torch.randint(0, cut.vocab, (1, 64), dtype=torch.int32,
                            generator=torch.Generator().manual_seed(3))
     _build.reset_launches()
-    gl, gc, _ = T.prefill(card, prompt.to(dev), cut, max_seq=72)
+    gl, gc, _ = M.prefill(card, prompt.to(dev), cut, max_seq=72)
     torch.cuda.synchronize()
-    if _build.launches["flash_attention"] != 2:
-        fail(f"lm cut: K7 launched {_build.launches['flash_attention']} "
-             f"times in a 2-layer prefill")
-    hl, hc, _ = T.prefill(host, prompt, cut, max_seq=72)
-    errs = [held(gl.cpu(), hl, 1e-3, "lm cut prefill logits")]
+    if _build.launches[op] != 2:
+        fail(f"{cfg.name} cut: {op} launched {_build.launches[op]} times in "
+             f"a 2-layer prefill")
+    hl, hc, _ = M.prefill(host, prompt, cut, max_seq=72)
+    errs = [held(gl.cpu(), hl, 1e-3, f"{cfg.name} cut prefill logits")]
+    host_cache = _cache_tensors(hc)
+    errs += [held(t.cpu(), host_cache[k], 1e-3, f"{cfg.name} cut cache {k}")
+             for k, t in _cache_tensors(gc).items()]
     gt, ht = gl[:, -1].argmax(-1), hl[:, -1].argmax(-1)
     steps = []
     for j in range(8):
         if int(gt) != int(ht):
-            fail(f"lm cut: greedy token {j} differs: card {int(gt)}, CPU "
-                 f"{int(ht)}")
+            fail(f"{cfg.name} cut: greedy token {j} differs: card {int(gt)}, "
+                 f"CPU {int(ht)}")
         steps.append(int(ht))
-        gl, gc = T.decode_step(card, gt.to(torch.int32), gc, cut)
-        hl, hc = T.decode_step(host, ht.to(torch.int32), hc, cut)
-        errs.append(held(gl.cpu(), hl, 1e-3, f"lm cut decode step {j}"))
+        gl, gc = M.decode_step(card, gt.to(torch.int32), gc, cut)
+        hl, hc = M.decode_step(host, ht.to(torch.int32), hc, cut)
+        errs.append(held(gl.cpu(), hl, 1e-3,
+                         f"{cfg.name} cut decode step {j}"))
         gt, ht = gl.argmax(-1), hl.argmax(-1)
-    log(json.dumps({"lm_cut": "llama3-8b at full width, depth cut to 2 "
+    if _build.launches[op] != 2:
+        fail(f"{cfg.name} cut: a decode step launched {op}")
+    log(json.dumps({"lm_cut": f"{cfg.name} at full width, depth cut to 2 "
                     "layers, float32, card against CPU", "batch": 1,
                     "prompt": 64, "decode_steps": 8, "tokens": steps,
                     "max_abs_err": max(errs), "tolerance": 1e-3}))
@@ -2095,34 +2165,75 @@ def k7_times(dev, path_launches) -> dict:
             "h2o_danube_prefill": danube}
 
 
-def k8_times(dev, path_launches, err: float) -> dict:
-    """K8 at falcon-mamba-7b's scan width, float32: B 2, L 2048, D 8192,
-    N 16. The bound is its bytes: x, δ and y once a channel a step, B and
-    C once a row a step, A once."""
+def k8_bytes(B: int, L: int, D: int, N: int, in_size: int, y_size: int,
+             states: int) -> int:
+    """The bytes K8 must move: x and δ read and y written once a channel a
+    step, B and C once a row a step, A once, and ``states`` (B, D, N)
+    float32 tensors (h0, h_last) once."""
+    return (2 * B * L * D * in_size + B * L * D * y_size
+            + 2 * B * L * N * in_size + D * N * 4 + states * B * D * N * 4)
+
+
+def k8_times(dev, path_launches, f32_err: float) -> dict:
+    """K8 at phase 4e's shape, every prefill layer of falcon-mamba-7b at
+    B 4 × 2048: bf16 x, δ, B and C, float32 y and h_last (D 8192, N 16),
+    held to its plain version at 1e-5. Beside it the earlier row: float32
+    in and out, B 2, no state. The bound is its bytes (:func:`k8_bytes`)."""
     import torch
     from repro_torch.kernels.mamba_scan import mamba1_scan_cuda, mamba1_scan_ref
-    args = mamba_inputs(dev, "float32")
-    x = args[0]
-    B, L, D = x.shape
+    args = mamba_inputs(dev, "bfloat16", B=LM_BATCH, L=LM_PROMPT)
+    B, L, D = args[0].shape
     N = args[4].shape[1]
-    dev_ms = device_ms(lambda: mamba1_scan_cuda(*args), "scan_kernel",
+
+    def kernel():
+        return mamba1_scan_cuda(*args, return_state=True,
+                                y_dtype=torch.float32)
+
+    def plain():
+        return mamba1_scan_ref(*args, return_state=True,
+                               y_dtype=torch.float32)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = max(held(got[0], want[0], TOL["float32"], "K8 at phase 4e's shape"),
+              held(got[1], want[1], TOL["float32"],
+                   "K8 h_last at phase 4e's shape"))
+    del got, want
+    dev_ms = device_ms(kernel, "scan_kernel", reps=10)
+    call_ms = cuda_ms(kernel)
+    plain_ms = cuda_ms(plain, reps=2)
+    nbytes = k8_bytes(B, L, D, N, 2, 4, 1)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    if dev_ms < bound:
+        fail(f"K8 took {dev_ms} ms, under its bound of {bound} ms")
+    del args
+    f32 = mamba_inputs(dev, "float32")
+    fB, fL, _ = f32[0].shape
+    f32_ms = device_ms(lambda: mamba1_scan_cuda(*f32), "scan_kernel",
                        reps=10)
-    call_ms = cuda_ms(lambda: mamba1_scan_cuda(*args))
-    plain_ms = cuda_ms(lambda: mamba1_scan_ref(*args), reps=2)
-    nbytes = (3 * B * L * D + 2 * B * L * N) * 4 + D * N * 4
+    f32_call = cuda_ms(lambda: mamba1_scan_cuda(*f32))
+    f32_plain = cuda_ms(lambda: mamba1_scan_ref(*f32), reps=2)
+    f32_bytes = k8_bytes(fB, fL, D, N, 4, 4, 0)
+    del f32
+    torch.cuda.empty_cache()
     log(json.dumps({"k8": {"B": B, "L": L, "D": D, "N": N, "ms": dev_ms,
-                           "bytes": nbytes, "gb_per_s": nbytes / dev_ms / 1e6}}))
+                           "bytes": nbytes, "gb_per_s": nbytes / dev_ms / 1e6,
+                           "float32_b2_ms": f32_ms,
+                           "float32_b2_bytes": f32_bytes}}))
     return {"name": "mamba1_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
             "replaces": "src/repro/kernels/mamba_scan.py:48",
             "launches": path_launches["mamba1_scan"], "max_abs_err": err,
             "ms": dev_ms, "call_ms": call_ms, "plain_ms": plain_ms,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": None,
-            "library_note": "no PyTorch call computes a selective scan; no "
-                            "model path of the port runs K8 yet",
-            "shape": "falcon-mamba-7b scan, B 2, L 2048, D 8192, N 16, "
-                     "float32"}
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+            "library_note": "no PyTorch call computes a selective scan",
+            "shape": "falcon-mamba-7b prefill layer: B 4, L 2048, D 8192, "
+                     "N 16, bf16 in, float32 y and h_last",
+            "float32_b2": {"shape": "B 2, L 2048, D 8192, N 16, float32, "
+                                    "no state",
+                           "ms": f32_ms, "call_ms": f32_call,
+                           "plain_ms": f32_plain, "max_abs_err": f32_err,
+                           "bound_ms": f32_bytes / HBM_BYTES_PER_S * 1e3}}
+
 
 def main() -> None:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -2141,7 +2252,8 @@ def main() -> None:
     check_k7(dev)
     k8_err = check_k8(dev)
     pg, path_launches, plain_k4 = main_path(dev)
-    lm_path(dev, path_launches)
+    for arch, op, key, piece in LM_PATHS:
+        lm_path(dev, path_launches, arch, op, key, piece)
     kernels = kernel_times(dev, pg, path_launches, plain_k4)
     kernels["kernels"] += [k7_times(dev, path_launches),
                            k8_times(dev, path_launches, k8_err)]

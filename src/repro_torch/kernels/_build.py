@@ -161,8 +161,9 @@ def _declare(lib) -> None:
     lib.flash_attention_sm90_launch.argtypes = ([vp] * 4 + [i32] * 9
                                                 + [ctypes.c_float, i32, vp])
     lib.flash_attention_sm90_launch.restype = i32
-    # (x, delta, Bv, Cv, A, y, B, L, D, N, bf16, device, stream)
-    lib.mamba1_scan_launch.argtypes = [vp] * 6 + [i32] * 6 + [vp]
+    # (x, delta, Bv, Cv, A, h0 or NULL, y, h_last or NULL, B, L, D, N,
+    #  bf16, y_f32, device, stream)
+    lib.mamba1_scan_launch.argtypes = [vp] * 8 + [i32] * 7 + [vp]
     lib.mamba1_scan_launch.restype = i32
     lib.kernel_error_string.argtypes = [i32]
     lib.kernel_error_string.restype = ctypes.c_char_p

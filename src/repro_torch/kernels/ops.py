@@ -4,7 +4,8 @@ Each function runs the plain PyTorch version for a tensor on the CPU and
 its hand-written kernel for a tensor on a CUDA device; any other device
 raises. The choice follows the tensor and nothing else: there is no switch
 that picks the plain version on the card, and no fallback when the kernel
-fails.
+fails. ``batch_invariant_matmul`` is the one product whose form on the card
+(not a kernel of its own) differs from the CPU's.
 """
 from __future__ import annotations
 
@@ -75,8 +76,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def mamba1_scan(x: torch.Tensor, delta: torch.Tensor, Bv: torch.Tensor,
-                Cv: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
-    """The Mamba1 selective scan, y (B, L, D): kernel K8 or
-    ``mamba1_scan_ref``."""
+                Cv: torch.Tensor, A: torch.Tensor,
+                h0: Optional[torch.Tensor] = None, *,
+                return_state: bool = False,
+                y_dtype: Optional[torch.dtype] = None):
+    """The Mamba1 selective scan from state ``h0`` (zeros when None), y
+    (B, L, D) in x's dtype or ``y_dtype``, and with ``return_state`` the
+    final state (B, D, N) float32: kernel K8 or ``mamba1_scan_ref``."""
     return _pick(x, mamba1_scan_cuda, mamba1_scan_ref,
-                 "mamba1_scan")(x, delta, Bv, Cv, A)
+                 "mamba1_scan")(x, delta, Bv, Cv, A, h0,
+                                return_state=return_state, y_dtype=y_dtype)
+
+
+# cuBLAS (CUDA 12.8 on an H100) splits the reduction of a bf16 product over
+# K when the call has few rows: at falcon-mamba-7b's x_proj and out_proj
+# (K = 8192) below 512 and 128 rows (tools/gemm_rows.py), so a decode
+# step's rows round otherwise than the same rows of a prefill or forward.
+INVARIANT_ROWS = 512
+
+
+def batch_invariant_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w for x (..., K), each row's bits independent of how many rows
+    the call has: on the card a call of fewer than ``INVARIANT_ROWS`` rows
+    runs on that many, the rows added left unwritten (a row of the product
+    reads only its own row of x, so they never reach the rows returned,
+    and no fill is launched); on the CPU it is x @ w."""
+    flat = x.reshape(-1, x.shape[-1])
+    n = flat.shape[0]
+    if not x.is_cuda or n >= INVARIANT_ROWS:
+        return x @ w
+    rows = flat.new_empty((INVARIANT_ROWS, flat.shape[1]))
+    rows[:n] = flat
+    return (rows @ w)[:n].reshape(*x.shape[:-1], w.shape[1])

@@ -2,8 +2,12 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
         --reduced --device cpu --batch 4 --prompt-len 32 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch falcon-mamba-7b --prompt-len 2048
 
-Runs on the card unless ``--device cpu`` is given. Weights come from a
+Serves the dense family (K7 in every prefill layer) and the ssm family
+(falcon-mamba-7b; K8 in every prefill layer). Runs on the card unless
+``--device cpu`` is given. Weights come from a
 seeded ``torch.Generator`` (seed 0) on the device, prompts from seed 1.
 Prints the prefill time, the decode time per token and the first
 sequence's generated tokens.

@@ -1,14 +1,16 @@
-"""Model building blocks of the dense decoder family: RMS norm, RoPE,
-attention (prefill through kernel K7, decode as plain ops), the attention
-projections, the gated MLP and the embeddings.
+"""Model building blocks of the dense decoder and ssm families: RMS norm,
+RoPE, attention (prefill through kernel K7, decode as plain ops), the
+attention projections, the gated MLP, the embeddings and the Mamba1 (S6)
+mixer (its scan through kernel K8 for L > 1, decode as plain ops).
 
 The functions mirror the JAX package's ``models/layers.py`` and keep its
 layouts: activations (B, S, d), heads (B, S, H, dh), projections wq (d, H,
 dh) and wo (H, dh, d). Parameters are ``nn.ParameterDict``s: matrices,
 biases and embeddings are stored in the compute dtype (the JAX package
 keeps float32 and casts at every use, which gives the same bits), norm
-scales in float32, where the reference upcasts them. The MoE and Mamba
-blocks, M-RoPE and LayerNorm come with their families (ROADMAP A10).
+scales and the Mamba decays ``A_log`` and skip ``D`` in float32, where the
+reference upcasts them. The MoE and Mamba2 blocks, M-RoPE and LayerNorm
+come with their families (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.mamba_scan import scan_step
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -200,3 +203,103 @@ def unembed(x: torch.Tensor, p, cfg) -> torch.Tensor:
     """Logits in x's dtype; tied embeddings unembed by ``tok``ᵀ."""
     w = p["unembed"] if not cfg.tie_embeddings else p["tok"].T
     return x @ w
+
+
+# ---------------------------------------------------------------- Mamba1 (S6)
+
+def mamba1_params(gen: torch.Generator, cfg, dtype,
+                  device) -> nn.ParameterDict:
+    """The JAX package's ``mamba1_params`` distributions, drawn from
+    ``gen``: dt_proj_b is the inverse softplus of a log-uniform step in
+    [0.001, 0.1], A_log = log(1..N) on every channel, D ones."""
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.expand * d
+    N = s.d_state
+    dt_rank = max(d // 16, 1)
+    p = nn.ParameterDict({
+        "in_proj": _normal(gen, (d, 2 * di), d ** -0.5, dtype, device),
+        "conv_w": _normal(gen, (s.d_conv, di), s.d_conv ** -0.5, dtype,
+                          device),
+        "conv_b": _zeros((di,), dtype, device),
+        "x_proj": _normal(gen, (di, dt_rank + 2 * N), di ** -0.5, dtype,
+                          device),
+        "dt_proj_w": _normal(gen, (dt_rank, di), dt_rank ** -0.5, dtype,
+                             device),
+    })
+    u = torch.rand((di,), generator=gen, dtype=torch.float32, device=device)
+    step = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
+    p["dt_proj_b"] = _param(torch.log(torch.expm1(step)).to(dtype))
+    p["A_log"] = _param(torch.log(torch.arange(
+        1, N + 1, dtype=torch.float32, device=device)).repeat(di, 1))
+    p["D"] = _param(torch.ones((di,), dtype=torch.float32, device=device))
+    p["out_proj"] = _normal(gen, (di, d), di ** -0.5, dtype, device)
+    return p
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0) everywhere (``F.softplus``
+    returns x itself above its threshold of 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv1d as the JAX package writes it: the K shifted
+    products summed in order in x's dtype, then the bias. x: (B, L, C);
+    w: (K, C); state: (B, K-1, C), the context carried across calls
+    (decode). Returns (y, new state)."""
+    K = w.shape[0]
+    if state is None:
+        state = x.new_zeros((x.shape[0], K - 1, x.shape[2]))
+    xp = torch.cat([state, x], dim=1)
+    L = x.shape[1]
+    y = xp[:, 0:L] * w[0].to(x.dtype)
+    for i in range(1, K):
+        y = y + xp[:, i:i + L] * w[i].to(x.dtype)
+    return y + b.to(x.dtype), xp[:, -(K - 1):] if K > 1 else state
+
+
+def mamba1_mixer(x: torch.Tensor, p, cfg, state: Optional[dict] = None):
+    """Selective SSM (S6). x: (B, L, d); state: None (prefill, forward) or
+    dict(conv (B, K-1, di), ssm (B, di, N) float32) to continue from.
+    Returns (y (B, L, d), dict(conv, ssm) after the last step).
+
+    The JAX package's casts: projections, conv, softplus in x's dtype;
+    A = -exp(A_log) float32; the scan's y float32 until ``+ xc·D``. For
+    L > 1 the scan is one call of ``ops.mamba1_scan`` (K8 on the card) from
+    ``state["ssm"]``. For L == 1 (decode) it is the reference's one
+    recurrence step as plain ops, ``mamba_scan.scan_step``, in float32 as
+    K8 forms it (the reference rounds δ·x·B to x's dtype there). x_proj
+    and out_proj go through ``ops.batch_invariant_matmul``, so that a
+    decode step's rows round as the same rows of a prefill or forward do.
+    """
+    s = cfg.ssm
+    B, L, _ = x.shape
+    N = s.d_state
+    xin, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    xc, conv_state = _causal_conv(xin, p["conv_w"], p["conv_b"],
+                                  None if state is None else state["conv"])
+    xc = F.silu(xc)
+    dt_rank = p["dt_proj_w"].shape[0]
+    dt, Bs, Cs = ops.batch_invariant_matmul(xc, p["x_proj"]).split(
+        [dt_rank, N, N], dim=-1)
+    delta = softplus(dt @ p["dt_proj_w"] + p["dt_proj_b"])   # (B, L, di)
+    A = -torch.exp(p["A_log"].float())                         # (di, N)
+    h_prev = None if state is None else state["ssm"]
+    if L == 1:              # decode: one recurrence step, no scan
+        if h_prev is None:
+            h_prev = torch.zeros((B, A.shape[0], N), dtype=torch.float32,
+                                 device=x.device)
+        h_last, y = scan_step(h_prev, delta[:, 0].float(), xc[:, 0].float(),
+                              Bs[:, 0].float(), Cs[:, 0].float(), A)
+        y = y[:, None]
+    else:
+        y, h_last = ops.mamba1_scan(xc, delta, Bs.contiguous(),
+                                    Cs.contiguous(), A, h_prev,
+                                    return_state=True, y_dtype=torch.float32)
+    y = (y + xc * p["D"].float()).to(x.dtype)
+    y = y * F.silu(z)
+    return (ops.batch_invariant_matmul(y, p["out_proj"]),
+            {"conv": conv_state, "ssm": h_last})

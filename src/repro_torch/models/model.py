@@ -6,27 +6,29 @@
     decode_step(params, token, cache, cfg)    (logits, cache)
     init_cache(cfg, batch, max_seq)           decode cache
 
-The dense family runs on ``models.transformer``; every other family
-raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+The dense family runs on ``models.transformer`` (K7 in every prefill
+layer), the ssm family (falcon-mamba) on ``models.ssm`` (K8 in every
+prefill layer); every other family raises ``NotImplementedError`` naming
+the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import ssm, transformer
 
+_FAMILIES = {"dense": transformer, "ssm": ssm}
 _LATER = {
     "moe": "the MoE family (mailbox-dispatch experts) is ROADMAP A10",
     "vlm": "the VLM family (M-RoPE, embedding inputs) is ROADMAP A10",
-    "ssm": "the ssm family (mamba1_mixer over K8) is ROADMAP A10",
     "hybrid": "the hybrid family (Mamba2 + shared attention) is ROADMAP A10",
     "encdec": "the encoder-decoder family is ROADMAP A10",
 }
 
 
 def _mod(cfg):
-    if cfg.family == "dense":
-        return transformer
+    if cfg.family in _FAMILIES:
+        return _FAMILIES[cfg.family]
     reason = _LATER.get(cfg.family, f"unknown family {cfg.family!r}")
     raise NotImplementedError(f"{cfg.name}: not ported yet; {reason}")
 

@@ -525,6 +525,90 @@ def test_k8_mamba_scan_matches_plain(cuda_device, B, L, D, N, dtype):
                          torch.zeros((D, 17), device=cuda_device))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,D,N", [(2, 64, 96, 16), (3, 131, 70, 8)])
+def test_k8_from_a_state_matches_plain(cuda_device, B, L, D, N, dtype):
+    """The ssm path's call form: a nonzero h0, ``return_state`` and a
+    float32 y (and y in the inputs' dtype), at L one chunk of 64 steps and
+    at L not a multiple of it."""
+    from repro_torch.kernels.mamba_scan import mamba1_scan_cuda, mamba1_scan_ref
+    gen = torch.Generator(device=cuda_device).manual_seed(L + D)
+    x = torch.randn((B, L, D), generator=gen, device=cuda_device) * 0.5
+    dt = torch.rand((B, L, D), generator=gen, device=cuda_device) * 0.5 + 0.01
+    bv = torch.randn((B, L, N), generator=gen, device=cuda_device)
+    cv = torch.randn((B, L, N), generator=gen, device=cuda_device)
+    a = -(torch.rand((D, N), generator=gen, device=cuda_device) * 1.5 + 0.5)
+    h0 = torch.randn((B, D, N), generator=gen, device=cuda_device)
+    x, dt, bv, cv = (t.to(dtype) for t in (x, dt, bv, cv))
+    before = _build.launches["mamba1_scan"]
+    y, h = mamba1_scan_cuda(x, dt, bv, cv, a, h0, return_state=True,
+                            y_dtype=torch.float32)
+    wy, wh = mamba1_scan_ref(x, dt, bv, cv, a, h0, return_state=True,
+                             y_dtype=torch.float32)
+    yn = mamba1_scan_cuda(x, dt, bv, cv, a, h0)
+    torch.cuda.synchronize()
+    assert _build.launches["mamba1_scan"] == before + 2
+    assert y.dtype == h.dtype == torch.float32 and yn.dtype == dtype
+    # the same float32 recurrence, K8's with fused multiply-adds; y in the
+    # inputs' dtype is K8's float32 y rounded once
+    for got, want in ((y, wy), (h, wh)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    assert torch.equal(yn, y.to(dtype))
+
+
+@pytest.mark.parametrize("K,N", [(8192, 288), (8192, 4096)])
+def test_ssm_deep_projections_are_row_count_invariant(cuda_device, K, N):
+    """falcon-mamba-7b's x_proj and out_proj shapes: a call of a few rows
+    through ``ops.batch_invariant_matmul`` gives the bits of the same rows
+    in a call of 8,320 (which is what lets a decode step reproduce the
+    teacher-forced forward)."""
+    from repro_torch.kernels.ops import batch_invariant_matmul
+    gen = torch.Generator(device=cuda_device).manual_seed(N)
+    w = (torch.randn((K, N), generator=gen, device=cuda_device)
+         * K ** -0.5).bfloat16()
+    a = torch.randn((8320, K), generator=gen, device=cuda_device).bfloat16()
+    ref = a @ w
+    for m in (1, 4, 32, 511, 512):
+        assert torch.equal(batch_invariant_matmul(a[:m], w), ref[:m]), m
+    got = batch_invariant_matmul(a[:8].reshape(4, 2, K), w)
+    assert torch.equal(got, ref[:8].reshape(4, 2, N))
+
+
+def test_ssm_serving_on_the_card_matches_the_cpu(cuda_device):
+    """Reduced falcon-mamba-7b with the same weights on the card (K8 in
+    every prefill layer) and on the CPU (K8's plain version): prefill
+    logits and both cache tensors, then 4 decode steps (no K8)."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as S
+    cfg = get_config("falcon-mamba-7b").reduced()
+    model = S.init_params(cfg, seed=0, device=cuda_device)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 12),
+                         generator=torch.Generator().manual_seed(0))
+    _build.reset_launches()
+    gl, gc, _ = S.prefill(model, toks.to(cuda_device), cfg)
+    torch.cuda.synchronize()
+    assert _build.launches["mamba1_scan"] == cfg.n_layers
+    wl, wc, _ = S.prefill(cpu_model, toks, cfg)
+    np.testing.assert_allclose(gl.cpu().numpy(), wl.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    for key in ("conv", "ssm"):
+        np.testing.assert_allclose(gc[key].cpu().numpy(), wc[key].numpy(),
+                                   rtol=1e-4, atol=1e-4)
+    tok = torch.argmax(wl[:, -1], -1)
+    for _ in range(4):
+        gl, gc = S.decode_step(model, tok.to(cuda_device), gc, cfg)
+        wl, wc = S.decode_step(cpu_model, tok, wc, cfg)
+        np.testing.assert_allclose(gl.cpu().numpy(), wl.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+        tok = torch.argmax(wl, -1)
+    assert gc["len"] == wc["len"] == 16
+    assert _build.launches["mamba1_scan"] == cfg.n_layers
+
+
 @pytest.mark.parametrize("arch", ["llama3-8b", "gemma3-4b",
                                   "h2o-danube-1.8b"])
 def test_lm_serving_on_the_card_matches_the_cpu(cuda_device, arch):

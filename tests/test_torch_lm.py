@@ -163,7 +163,7 @@ def test_dispatcher_serves_dense_and_init_is_seeded():
 
 
 @pytest.mark.parametrize("name", sorted(n for n, c in ARCHS.items()
-                                        if c.family != "dense"))
+                                        if c.family not in ("dense", "ssm")))
 def test_other_families_raise(name):
     cfg = get_config(name).reduced()
     with pytest.raises(NotImplementedError, match="A10"):

@@ -30,7 +30,7 @@ failure exits non-zero and prints no result:
    falcon-mamba-7b's scan width
    (B 2, L 2048, D 8192, N 16) in float32 and bfloat16, and in the ssm
    path's call form (bf16 inputs, a nonzero initial state, float32 y and
-   the final state, both held at 1e-5);
+   the final state, both bit-equal to the plain version);
 4. the paths at full size, on road_grid(1400, 1400) — 1.96M vertices, the
    vertex count of the paper's RN graph — in 12 partitions; one JSON line
    per run, each run after a warm-up call with the launch counts set to 0
@@ -104,8 +104,12 @@ failure exits non-zero and prints no result:
    ``library_batch_ms``: 20 back-to-back calls of K7 and of its library
    call timed by CUDA events, in turns, without the profiler. K8's row is
    at phase 4e's shape (B 4, L 2048, bf16 in, float32 y and the final
-   state), its bound the bytes it must move; the float32 row at B 2 with
-   no state stands beside it, comparable with earlier runs.
+   state), bit-equal to the plain version; its bound is the largest of its
+   exps over the SFU's rate (16 a clock an SM), its FLOP and its bytes
+   (``k8_bound``; the run fails if K8 beats it), and a ``k8`` line gives
+   the three, the share, the exps a second and the kernel's layout. The
+   float32 row at B 2 with no state stands beside it, comparable with
+   earlier runs.
 
 Min/max results are held bit-equal; plus_times allclose (rtol=1e-6,
 atol=1e-7 on the random ELL, whose values are O(1); rtol=1e-5, atol=0 at
@@ -113,7 +117,9 @@ PageRank's pull, whose values are O(1/n), and for phased PageRank against
 dense); K4/K5/K6 outputs bit-equal; BlockRank rtol=1e-4, atol=0 against
 its CPU run; K7 and K8 allclose at rtol = atol = 1e-5 in float32 and
 1e-2 in bfloat16 (K8 computes in float32 and rounds once; K7's bf16
-instantiation also rounds p to bf16 before p·V). K7's bound is
+instantiation also rounds p to bf16 before p·V), and K8 in the ssm path's
+call form bit-equal (``torch.equal``: every product and sum rounded on its
+own, Σ_n in torch's order). K7's bound is
 the visible pairs' FLOP at the bf16 tensor peak or its bytes at the HBM
 rate, whichever is larger; its library call is
 ``F.scaled_dot_product_attention``. The last line is ``{"ok": true,
@@ -131,6 +137,12 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+                                # (132 SMs · 128 lanes · 2 · 1.98 GHz)
+SM_COUNT = 132                  # H100 SXM, NVIDIA's data sheet
+SM_CLOCK_HZ = 1.98e9            # H100 SXM boost clock, NVIDIA's data sheet
+SFU_EXPS_PER_CLOCK = 16         # exp2 (MUFU.EX2) results a clock an SM on
+                                # compute capability 9.0, CUDA C++
+                                # Programming Guide, arithmetic throughput
 SEMIRINGS = ("min_plus", "max_first", "plus_times")
 TOL_STEPS = 40                  # where phase 4b's tol PageRank must halt
 HANDOFF = 3                     # K3 supersteps before K4 in phase 4c (ii)
@@ -715,9 +727,10 @@ def mamba_inputs(dev, dtype, B=2, L=2048, D=8192, N=16):
 def check_k8(dev) -> float:
     """K8 against its plain version at falcon-mamba-7b's scan width in the
     Pallas kernel's contract (float32 and bf16, h from 0, y in the inputs'
-    dtype), then in the ssm path's call form: bf16 inputs, a nonzero h0,
-    float32 y and the final state, both held at float32's 1e-5 (the same
-    float32 recurrence on the same inputs). Returns the float32 error."""
+    dtype; allclose at ``TOL``), then in the ssm path's call form: bf16
+    inputs, a nonzero h0, float32 y and the final state, both bit-equal to
+    the plain version (the same float32 ops in the same order). Returns
+    the float32 error."""
     import torch
     from repro_torch.kernels.mamba_scan import mamba1_scan_cuda, mamba1_scan_ref
     errs = []
@@ -740,11 +753,26 @@ def check_k8(dev) -> float:
     torch.cuda.synchronize()
     if got[0].dtype != torch.float32:
         fail(f"K8 path form: y is {got[0].dtype}, not float32")
-    err_y = held(got[0], want[0], TOL["float32"], "K8 path form y")
-    err_h = held(got[1], want[1], TOL["float32"], "K8 path form h_last")
+    err_y = bitwise(got[0], want[0], "K8 path form y")
+    err_h = bitwise(got[1], want[1], "K8 path form h_last")
     log(f"K8 mamba1_scan {tuple(args[0].shape)} bf16 in, h0, float32 y and "
-        f"h_last agree (max_abs_err y {err_y}, h_last {err_h})")
+        f"h_last bit-equal to the plain version (max_abs_err y {err_y}, "
+        f"h_last {err_h})")
     return errs[0]
+
+
+def bitwise(got, want, what: str) -> float:
+    """Hold a kernel's output bit-equal (``torch.equal``) to its plain
+    version; returns the max absolute error (0.0)."""
+    import torch
+    if tuple(got.shape) != tuple(want.shape) or got.dtype != want.dtype:
+        fail(f"{what}: {got.dtype} {tuple(got.shape)}, expected "
+             f"{want.dtype} {tuple(want.shape)}")
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        fail(f"{what}: {bad} entries differ from the plain version (max abs "
+             f"err {float((got.float() - want.float()).abs().max())})")
+    return float((got.float() - want.float()).abs().max())
 
 # ---------------- phase 4: the main path ----------------
 
@@ -2174,11 +2202,51 @@ def k8_bytes(B: int, L: int, D: int, N: int, in_size: int, y_size: int,
             + 2 * B * L * N * in_size + D * N * 4 + states * B * D * N * 4)
 
 
+def sm_clock_hz() -> float:
+    """The SM clock the bounds use: the data sheet's ``SM_CLOCK_HZ``, or
+    the card's maximum SM clock by nvidia-smi where that is lower."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    try:
+        return min(SM_CLOCK_HZ,
+                   float(smi.stdout.strip().splitlines()[0]) * 1e6)
+    except (IndexError, ValueError):
+        return SM_CLOCK_HZ
+
+
+def k8_ops(B: int, L: int, D: int, N: int) -> tuple:
+    """K8's operations: (exps, FLOP). One exp(δ·A[d, n]) a (b, l, d, n);
+    6 FLOP a (b, l, d, n) (δ·a, da·h, dx·B, their sum, h·C and its add
+    into y) and 1 a (b, l, d) (δ·x)."""
+    return B * L * D * N, 6 * B * L * D * N + B * L * D
+
+
+def k8_bound(B: int, L: int, D: int, N: int, nbytes: int,
+             clock_hz: float) -> dict:
+    """K8's bound: the largest of its exps over the SFU's rate, its FLOP
+    over ``FP32_OPS_PER_S`` and its bytes over ``HBM_BYTES_PER_S``, in ms,
+    with the three beside it and what sets it."""
+    exps, flop = k8_ops(B, L, D, N)
+    ms = {"exps": exps / (SFU_EXPS_PER_CLOCK * SM_COUNT * clock_hz) * 1e3,
+          "operations": flop / FP32_OPS_PER_S * 1e3,
+          "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    by = max(ms, key=ms.get)
+    return {"bound_ms": ms[by],
+            "bound_by": "bytes" if by == "bytes" else "operations",
+            "bound_set_by": by, "bound_exps_ms": ms["exps"],
+            "bound_flop_ms": ms["operations"], "bound_bytes_ms": ms["bytes"],
+            "exps": exps, "flop": flop, "bytes": nbytes,
+            "sm_clock_hz": clock_hz}
+
+
 def k8_times(dev, path_launches, f32_err: float) -> dict:
     """K8 at phase 4e's shape, every prefill layer of falcon-mamba-7b at
     B 4 × 2048: bf16 x, δ, B and C, float32 y and h_last (D 8192, N 16),
-    held to its plain version at 1e-5. Beside it the earlier row: float32
-    in and out, B 2, no state. The bound is its bytes (:func:`k8_bytes`)."""
+    bit-equal to its plain version. Beside it the earlier row: float32 in
+    and out, B 2, no state, held at 1e-5. The bound is the largest of its
+    exps, FLOP and bytes (:func:`k8_bound`)."""
     import torch
     from repro_torch.kernels.mamba_scan import mamba1_scan_cuda, mamba1_scan_ref
     args = mamba_inputs(dev, "bfloat16", B=LM_BATCH, L=LM_PROMPT)
@@ -2194,17 +2262,17 @@ def k8_times(dev, path_launches, f32_err: float) -> dict:
                                y_dtype=torch.float32)
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    err = max(held(got[0], want[0], TOL["float32"], "K8 at phase 4e's shape"),
-              held(got[1], want[1], TOL["float32"],
-                   "K8 h_last at phase 4e's shape"))
+    err = max(bitwise(got[0], want[0], "K8 at phase 4e's shape"),
+              bitwise(got[1], want[1], "K8 h_last at phase 4e's shape"))
     del got, want
     dev_ms = device_ms(kernel, "scan_kernel", reps=10)
     call_ms = cuda_ms(kernel)
     plain_ms = cuda_ms(plain, reps=2)
-    nbytes = k8_bytes(B, L, D, N, 2, 4, 1)
-    bound = nbytes / HBM_BYTES_PER_S * 1e3
-    if dev_ms < bound:
-        fail(f"K8 took {dev_ms} ms, under its bound of {bound} ms")
+    clock = sm_clock_hz()
+    bound = k8_bound(B, L, D, N, k8_bytes(B, L, D, N, 2, 4, 1), clock)
+    if dev_ms < bound["bound_ms"]:
+        fail(f"K8 took {dev_ms} ms, under its bound of {bound['bound_ms']} "
+             f"ms ({bound['bound_set_by']})")
     del args
     f32 = mamba_inputs(dev, "float32")
     fB, fL, _ = f32[0].shape
@@ -2212,19 +2280,31 @@ def k8_times(dev, path_launches, f32_err: float) -> dict:
                        reps=10)
     f32_call = cuda_ms(lambda: mamba1_scan_cuda(*f32))
     f32_plain = cuda_ms(lambda: mamba1_scan_ref(*f32), reps=2)
-    f32_bytes = k8_bytes(fB, fL, D, N, 4, 4, 0)
+    f32_bound = k8_bound(fB, fL, D, N, k8_bytes(fB, fL, D, N, 4, 4, 0), clock)
+    if f32_ms < f32_bound["bound_ms"]:
+        fail(f"K8 float32 B 2 took {f32_ms} ms, under its bound of "
+             f"{f32_bound['bound_ms']} ms")
     del f32
     torch.cuda.empty_cache()
+    from repro_torch.kernels.mamba_scan import k8_layout
     log(json.dumps({"k8": {"B": B, "L": L, "D": D, "N": N, "ms": dev_ms,
-                           "bytes": nbytes, "gb_per_s": nbytes / dev_ms / 1e6,
+                           "max_abs_err": err, "layout": k8_layout(),
+                           **bound,
+                           "share_of_bound": bound["bound_ms"] / dev_ms,
+                           "exps_per_s": bound["exps"] / dev_ms * 1e3,
+                           "gb_per_s": bound["bytes"] / dev_ms / 1e6,
                            "float32_b2_ms": f32_ms,
-                           "float32_b2_bytes": f32_bytes}}))
+                           "float32_b2_share": f32_bound["bound_ms"] / f32_ms,
+                           "float32_b2_bytes": f32_bound["bytes"]}}))
     return {"name": "mamba1_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
             "replaces": "src/repro/kernels/mamba_scan.py:48",
             "launches": path_launches["mamba1_scan"], "max_abs_err": err,
             "ms": dev_ms, "call_ms": call_ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+            **{k: bound[k] for k in ("bound_ms", "bound_by", "bound_set_by",
+                                     "bound_exps_ms", "bound_flop_ms",
+                                     "bound_bytes_ms")},
+            "library_ms": None,
             "library_note": "no PyTorch call computes a selective scan",
             "shape": "falcon-mamba-7b prefill layer: B 4, L 2048, D 8192, "
                      "N 16, bf16 in, float32 y and h_last",
@@ -2232,7 +2312,10 @@ def k8_times(dev, path_launches, f32_err: float) -> dict:
                                     "no state",
                            "ms": f32_ms, "call_ms": f32_call,
                            "plain_ms": f32_plain, "max_abs_err": f32_err,
-                           "bound_ms": f32_bytes / HBM_BYTES_PER_S * 1e3}}
+                           **{k: f32_bound[k] for k in (
+                               "bound_ms", "bound_by", "bound_set_by",
+                               "bound_exps_ms", "bound_flop_ms",
+                               "bound_bytes_ms")}}}
 
 
 def main() -> None:

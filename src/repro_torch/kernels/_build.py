@@ -165,6 +165,9 @@ def _declare(lib) -> None:
     #  bf16, y_f32, device, stream)
     lib.mamba1_scan_launch.argtypes = [vp] * 8 + [i32] * 7 + [vp]
     lib.mamba1_scan_launch.restype = i32
+    # (out[6]: lanes, channels, steps, stages, unroll, fused)
+    lib.mamba1_scan_layout.argtypes = [ip]
+    lib.mamba1_scan_layout.restype = None
     lib.kernel_error_string.argtypes = [i32]
     lib.kernel_error_string.restype = ctypes.c_char_p
 

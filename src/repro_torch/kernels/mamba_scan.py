@@ -17,11 +17,16 @@ kernel's contract.
 
 ``scan_step`` is one step of the recurrence in float32: the plain scan
 loops over it, and the mixer's decode step (plain ops, no K8) is one call
-of it. K8 fuses its multiply-adds, so its bits differ from these in the
-last place.
+of it. On the card K8's bits equal the plain version's: it rounds every
+product and sum on its own, as these plain ops do, and sums over the
+states as the pairwise tree that torch's ``sum(-1)`` over 16 takes there
+(``csrc/mamba_scan.cu`` names where bits are easily lost). So a decode
+step continues a prefill's state bit for bit. On the CPU torch sums in
+another order, which the tests hold at float32's tolerance.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -94,6 +99,16 @@ def mamba1_scan_ref(x: torch.Tensor, delta: torch.Tensor, Bv: torch.Tensor,
     if return_state:
         return y, h
     return y
+
+
+def k8_layout() -> dict:
+    """The layout K8 was built with (``csrc/mamba_scan.cu``): lanes a
+    channel, channels a block, steps a chunk, raw chunks in the ring, steps
+    unrolled, and ``fused``: 1 if h's update is one fmaf."""
+    out = (ctypes.c_int * 6)()
+    _build.library().mamba1_scan_layout(out)
+    return dict(zip(("lanes", "channels", "steps", "stages", "unroll",
+                     "fused"), out))
 
 
 def mamba1_scan_cuda(x: torch.Tensor, delta: torch.Tensor, Bv: torch.Tensor,

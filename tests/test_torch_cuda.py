@@ -549,12 +549,55 @@ def test_k8_from_a_state_matches_plain(cuda_device, B, L, D, N, dtype):
     torch.cuda.synchronize()
     assert _build.launches["mamba1_scan"] == before + 2
     assert y.dtype == h.dtype == torch.float32 and yn.dtype == dtype
-    # the same float32 recurrence, K8's with fused multiply-adds; y in the
+    # the same float32 recurrence, each product and sum rounded on its own
+    # in both (test_k8_lanes_match_plain_bitwise holds the bits); y in the
     # inputs' dtype is K8's float32 y rounded once
     for got, want in ((y, wy), (h, wh)):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    rtol=1e-5, atol=1e-5)
     assert torch.equal(yn, y.to(dtype))
+
+
+@pytest.mark.parametrize("L_at", ["1", "chunk-1", "chunk", "chunk+1", "2049"])
+@pytest.mark.parametrize("N", [1, 5, 8, 16])
+def test_k8_lanes_match_plain_bitwise(cuda_device, N, L_at):
+    """K8's y and final state equal the plain version's bit for bit: every
+    state count it pads (N 1, 5, 8) or fills (16), L at the edges of its
+    chunk of steps, D not a multiple of a block's channels (aligned rows
+    staged by cp.async, odd rows by plain loads), B 1 and 4, from h = 0 and
+    from a given h0, y in float32 and in the inputs' dtype, float32 and
+    bf16 inputs."""
+    from repro_torch.kernels.mamba_scan import (k8_layout, mamba1_scan_cuda,
+                                                mamba1_scan_ref)
+    lay = k8_layout()
+    chunk, ch = lay["steps"], lay["channels"]
+    L = {"1": 1, "chunk-1": chunk - 1, "chunk": chunk, "chunk+1": chunk + 1,
+         "2049": 2049}[L_at]
+    B = 4 if N in (5, 16) else 1
+    D = ch + 24 if L_at in ("1", "chunk", "2049") else 2 * ch + 5
+    assert D % ch
+    gen = torch.Generator(device=cuda_device).manual_seed(N * 10000 + L)
+    x = torch.randn((B, L, D), generator=gen, device=cuda_device) * 0.5
+    dt = torch.rand((B, L, D), generator=gen, device=cuda_device) * 0.5 + 0.01
+    bv = torch.randn((B, L, N), generator=gen, device=cuda_device)
+    cv = torch.randn((B, L, N), generator=gen, device=cuda_device)
+    a = -(torch.rand((D, N), generator=gen, device=cuda_device) * 1.5 + 0.5)
+    h0 = torch.randn((B, D, N), generator=gen, device=cuda_device)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = tuple(t.to(dtype) for t in (x, dt, bv, cv)) + (a,)
+        for state in (None, h0):
+            y, h = mamba1_scan_cuda(*args, state, return_state=True,
+                                    y_dtype=torch.float32)
+            wy, wh = mamba1_scan_ref(*args, state, return_state=True,
+                                     y_dtype=torch.float32)
+            yn = mamba1_scan_cuda(*args, state)
+            wyn = mamba1_scan_ref(*args, state)
+            torch.cuda.synchronize()
+            what = (dtype, state is not None, B, L, D, N)
+            assert y.dtype == torch.float32 and yn.dtype == dtype, what
+            assert torch.equal(y, wy), what
+            assert torch.equal(h, wh), what
+            assert torch.equal(yn, wyn), what
 
 
 @pytest.mark.parametrize("K,N", [(8192, 288), (8192, 4096)])

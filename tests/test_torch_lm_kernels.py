@@ -90,7 +90,9 @@ def test_k7_dispatch_and_dtype():
 
 
 @pytest.mark.parametrize("B,L_,D,N", [(2, 16, 8, 4), (1, 24, 16, 8),
-                                      (2, 10, 12, 4), (1, 70, 20, 16)])
+                                      (2, 10, 12, 4), (1, 70, 20, 16),
+                                      (2, 9, 8, 1), (1, 12, 10, 5),
+                                      (2, 1, 8, 16)])
 def test_k8_plain_matches_pallas_and_oracle(B, L_, D, N):
     rng = np.random.default_rng(B * 100 + L_)
     x = rng.standard_normal((B, L_, D)).astype(np.float32) * 0.5

@@ -1,19 +1,19 @@
 """What the ssm decode's two exactness measures cost and buy on the card:
 the padded products (``ops.batch_invariant_matmul`` on x_proj and
-out_proj) and K8's arithmetic (each product and sum rounded on its own,
-Σ_n as a pairwise tree, against the fused multiply-adds and running sum of
-the kernel before them).
+out_proj) and K8's arithmetic (shipped: each product and sum rounded on
+its own, Σ_n as the pairwise tree; fused: h's update as one fmaf, the same
+tree).
 
-The other arithmetic is built from ``csrc/mamba_scan.cu`` with the step's
-body swapped (``BODIES``: whichever of the two the source holds, the tool
-builds the other) into a library of its own under ``build/``, and stands
-in for the shipped kernel by replacing ``mamba1_scan_launch`` in the
-loaded library. Then, in one process:
+The fused arithmetic is ``csrc/mamba_scan.cu`` built with
+``-DK8_FUSED=1`` into a library of its own under ``build/``
+(``k8_layouts.build_variants``), and stands in for the shipped kernel by
+replacing ``mamba1_scan_launch`` in the loaded library
+(``k8_layouts.use``). Then, in one process:
 
 1. K8 at ``chip_smoke.py`` phase 4e's shape (B 4, L 2048, D 8192, N 16,
    bf16 in, float32 y and h_last) and at the float32 B 2 shape, device time
-   by the profiler, read shipped, other, other, shipped, each held to the
-   plain version;
+   by the profiler, read rounded, fused, fused, rounded, the rounded held
+   bit-equal to the plain version and the fused at 1e-5;
 2. falcon-mamba-7b at full width and depth (seed 0, prompts from seed 1,
    B 4 × 2048, 32 greedy decode steps): phase 4e's check (iii), the decode
    logits against a teacher-forced forward, for products padded or plain
@@ -32,7 +32,6 @@ Prints one JSON line a reading and the card's name and power limit; exits
 
     python3 tools/ssm_decode_ab.py
 """
-import ctypes
 import json
 import subprocess
 import sys
@@ -44,85 +43,24 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 import chip_smoke as cs  # noqa: E402
 
+from k8_layouts import Variant, build_variants  # noqa: E402
+from k8_layouts import use as use_variant  # noqa: E402
+
 ROUNDS = 8
 
-# the step's body in each arithmetic, as csrc/mamba_scan.cu writes it
-BODIES = {
-    "rounded": """\
-      const float dx = __fmul_rn(dtv, xs[l][threadIdx.x]);
-      float p[kMaxN];
-#pragma unroll
-      for (int n = 0; n < kMaxN; ++n) {
-        if (n < N) {
-          const float da = expf(__fmul_rn(dtv, a[n]));
-          h[n] = __fadd_rn(__fmul_rn(da, h[n]), __fmul_rn(dx, bs[l][n]));
-          p[n] = __fmul_rn(h[n], cs[l][n]);
-        } else {
-          p[n] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int w = kMaxN / 2; w >= 1; w /= 2) {
-#pragma unroll
-        for (int n = 0; n < w; ++n) p[n] = __fadd_rn(p[n], p[n + w]);
-      }
-      store(y + (row0 + l0 + l) * D + d, p[0]);
-""",
-    "fused": """\
-      const float dx = dtv * xs[l][threadIdx.x];
-      float acc = 0.f;
-#pragma unroll
-      for (int n = 0; n < kMaxN; ++n) {
-        if (n < N) {
-          const float da = expf(dtv * a[n]);
-          h[n] = da * h[n] + dx * bs[l][n];
-          acc += h[n] * cs[l][n];
-        }
-      }
-      store(y + (row0 + l0 + l) * D + d, acc);
-""",
-}
 
-
-def other_library():
-    """(shipped arithmetic's name, other's name, the other's
-    ``mamba1_scan_launch``), built from the shipped source."""
+def fused_variant():
+    """K8 with the fused arithmetic, built from the shipped source (the
+    shipped one is held bit-equal to the plain version, so a source built
+    fused by default fails there)."""
     from repro_torch.kernels import _build
-    src = (_build.CSRC / "mamba_scan.cu").read_text()
-    shipped = [k for k, body in BODIES.items() if body in src]
-    if len(shipped) != 1:
-        raise RuntimeError("csrc/mamba_scan.cu holds neither step body of "
-                           "tools/ssm_decode_ab.py")
-    other = "fused" if shipped[0] == "rounded" else "rounded"
-    out = _build.BUILD_ROOT / "ssm_decode_ab"
-    out.mkdir(parents=True, exist_ok=True)
-    cu, so = out / f"mamba_scan_{other}.cu", out / f"mamba_scan_{other}.so"
-    cu.write_text(src.replace(BODIES[shipped[0]], BODIES[other]))
-    subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, *_build.NVCC_FLAGS,
-                    "-shared", str(cu), "-o", str(so)], check=True)
-    lib = ctypes.CDLL(str(so))
-    fn = lib.mamba1_scan_launch
-    fn.argtypes = _build.library().mamba1_scan_launch.argtypes
-    fn.restype = ctypes.c_int
-    fn.keep = lib
-    return shipped[0], other, fn
+    v = Variant("fused", _build.CSRC / "mamba_scan.cu", {"K8_FUSED": 1})
+    build_variants([v], sass=False)
+    return v
 
 
-class Swapped:
-    """The loaded kernel library with K8's launch replaced."""
-
-    def __init__(self, lib, launch):
-        self._lib, self.mamba1_scan_launch = lib, launch
-
-    def __getattr__(self, name):
-        return getattr(self._lib, name)
-
-
-def use(arith: str, shipped: str, other_fn) -> None:
-    from repro_torch.kernels import _build
-    lib = _build.library()
-    lib = lib._lib if isinstance(lib, Swapped) else lib
-    _build._lib = lib if arith == shipped else Swapped(lib, other_fn)
+def use(arith: str, fused) -> None:
+    use_variant(fused if arith == "fused" else None)
 
 
 def zero_rows(x, w):
@@ -180,7 +118,7 @@ def host_readings(dev, forms, card) -> None:
         cs.log(json.dumps(row))
 
 
-def k8_readings(dev, shipped, other, other_fn) -> None:
+def k8_readings(dev, fused) -> None:
     import torch
     from repro_torch.kernels.mamba_scan import (mamba1_scan_cuda,
                                                 mamba1_scan_ref)
@@ -192,20 +130,22 @@ def k8_readings(dev, shipped, other, other_fn) -> None:
             if kw["dtype"] == "bfloat16" else {}
         want = mamba1_scan_ref(*args, **call)
         want = want if isinstance(want, tuple) else (want,)
-        row = {"k8_ab": shape, "order": [shipped, other, other, shipped],
+        row = {"k8_ab": shape, "order": ["rounded", "fused", "fused",
+                                         "rounded"],
                "ms": [], "max_abs_err": {}}
         for arith in row["order"]:
-            use(arith, shipped, other_fn)
+            use(arith, fused)
             got = mamba1_scan_cuda(*args, **call)
             got = got if isinstance(got, tuple) else (got,)
             torch.cuda.synchronize()
             row["max_abs_err"][arith] = max(
-                cs.held(g, w, cs.TOL["float32"], f"K8 {arith} {shape}")
+                cs.bitwise(g, w, f"K8 {arith} {shape}") if arith == "rounded"
+                else cs.held(g, w, cs.TOL["float32"], f"K8 {arith} {shape}")
                 for g, w in zip(got, want))
             row["ms"].append(cs.device_ms(
                 lambda: mamba1_scan_cuda(*args, **call), "scan_kernel",
                 reps=10))
-        use(shipped, shipped, other_fn)
+        use("rounded", fused)
         cs.log(json.dumps(row))
         del args, want, got
         torch.cuda.empty_cache()
@@ -256,10 +196,10 @@ def main() -> None:
         check=True).stdout.strip().splitlines()[0]
     cs.log(card)
     dev = torch.device("cuda")
-    shipped, other, other_fn = other_library()
+    fused = fused_variant()
     forms = product_forms()
     with torch.no_grad():
-        k8_readings(dev, shipped, other, other_fn)
+        k8_readings(dev, fused)
         host_readings(dev, forms, card)
         cfg = get_config("falcon-mamba-7b")
         model = M.init_params(cfg, seed=0, device=dev)
@@ -269,13 +209,13 @@ def main() -> None:
                                 generator=torch.Generator(device=dev)
                                 .manual_seed(1))
         for products in ("padded", "plain"):
-            for arith in (shipped, other):
+            for arith in ("rounded", "fused"):
                 use_products(forms[products])
-                use(arith, shipped, other_fn)
+                use(arith, fused)
                 cs.log(json.dumps({"check_iii": {
                     "products": products, "k8": arith,
                     **decode_check(model, cfg, prompts)}, "card": card}))
-        use(shipped, shipped, other_fn)
+        use("rounded", fused)
         prefill = make_prefill_step(cfg, max_seq=S + G)
         decode = make_decode_step(cfg)
         times = {k: [] for k in forms}
@@ -304,7 +244,7 @@ def main() -> None:
         use_products(forms["padded"])
         cs.log(json.dumps({"decode_ab": "falcon-mamba-7b, B 4, 32 steps "
                            "after a 2048-token prefill, "
-                           f"{shipped} K8", "rounds": ROUNDS,
+                           "rounded K8", "rounds": ROUNDS,
                            "ms_per_token": times,
                            "device_ms_per_step": step_ms, "card": card}))
 

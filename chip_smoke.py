@@ -19,8 +19,10 @@ failure exits non-zero and prints no result:
    mid-run, hub feed rows, unreachable SSSP rows), from the init state and
    after K3 supersteps, at every exit (max_steps 0, 1, 2, 7, one round
    short of quiescence, at it, 4096), K5 and K6 on random masks
-   (R ∈ {144, 4096}, cap ∈ {969, 4096}, densities 0 / 0.05 / 1, budgets
-   below and above the counts, ±inf values); K7 at llama3-8b's prefill
+   (R ∈ {144, 4096}, cap ∈ {969, 4096}; cap 1 over 4096 rows, one tile
+   and one slot more, cap 1023, cap 20011 over 3 rows; densities 0 / 0.05
+   / 0.5 / 1, budgets below, above and mixed about the counts, ±inf
+   values); K7 at llama3-8b's prefill
    shape (B 4, S 2048, H 32, KV 8, dh 128, causal, bf16), at gemma3-4b's
    local layers (dh 256, H 8, KV 4, window 1024), at h2o-danube-1.8b's
    prefill (dh 80, window 4096), with float32 inputs, and with q_offset
@@ -100,8 +102,10 @@ failure exits non-zero and prints no result:
    barrier at K3's cluster shape (``csrc/barrier_probe.cu``).
    ``ms`` is a kernel's device time by torch.profiler; ``call_ms`` the
    CUDA-event time of one wrapper call, which for a small kernel is
-   mostly the host's time to enqueue it. K7's row adds ``batch_ms`` and
-   ``library_batch_ms``: 20 back-to-back calls of K7 and of its library
+   mostly the host's time to enqueue it. K5's and K6's rows (at the
+   compact CC run's first pack) add ``floor_ms``, an empty kernel launched
+   the same way on their grid, beside the bytes bound, and the build's
+   layout. K7's row adds ``batch_ms`` and ``library_batch_ms``: 20 back-to-back calls of K7 and of its library
    call timed by CUDA events, in turns, without the profiler. K8's row is
    at phase 4e's shape (B 4, L 2048, bf16 in, float32 y and the final
    state), bit-equal to the plain version; its bound is the largest of its
@@ -342,6 +346,18 @@ def check_k2(dev) -> None:
                 f"({int(act.sum())} active rows)")
 
 
+def k5_k6_shapes() -> list:
+    """(rows, cap) for K5's and K6's card checks: the main path's pair rows
+    and larger ones, rows of one slot, one whole tile and one slot more (a
+    carry into a second tile), a cap that is not a multiple of 4, and a
+    row of many tiles."""
+    from repro_torch.kernels.outbox_compact import k5_layout
+    lay = k5_layout()
+    tile = lay["threads"] * lay["slots"]
+    return [(144, 969), (144, 4096), (4096, 969), (4096, 4096), (4096, 1),
+            (64, tile), (64, tile + 1), (300, 1023), (3, 20011)]
+
+
 def check_k5_k6(dev) -> None:
     import torch
     from repro_torch.kernels.outbox_compact import (outbox_compact_plan_cuda,
@@ -349,42 +365,45 @@ def check_k5_k6(dev) -> None:
     from repro_torch.kernels.ref import (outbox_compact_plan_ref,
                                          outbox_pack_ref)
     rng = np.random.default_rng(2)
-    cases = 0
-    for rows in (144, 4096):
-        for cap in (969, 4096):
-            vals = rng.uniform(-5.0, 5.0, (rows, cap)).astype(np.float32)
-            vals[rng.random((rows, cap)) < 0.05] = np.inf
-            vals[rng.random((rows, cap)) < 0.05] = -np.inf
-            vals = torch.from_numpy(vals).to(dev)
-            for density in (0.0, 0.05, 1.0):
-                act_np = rng.random((rows, cap)) < density
-                cnt = act_np.sum(1)
-                active = torch.from_numpy(act_np).to(dev)
-                for budget in ("below", "above"):
-                    lim = (rng.integers(0, np.maximum(cnt, 1))
-                           if budget == "below" else cnt + 1)
-                    lim = torch.from_numpy(lim.astype(np.int32)).to(dev)
-                    for ident in (float("inf"), float("-inf")):
-                        got = outbox_pack_cuda(vals, active, lim, ident)
-                        want = outbox_pack_ref(vals, active, lim, ident)
-                        torch.cuda.synchronize()
-                        for name, a, b in zip(
-                                ("pvals", "sids", "pinv", "counts", "over"),
-                                got, want):
-                            if not torch.equal(a, b):
-                                fail(f"K5 R={rows} cap={cap} density "
-                                     f"{density} budget {budget}: {name} "
-                                     f"differs from the plain version")
-                        cases += 1
-                got = outbox_compact_plan_cuda(active)
-                want = outbox_compact_plan_ref(active)
-                torch.cuda.synchronize()
-                for name, a, b in zip(("pfwd", "pinv", "counts"), got, want):
-                    if not torch.equal(a, b):
-                        fail(f"K6 R={rows} cap={cap} density {density}: "
-                             f"{name} differs from the plain version")
-    log(f"K5 outbox_pack: {cases} cases, K6 outbox_compact_plan: 12 cases, "
-        f"every output bit-equal")
+    cases = k6_cases = 0
+    for rows, cap in k5_k6_shapes():
+        vals = rng.uniform(-5.0, 5.0, (rows, cap)).astype(np.float32)
+        vals[rng.random((rows, cap)) < 0.05] = np.inf
+        vals[rng.random((rows, cap)) < 0.05] = -np.inf
+        vals = torch.from_numpy(vals).to(dev)
+        for density in (0.0, 0.05, 0.5, 1.0):
+            act_np = rng.random((rows, cap)) < density
+            cnt = act_np.sum(1)
+            active = torch.from_numpy(act_np).to(dev)
+            for budget in ("below", "above", "mixed"):
+                lim = {"below": lambda: rng.integers(0, np.maximum(cnt, 1)),
+                       "above": lambda: cnt + 1,
+                       "mixed": lambda: np.choose(
+                           np.arange(rows) % 3, [cnt // 2, cnt, cnt + 1]),
+                       }[budget]()
+                lim = torch.from_numpy(lim.astype(np.int32)).to(dev)
+                for ident in (float("inf"), float("-inf")):
+                    got = outbox_pack_cuda(vals, active, lim, ident)
+                    want = outbox_pack_ref(vals, active, lim, ident)
+                    torch.cuda.synchronize()
+                    for name, a, b in zip(
+                            ("pvals", "sids", "pinv", "counts", "over"),
+                            got, want):
+                        if not torch.equal(a, b):
+                            fail(f"K5 R={rows} cap={cap} density {density} "
+                                 f"budget {budget}: {name} differs from the "
+                                 f"plain version")
+                    cases += 1
+            got = outbox_compact_plan_cuda(active)
+            want = outbox_compact_plan_ref(active)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("pfwd", "pinv", "counts"), got, want):
+                if not torch.equal(a, b):
+                    fail(f"K6 R={rows} cap={cap} density {density}: "
+                         f"{name} differs from the plain version")
+            k6_cases += 1
+    log(f"K5 outbox_pack: {cases} cases, K6 outbox_compact_plan: {k6_cases} "
+        f"cases, shapes (R, cap) {k5_k6_shapes()}, every output bit-equal")
 
 
 def k3_run(what, cm, pg, semiring, unroll=1, check_inf=False) -> int:
@@ -2042,6 +2061,16 @@ def k2_times(dev, pg, path_launches) -> dict:
             "library_ms": None, "small_frontier": small}
 
 
+def k5_k6_bytes(rows: int, cap: int, n_act: int) -> tuple:
+    """The bytes K5 and K6 must move at (rows, cap) with ``n_act`` active
+    slots. K5 reads the mask (1 B) a slot, the value (4 B) of each active
+    slot only and the budget (4 B) a row, writes pvals, sids and pinv
+    (12 B) a slot and counts and over (8 B) a row; K6 reads the mask and
+    writes pfwd and pinv a slot and the counts a row."""
+    return (rows * cap * 13 + 4 * n_act + rows * 12,
+            rows * cap * 9 + rows * 4)
+
+
 def k5_k6_times(dev, pg, path_launches):
     """K5 and K6 at the compact CC run's first pack (the inbox prime: every
     vertex sends), R = P·P rows of cap slots."""
@@ -2049,7 +2078,9 @@ def k5_k6_times(dev, pg, path_launches):
     from repro_torch.core import (GopherEngine, SemiringProgram,
                                   init_max_vertex)
     from repro_torch.core import messages as msg
-    from repro_torch.kernels.outbox_compact import (outbox_compact_plan_cuda,
+    from repro_torch.kernels.outbox_compact import (k5_layout,
+                                                    launch_floor_cuda,
+                                                    outbox_compact_plan_cuda,
                                                     outbox_pack_cuda)
     from repro_torch.kernels.ref import (outbox_compact_plan_ref,
                                          outbox_pack_ref)
@@ -2083,23 +2114,23 @@ def k5_k6_times(dev, pg, path_launches):
     k5_dev = device_ms(lambda: outbox_pack_cuda(sv, act, lim, ident),
                        "pack_kernel")
     k6_dev = device_ms(lambda: outbox_compact_plan_cuda(act), "pack_kernel")
-    # K5 reads the mask (1 B) a slot, the value (4 B) of each kept slot only
-    # and the budget (4 B) a row, writes pvals, sids and pinv (12 B) a slot
-    # and counts and over (8 B) a row; K6 reads the mask, writes pfwd and
-    # pinv and the counts
+    # the launch floor: an empty kernel on the same grid, launched the same
+    # way; a time no redesign of the body can go below
+    floor = device_ms(lambda: launch_floor_cuda(R, dev), "empty_kernel")
     n_act = int(act.sum())
-    k5_bytes = R * cap * 13 + 4 * n_act + R * 12
-    k6_bytes = R * cap * 9 + R * 4
+    k5_bytes, k6_bytes = k5_k6_bytes(R, cap, n_act)
     log(f"K5/K6 at R={R} cap={cap}: {n_act} active slots; K5 "
         f"{k5_ms:.4f} ms a call, {k5_dev:.4f} ms on the device ({k5_bytes} "
         f"B); K6 {k6_ms:.4f} ms a call, {k6_dev:.4f} ms on the device "
-        f"({k6_bytes} B)")
+        f"({k6_bytes} B); an empty kernel on their grid {floor:.6f} ms; "
+        f"layout {k5_layout()}")
     reason = ("no single PyTorch call computes the pack; torch.cumsum "
               "gives only pinv")
     common = {"route": "cuda",
               "source": "src/repro_torch/kernels/csrc/outbox_compact.cu",
               "max_abs_err": 0.0, "bound_by": "bytes", "library_ms": None,
-              "library_note": reason}
+              "library_note": reason, "floor_ms": floor,
+              "layout": k5_layout()}
     return ({"name": "outbox_pack",
              "replaces": "src/repro/kernels/outbox_compact.py:100",
              "launches": path_launches["outbox_pack"], "ms": k5_dev,

@@ -133,6 +133,12 @@ def _declare(lib) -> None:
     # (active, pfwd, pinv, counts, rows, cap, device, stream)
     lib.outbox_compact_plan_launch.argtypes = [vp] * 4 + [i32] * 3 + [vp]
     lib.outbox_compact_plan_launch.restype = i32
+    # (rows, device, stream): an empty kernel on K5's grid
+    lib.outbox_launch_floor.argtypes = [i32] * 2 + [vp]
+    lib.outbox_launch_floor.restype = i32
+    # (out[2]: threads, slots)
+    lib.outbox_pack_layout.argtypes = [ip]
+    lib.outbox_pack_layout.restype = None
     # (16 inputs, 8 outputs and scratch; n, d, m_lo, m_hi, num_parts,
     #  v_max, unroll, dense_rows, min_plus, device; stream)
     lib.megastep_semiring_launch.argtypes = [vp] * 24 + [i32] * 10 + [vp]

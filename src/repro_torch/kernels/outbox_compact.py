@@ -4,13 +4,17 @@
 the JAX package's Pallas ``outbox_pack_pallas``): per mailbox row the
 compaction plan, truncation at the row's slot budget, the value pack and
 the overflow flag. ``outbox_compact_plan_cuda`` launches K6 (the port of
-``outbox_compact_plan_pallas``): the plan alone. Both are one block per
-row with a hand-written block scan. Their plain versions are
+``outbox_compact_plan_pallas``): the plan alone. Each row gets a block,
+which loads a tile of slots in one round and scans its ballot counts after
+one barrier (:func:`k5_layout` reports the build's layout). The int32
+outputs share one allocation. Their plain versions are
 ``kernels.ref.outbox_pack_ref`` and ``outbox_compact_plan_ref``;
 ``kernels.ops`` picks between kernel and plain version by the tensors'
 device.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -31,6 +35,21 @@ def _check_rows(active: torch.Tensor, what: str):
     return active.device, rows, cap
 
 
+def _int_outputs(dev, rows: int, cap: int, per_row: int):
+    """Two (rows, cap) and then ``per_row`` (1 or 2) (rows,) int32 tensors,
+    views of one allocation, each starting on 16 bytes: the (rows,) ones
+    first, then the (rows, cap) ones. A caller that keeps any of them keeps
+    the whole allocation alive."""
+    def up(k):
+        return -(-k // 4) * 4               # int32s to the next 16 bytes
+    head, n = per_row * up(rows), up(rows * cap)
+    buf = torch.empty(head + 2 * n, dtype=torch.int32, device=dev)
+    return (buf.as_strided((rows, cap), (cap, 1), head),
+            buf.as_strided((rows, cap), (cap, 1), head + n),
+            *(buf.as_strided((rows,), (1,), k * up(rows))
+              for k in range(per_row)))
+
+
 def outbox_pack_cuda(slot_vals: torch.Tensor, active: torch.Tensor,
                      limit: torch.Tensor, ident: float):
     """(R, cap) float32 slot values, (R, cap) bool active mask and (R,)
@@ -44,12 +63,8 @@ def outbox_pack_cuda(slot_vals: torch.Tensor, active: torch.Tensor,
     _build.need(slot_vals, "slot_vals", torch.float32, dev, (rows, cap))
     _build.need(limit, "limit", torch.int32, dev, (rows,))
     pvals = torch.empty((rows, cap), dtype=torch.float32, device=dev)
-    sids = torch.empty((rows, cap), dtype=torch.int32, device=dev)
-    pinv = torch.empty((rows, cap), dtype=torch.int32, device=dev)
-    counts = torch.empty(rows, dtype=torch.int32, device=dev)
-    over = torch.empty(rows, dtype=torch.int32, device=dev)
-    lib = _build.library()
-    err = lib.outbox_pack_launch(
+    sids, pinv, counts, over = _int_outputs(dev, rows, cap, 2)
+    err = _build.library().outbox_pack_launch(
         active.data_ptr(), slot_vals.data_ptr(), limit.data_ptr(),
         pvals.data_ptr(), sids.data_ptr(), pinv.data_ptr(), counts.data_ptr(),
         over.data_ptr(), rows, cap, float(ident), dev.index,
@@ -63,13 +78,27 @@ def outbox_compact_plan_cuda(active: torch.Tensor):
     """(R, cap) bool active mask -> (pfwd, pinv, counts) by kernel K6,
     bit-identical to ``outbox_compact_plan_ref``."""
     dev, rows, cap = _check_rows(active, "K6")
-    pfwd = torch.empty((rows, cap), dtype=torch.int32, device=dev)
-    pinv = torch.empty((rows, cap), dtype=torch.int32, device=dev)
-    counts = torch.empty(rows, dtype=torch.int32, device=dev)
-    lib = _build.library()
-    err = lib.outbox_compact_plan_launch(
+    pfwd, pinv, counts = _int_outputs(dev, rows, cap, 1)
+    err = _build.library().outbox_compact_plan_launch(
         active.data_ptr(), pfwd.data_ptr(), pinv.data_ptr(), counts.data_ptr(),
         rows, cap, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "outbox_compact_plan")
     _build.launches["outbox_compact_plan"] += 1
     return pfwd, pinv, counts
+
+
+def launch_floor_cuda(rows: int, dev: torch.device) -> None:
+    """Launch an empty kernel on the grid K5 and K6 take over ``rows`` rows:
+    the launch floor their device time is read against. It is no port of a
+    kernel and counts no launch."""
+    err = _build.library().outbox_launch_floor(
+        rows, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "outbox_launch_floor")
+
+
+def k5_layout() -> dict:
+    """The layout K5 and K6 were built with (``-DK5_THREADS``,
+    ``-DK5_SLOTS``): a row's threads and a thread's slots a tile."""
+    out = (ctypes.c_int * 2)()
+    _build.library().outbox_pack_layout(out)
+    return dict(zip(("threads", "slots"), out))

@@ -19,7 +19,8 @@ from repro_torch.gofs import (bfs_grow_partition, partition_graph,
 from repro_torch.gofs.formats import PAD
 from repro_torch.kernels import _build
 from repro_torch.kernels import megastep as mega
-from repro_torch.kernels.outbox_compact import (outbox_compact_plan_cuda,
+from repro_torch.kernels.outbox_compact import (k5_layout,
+                                                outbox_compact_plan_cuda,
                                                 outbox_pack_cuda)
 from repro_torch.kernels.ref import (outbox_compact_plan_ref, outbox_pack_ref,
                                      semiring_spmv_frontier_ref,
@@ -398,11 +399,24 @@ def test_k2_semiring_spmv_frontier_matches_plain(cuda_device, semiring,
     assert torch.equal(y, wy) and torch.equal(act, wact)
 
 
+def _k5_cap(x):
+    """An int, or "tile" / "tile+1": a whole tile of the build's layout
+    (``k5_layout``) and one slot more, a carry into a second tile."""
+    if isinstance(x, int):
+        return x
+    lay = k5_layout()
+    return lay["threads"] * lay["slots"] + (1 if x == "tile+1" else 0)
+
+
 @pytest.mark.parametrize("rows,cap,density,limit", [
     (7, 1, 0.5, "mixed"), (33, 969, 0.05, "full"), (64, 300, 1.0, "low"),
-    (16, 1500, 0.5, "mixed"), (5, 64, 0.0, "full")])
+    (16, 1500, 0.5, "mixed"), (5, 64, 0.0, "full"),
+    (4096, 1, 0.5, "mixed"), (3, 20011, 0.5, "mixed"),
+    (3, 20011, 1.0, "low"), (40, 1023, 0.5, "mixed"),
+    (20, "tile", 0.7, "mixed"), (20, "tile+1", 0.7, "mixed")])
 def test_k5_k6_outbox_pack_matches_plain(cuda_device, rows, cap, density,
                                          limit):
+    cap = _k5_cap(cap)
     rng = np.random.default_rng(rows + cap)
     active = rng.random((rows, cap)) < density
     vals = rng.uniform(-5.0, 5.0, (rows, cap)).astype(np.float32)
@@ -413,9 +427,11 @@ def test_k5_k6_outbox_pack_matches_plain(cuda_device, rows, cap, density,
     vals, active, lim = (torch.from_numpy(a).to(cuda_device)
                          for a in (vals, active, lim))
     for ident in (float("inf"), float("-inf")):
+        before = _build.launches["outbox_pack"]
         got = outbox_pack_cuda(vals, active, lim, ident)
         want = outbox_pack_ref(vals, active, lim, ident)
         torch.cuda.synchronize()
+        assert _build.launches["outbox_pack"] == before + 1
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     got = outbox_compact_plan_cuda(active)

@@ -207,6 +207,49 @@ def test_outbox_compact_plan_matches_jax_and_pallas(case):
         assert torch.equal(g, w)
 
 
+# Sizes the card's tiling reaches beyond PACK_CASES: a row of several tiles
+# with a carry (cap 20011, 3 rows) and rows of one slot (cap 1, 64 rows).
+# Held to the jnp oracles only: the Pallas kernel's (block_r, cap, cap)
+# one-hot would need gigabytes at cap 20011.
+TILING_CASES = {"cap20011": (3, 20011), "cap1": (64, 1)}
+
+
+def _tiling_inputs(case):
+    R, cap = TILING_CASES[case]
+    rng = np.random.default_rng(cap)
+    active = rng.random((R, cap)) < 0.5
+    vals = rng.uniform(-5.0, 5.0, (R, cap)).astype(np.float32)
+    vals[rng.random((R, cap)) < 0.1] = np.inf
+    vals[rng.random((R, cap)) < 0.1] = -np.inf
+    count = active.sum(1)
+    # a mixed budget: below, at and past each row's count, and 0
+    limit = np.choose(np.arange(R) % 4,
+                      [count // 3, count, count + 2, np.zeros(R, int)])
+    return vals, active, limit.astype(np.int32)
+
+
+@pytest.mark.parametrize("ident", [float("inf"), float("-inf")])
+@pytest.mark.parametrize("case", sorted(TILING_CASES))
+def test_outbox_pack_matches_jax_at_tiling_sizes(case, ident):
+    vals, active, limit = _tiling_inputs(case)
+    got = outbox_pack_ref(torch.from_numpy(vals), torch.from_numpy(active),
+                          torch.from_numpy(limit), ident)
+    want = jref.outbox_pack_ref(jnp.asarray(vals), jnp.asarray(active),
+                                jnp.asarray(limit), ident)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    assert got[4].numpy().tolist() == (active.sum(1) > limit).tolist()
+    assert np.isinf(got[0].numpy()[got[1].numpy() != PAD]).any()
+
+
+@pytest.mark.parametrize("case", sorted(TILING_CASES))
+def test_outbox_compact_plan_matches_jax_at_tiling_sizes(case):
+    _, active, _ = _tiling_inputs(case)
+    got = outbox_compact_plan_ref(torch.from_numpy(active))
+    for g, w in zip(got, jref.outbox_compact_plan_ref(jnp.asarray(active))):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+
+
 def test_outbox_pack_refuses_query_batched_values():
     vals = torch.zeros((2, 3, 4))
     active = torch.zeros((2, 3), dtype=torch.bool)

@@ -4,9 +4,9 @@ older source and a sweep of layouts of the current one take on the card.
 
 Each layout is the current source built with ``-DK8_LANES=S
 -DK8_CHANNELS=C`` (and ``K8_STEPS``, ``K8_STAGES``, ``K8_UNROLL``) into a
-library of its own under ``build/``, in parallel, with ``-Xptxas -v``;
-it stands in for the shipped kernel by replacing ``mamba1_scan_launch`` in
-the loaded library (:func:`use`). With ``--baseline PATH`` an older
+library of its own under ``build/`` (``_variants.build``); it stands in for
+the shipped kernel by replacing ``mamba1_scan_launch`` in the loaded
+library (``_variants.use``). With ``--baseline PATH`` an older
 ``mamba_scan.cu`` (the parent commit's, say) is built and timed beside
 them. For each, one JSON line:
 
@@ -31,10 +31,8 @@ A layout is ``SxC`` with optional ``s<steps>``, ``r<stages>``,
 ``u<unroll>``.
 """
 import argparse
-import ctypes
 import json
 import re
-import subprocess
 import sys
 from collections import Counter
 from pathlib import Path
@@ -43,6 +41,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 import chip_smoke as cs  # noqa: E402
+from _variants import Variant, parse_layout, ptxas_report  # noqa: E402
+from _variants import build, smi, use  # noqa: E402
 
 LAYOUTS = ("2x32", "2x64", "2x128", "4x32", "4x64", "8x32", "8x64", "16x32",
            "16x64")
@@ -50,76 +50,18 @@ KEYS = {"s": "K8_STEPS", "r": "K8_STAGES", "u": "K8_UNROLL"}
 CLASSES = (("fp32", ("FFMA", "FMUL", "FADD", "FSEL", "FSETP", "FMNMX")),
            ("mufu", ("MUFU",)), ("lds", ("LDS",)), ("sts", ("STS",)),
            ("shfl", ("SHFL",)))
-
-
-class Variant:
-    """A K8 library built from ``source`` with ``defines``: its
-    ``mamba1_scan_launch``, and ptxas' and cuobjdump's reports."""
-
-    def __init__(self, tag, source, defines):
-        self.tag, self.source, self.defines = tag, Path(source), defines
-        self.launch = self.lib = None
-        self.ptxas = self.sass = ""
+LAUNCHES = ("mamba1_scan_launch",)
 
 
 def defines_of(layout: str) -> dict:
-    m = re.fullmatch(r"(\d+)x(\d+)((?:[sru]\d+)*)", layout)
-    if not m:
-        raise SystemExit(f"k8_layouts: bad layout {layout!r}")
-    out = {"K8_LANES": int(m[1]), "K8_CHANNELS": int(m[2])}
-    for key, val in re.findall(r"([sru])(\d+)", m[3]):
-        out[KEYS[key]] = int(val)
-    return out
+    return parse_layout("k8_layouts", layout, "K8_LANES", "K8_CHANNELS",
+                        KEYS)
 
 
 def build_variants(variants, sass: bool = True) -> None:
-    """Build every variant's library in parallel (``nvcc -Xptxas -v``),
-    load it and, with ``sass``, disassemble it."""
-    from repro_torch.kernels import _build
-    nvcc = _build._nvcc()
-    out = _build.BUILD_ROOT / "k8_variants"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = []
-    for v in variants:
-        so = out / f"mamba_scan_{v.tag}.so"
-        cmd = [nvcc, *_build.ARCH_FLAGS, *_build.NVCC_FLAGS, "-Xptxas", "-v",
-               *(f"-D{k}={val}" for k, val in v.defines.items()), "-shared",
-               str(v.source), "-o", str(so)]
-        procs.append((v, so, cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    argtypes = _build.library().mamba1_scan_launch.argtypes
-    for v, so, cmd, p in procs:
-        v.ptxas, _ = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"{' '.join(cmd)}\n{v.ptxas}")
-        v.lib = ctypes.CDLL(str(so))
-        v.launch = v.lib.mamba1_scan_launch
-        v.launch.argtypes = argtypes
-        v.launch.restype = ctypes.c_int
-        if sass:
-            v.sass = subprocess.run(
-                [str(Path(nvcc).parent / "cuobjdump"), "-sass", str(so)],
-                capture_output=True, text=True, check=True).stdout
-
-
-class Swapped:
-    """The loaded kernel library with K8's launch replaced."""
-
-    def __init__(self, lib, launch):
-        self._lib, self.mamba1_scan_launch = lib, launch
-
-    def __getattr__(self, name):
-        return getattr(self._lib, name)
-
-
-def use(variant) -> None:
-    """Let ``mamba1_scan_cuda`` launch ``variant``'s kernel (None: the
-    shipped one)."""
-    from repro_torch.kernels import _build
-    lib = _build.library()
-    lib = lib._lib if isinstance(lib, Swapped) else lib
-    _build._lib = lib if variant is None else Swapped(lib, variant.launch)
+    """Build every variant's library in parallel, load its
+    ``mamba1_scan_launch`` and, with ``sass``, disassemble it."""
+    build(variants, "k8_variants", LAUNCHES, sass=sass)
 
 
 def is_path_kernel(name: str) -> bool:
@@ -128,25 +70,12 @@ def is_path_kernel(name: str) -> bool:
             and "Lb1E" not in name)
 
 
-def ptxas_report(text: str) -> dict:
+def path_report(text: str) -> dict:
     """Registers and spill bytes of the path's kernel, from ``-Xptxas -v``."""
-    cur, rep = None, {}
-    for line in text.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties "
-                      r"for) '?([\w$.]+)'?", line)
-        if m:
-            cur = m[1]
-            continue
-        if cur is None or not is_path_kernel(cur):
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            rep["spill_stores"], rep["spill_loads"] = int(m[1]), int(m[2])
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            rep["registers"] = int(m[1])
-    return rep
+    rep = next((r for name, r in ptxas_report(text).items()
+                if is_path_kernel(name) and "registers" in r), {})
+    return {k: rep[k] for k in ("registers", "spill_stores", "spill_loads")
+            if k in rep}
 
 
 def sass_mix(text: str) -> dict:
@@ -189,13 +118,6 @@ def sass_mix(text: str) -> dict:
             "per_ln_total": len(ops) / ex2,
             "other_ops": dict(Counter(op for op in ops if not any(
                 op.split(".")[0] in heads for _, heads in CLASSES)))}
-
-
-def smi(query: str) -> str:
-    return subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip() \
-        .splitlines()[0]
 
 
 def clock_under_load(run, calls: int = 2000) -> str:
@@ -256,7 +178,7 @@ def main() -> None:
                "ms_b1": ms[1], "max_abs_err": err,
                "share_of_bound": bound["bound_ms"] / ms[4],
                "exps_per_s": bound["exps"] / ms[4] * 1e3,
-               **ptxas_report(v.ptxas), "sass": sass_mix(v.sass),
+               **path_report(v.ptxas), "sass": sass_mix(v.sass),
                "card": card}
         rows.append(row)
         cs.log(json.dumps(row))

@@ -8,7 +8,7 @@ The fused arithmetic is ``csrc/mamba_scan.cu`` built with
 ``-DK8_FUSED=1`` into a library of its own under ``build/``
 (``k8_layouts.build_variants``), and stands in for the shipped kernel by
 replacing ``mamba1_scan_launch`` in the loaded library
-(``k8_layouts.use``). Then, in one process:
+(``_variants.use``). Then, in one process:
 
 1. K8 at ``chip_smoke.py`` phase 4e's shape (B 4, L 2048, D 8192, N 16,
    bf16 in, float32 y and h_last) and at the float32 B 2 shape, device time
@@ -43,8 +43,9 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 import chip_smoke as cs  # noqa: E402
 
-from k8_layouts import Variant, build_variants  # noqa: E402
-from k8_layouts import use as use_variant  # noqa: E402
+from _variants import Variant  # noqa: E402
+from _variants import use as use_variant  # noqa: E402
+from k8_layouts import build_variants  # noqa: E402
 
 ROUNDS = 8
 

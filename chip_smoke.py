@@ -84,7 +84,33 @@ failure exits non-zero and prints no result:
       relative L2 error of 5e-2 of a teacher-forced forward, and finite;
       (iv) the 2-layer float32 cut of 4d (iii) with K8. The same JSON
       lines as 4d, K8 in place of K7;
+   f. the GoFS store and incremental analytics on 4a's graphs and results:
+      (1) the graph written through ``TemporalStore`` into a temporary
+      directory and loaded back, every field equal and CC on it equal to
+      4a's labels with K3 launched (write and load seconds, bytes on
+      disk); (2) 1 % of the edges as reopened road segments (the absent
+      grid segments drawn as the JAX package's
+      benchmarks/bench_incremental.py draws them, seed 7; weights U(5, 10)
+      from seed 8, unit weights for the unweighted build) applied with
+      ``apply_delta(block=host_graph_block(pg))``: ``verify_host_block``
+      clean, the event log replayed by ``patch_host_block`` equal to the
+      patched block (host seconds of each, and of a cold block of the new
+      version); (3) ``incremental_connected_components``,
+      ``incremental_sssp`` and ``incremental_bfs`` on the patched device
+      block, each bit-equal to a cold run on the new version and held to
+      scipy as 4a holds its runs, with K3 launched and BFS taking fewer
+      local iterations than its cold run; (4) the resumed SSSP on
+      ``exchange='dense'`` (K2) and ``'compact'`` (K2, K5) bit-equal to
+      (3)'s, then 0.01 % of the segments present closed (seed 9, none of
+      them reopened in (2)): resumed SSSP and CC bit-equal to cold runs;
+      (5) the resumed SSSP on ``exchange='megastep'`` with
+      ``PhasedTierPlan.from_graph``: one K4 launch, bit-equal to (3)'s;
+      (6) the delta appended to the store and ``materialize(version=1)``
+      equal to ``apply_delta`` field for field. One JSON line per run as in
+      4a, the cold runs' beside the resumes';
 5. kernel times at the paths' shapes: one ``{"kernels": [...]}`` line.
+   ``launches`` counts phase 4's timed runs but 4f's, which stand beside
+   it as ``incremental_launches``.
    K3 is also held at the main path's CC superstep 0 with each walk
    forced. Its ``bound_ms`` counts only the rows with an active
    in-neighbour, summed over the plain version's sweeps, over the lanes
@@ -856,7 +882,7 @@ def main_path(dev):
     if not np.array_equal(lvl, hops.astype(np.float32)):
         fail("bfs: hop counts differ from scipy's")
     r = gather(pg, results["pagerank"][0])
-    a = g.csr()
+    a = g.csr().copy()            # its data would alias g.weights
     a.data[:] = 1.0
     outdeg = g.out_degree.astype(np.float64)
     rr = np.full(g.n, 1.0 / g.n)
@@ -875,7 +901,9 @@ def main_path(dev):
                          truth)
     plain_k4 = tier_path(dev, pg, src, results, staged, path_launches, truth)
     breakdown(pg, upg, src)
-    return pg, path_launches, plain_k4
+    incremental_launches = dict.fromkeys(_build.launches, 0)
+    incremental_path(dev, g, ug, pg, upg, src, results, incremental_launches)
+    return pg, path_launches, incremental_launches, plain_k4
 
 
 def drive(dev, runs: dict, path_launches: dict, n: int,
@@ -947,7 +975,7 @@ def staged_path(dev, g, ug, pg, upg, src, fused, path_launches, truth):
     # the float64 power iteration to TOL_STEPS, with each iteration's L1
     # delta; a tol between the last two deltas (about 8 % from each, far
     # above float32's noise in the card's delta) halts PageRank there
-    a = g.csr()
+    a = g.csr().copy()            # its data would alias g.weights
     a.data[:] = 1.0
     outdeg = g.out_degree.astype(np.float64)
     rr = np.full(g.n, 1.0 / g.n)
@@ -1361,6 +1389,278 @@ def breakdown(pg, upg, src):
             "loop_s": t2 - t1, "supersteps": steps,
             "kernel_calls": calls, "kernel_ms": kernel_ms,
             "kernel_share_of_loop": total / 1e3 / (t2 - t1)}))
+
+
+# ---------------- phase 4f: the GoFS store and incremental analytics -----
+
+K3, K4, K2, K5 = ("megastep_semiring", "resident_megastep",
+                  "semiring_spmv_frontier", "outbox_pack")
+
+
+def grid_segments(g, rows: int, cols: int):
+    """The road grid's segments (right and down neighbours), (m, 2), and
+    whether each is in ``g``."""
+    v = np.arange(rows * cols).reshape(rows, cols)
+    grid = np.concatenate([
+        np.stack([v[:, :-1].ravel(), v[:, 1:].ravel()], 1),
+        np.stack([v[:-1, :].ravel(), v[1:, :].ravel()], 1)])
+    present = np.asarray(g.csr()[grid[:, 1], grid[:, 0]]).ravel() > 0
+    return grid, present
+
+
+def reopened_edges(g, rows: int, cols: int, count: int, seed: int):
+    """``count`` grid segments the build dropped, drawn with the arithmetic
+    of the JAX package's benchmarks/bench_incremental.py
+    (``_reopened_edges``): the reopened road segments of phase 4f."""
+    rng = np.random.default_rng(seed)
+    grid, present = grid_segments(g, rows, cols)
+    absent = grid[~present]
+    sel = rng.choice(absent.shape[0], size=min(count, absent.shape[0]),
+                     replace=False)
+    return absent[sel, 0], absent[sel, 1]
+
+
+def fields_equal(a, b, what: str) -> None:
+    """Fail unless two PartitionedGraphs agree field for field."""
+    for f in dataclasses.fields(a):
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(va, dict):
+            same = va.keys() == vb.keys() and all(
+                np.array_equal(va[k], vb[k]) for k in va)
+        elif isinstance(va, np.ndarray):
+            same = va.dtype == vb.dtype and np.array_equal(va, vb)
+        else:
+            same = va == vb
+        if not same:
+            fail(f"{what}: field {f.name} differs")
+
+
+def incremental_path(dev, g, ug, pg, upg, src, fused, launches_4f):
+    """Phase 4f: the GoFS store and incremental analytics at RN scale, each
+    step checked (see the module docstring). ``fused`` holds phase 4a's
+    results, the fixpoints the resumes start from; its timed runs' launch
+    counts go into ``launches_4f``."""
+    import tempfile
+
+    import torch
+    import scipy.sparse as sp
+    import scipy.sparse.csgraph as csgraph
+    from repro_torch import algorithms
+    from repro_torch.core import (PhasedTierPlan, device_block,
+                                  host_graph_block, patch_host_block,
+                                  verify_host_block)
+    from repro_torch.gofs import EdgeDelta, TemporalStore, apply_delta
+
+    side = int(round(np.sqrt(g.n)))          # the road grid is square
+    with tempfile.TemporaryDirectory() as root:
+        # (1) the store: write, load, every field, CC on the loaded graph
+        st = TemporalStore(root)
+        t0 = time.perf_counter()
+        st.write("rn", pg)
+        t1 = time.perf_counter()
+        loaded = st.load_partitioned("rn")
+        t2 = time.perf_counter()
+        fields_equal(pg, loaded, "store round trip")
+        on_disk = sum(f.stat().st_size for f in Path(root).rglob("*")
+                      if f.is_file())
+        res = drive(dev, {"cc_loaded": (
+            lambda: algorithms.connected_components(loaded), [K3])},
+            launches_4f, g.n)
+        if not np.array_equal(res["cc_loaded"][0], fused["cc"][0]):
+            fail("cc on the loaded graph: labels differ from phase 4a's")
+        log(json.dumps({"store": {"write_s": t1 - t0, "load_s": t2 - t1,
+                                  "bytes_on_disk": on_disk,
+                                  "partitions": pg.num_parts}}))
+
+        # (2) the delta: 1 % of the edges, reopened road segments
+        n_ins = (g.nnz // 2) // 100
+        iu, iv = reopened_edges(g, side, side, n_ins, seed=7)
+        iw = np.random.default_rng(8).uniform(5.0, 10.0, iu.size) \
+            .astype(np.float32)
+        delta = EdgeDelta.inserts(iu, iv, iw)
+        t0 = time.perf_counter()
+        hb = host_graph_block(pg)
+        t1 = time.perf_counter()
+        r1 = apply_delta(pg, delta, directed=False, block=hb)
+        t2 = time.perf_counter()
+        replay = patch_host_block(hb, r1.pg, *r1.events)
+        t3 = time.perf_counter()
+        cold_hb = host_graph_block(r1.pg)
+        t4 = time.perf_counter()
+        problems = verify_host_block(r1.block)
+        if problems:
+            fail(f"verify_host_block on the patched block: {problems}")
+        for k in set(replay) - {"wire_ewma", "announce_ewma"}:
+            if not np.array_equal(replay[k], r1.block[k]):
+                fail(f"the event replay's {k} differs from apply_delta's")
+        if set(cold_hb) != set(r1.block):
+            fail("the patched block's keys differ from a cold build's")
+        ur1 = apply_delta(upg, EdgeDelta.inserts(iu, iv), directed=False,
+                          block=host_graph_block(upg))
+        if verify_host_block(ur1.block):
+            fail(f"verify_host_block on the unweighted patched block: "
+                 f"{verify_host_block(ur1.block)}")
+        log(json.dumps({"delta": {
+            "reopened_segments": int(iu.size), "stats": r1.stats,
+            "mailbox_cap": [pg.mailbox_cap, r1.pg.mailbox_cap],
+            "d_max": [pg.d_max, r1.pg.d_max],
+            "touched_rows": int(len(r1.events[0])),
+            "remote_added": len(r1.events[2]),
+            "host_s": {"host_graph_block_v0": t1 - t0,
+                       "apply_delta_with_block": t2 - t1,
+                       "patch_host_block_replay": t3 - t2,
+                       "host_graph_block_v1_cold": t4 - t3}}}))
+
+        # (3) fused resumes against cold runs, scipy and each other
+        pg1, upg1 = r1.pg, ur1.pg
+        prev_cc, prev_d, prev_l = (fused["cc"][0], fused["sssp"][0],
+                                   fused["bfs"][0])
+        plan1 = PhasedTierPlan.from_graph(pg1)
+
+        def resumed(algo, res, prev, **kw):
+            def run():
+                gb = device_block(res.block, dev)
+                if algo == "cc":
+                    return algorithms.incremental_connected_components(
+                        res.pg, prev, res, gb=gb, **kw)
+                return getattr(algorithms, f"incremental_{algo}")(
+                    res.pg, src, prev, res, gb=gb, **kw)
+            return run
+
+        runs = {
+            "cc_resumed": (resumed("cc", r1, prev_cc), [K3]),
+            "cc_cold_v1": (lambda: algorithms.connected_components(pg1),
+                           [K3]),
+            "sssp_resumed": (resumed("sssp", r1, prev_d), [K3]),
+            "sssp_cold_v1": (lambda: algorithms.sssp(pg1, src), [K3]),
+            "bfs_resumed": (resumed("bfs", ur1, prev_l), [K3]),
+            "bfs_cold_v1": (lambda: algorithms.bfs(upg1, src), [K3]),
+            # (4) the staged routes, (5) the resident mode
+            "sssp_resumed_dense": (resumed("sssp", r1, prev_d,
+                                           exchange="dense"), [K2]),
+            "sssp_resumed_compact": (resumed("sssp", r1, prev_d,
+                                             exchange="compact"), [K2, K5]),
+            "sssp_resumed_resident": (resumed(
+                "sssp", r1, prev_d, exchange="megastep", tier_plan=plan1),
+                [K4]),
+        }
+        counts = {}
+        out = drive(dev, runs, launches_4f, g.n, record=counts)
+        if not (np.array_equal(out["cc_resumed"][0], out["cc_cold_v1"][0])
+                and out["cc_resumed"][1] == out["cc_cold_v1"][1]):
+            fail("cc_resumed: labels differ from the cold run's")
+        for a in ("sssp", "bfs"):
+            if not np.array_equal(out[f"{a}_resumed"][0],
+                                  out[f"{a}_cold_v1"][0]):
+                fail(f"{a}_resumed: results differ from the cold run's")
+        d1 = out["sssp_resumed"][0]
+        for name in ("sssp_resumed_dense", "sssp_resumed_compact",
+                     "sssp_resumed_resident"):
+            if not np.array_equal(out[name][0], d1):
+                fail(f"{name}: distances differ from the fused resume's")
+        k4_launches = counts["sssp_resumed_resident"][K4]
+        if k4_launches != 1:
+            fail(f"sssp_resumed_resident: {k4_launches} K4 launches, not 1")
+        # scipy on the new graph: the delta's segments added both ways
+        both = (np.r_[iv, iu], np.r_[iu, iv])
+        a1 = g.csr() + sp.csr_matrix((np.r_[iw, iw], both), shape=(g.n,
+                                                                   g.n))
+        ncc1, lab1 = csgraph.connected_components(a1, directed=False)
+        labels, ncc = out["cc_resumed"][:2]
+        pairs = np.unique(np.stack([lab1, gather(pg1, labels)]), axis=1)
+        if ncc != ncc1 or pairs.shape[1] != ncc1:
+            fail("cc_resumed: the components differ from scipy's")
+        d_true = csgraph.dijkstra(a1.T, indices=[src])[0]
+        fin = np.isfinite(d_true)
+        got = gather(pg1, d1)
+        if not np.array_equal(np.isfinite(got), fin) or not np.allclose(
+                got[fin], d_true[fin], rtol=1e-5):
+            fail("sssp_resumed: distances differ from scipy's dijkstra")
+        ua1 = ug.undirected_csr() + sp.csr_matrix(
+            (np.ones(2 * iu.size), both), shape=(g.n, g.n))
+        hops = csgraph.shortest_path(ua1, unweighted=True, indices=[src])[0]
+        if not np.array_equal(gather(upg1, out["bfs_resumed"][0]),
+                              hops.astype(np.float32)):
+            fail("bfs_resumed: hop counts differ from scipy's")
+        iters = {a: [int(out[f"{a}_resumed"][-1].local_iters.sum()),
+                     int(out[f"{a}_cold_v1"][-1].local_iters.sum())]
+                 for a in ("cc", "sssp", "bfs")}
+        if not iters["bfs"][0] < iters["bfs"][1]:
+            fail(f"bfs_resumed: {iters['bfs'][0]} local iterations, the "
+                 f"cold run {iters['bfs'][1]}: no fewer")
+        rel = np.abs(got[fin] - d_true[fin]) / np.maximum(d_true[fin], 1e-30)
+        log(json.dumps({"sssp_resumed_vs_scipy_max_rel": float(rel.max()),
+                        "resumed_vs_cold_local_iters": iters,
+                        "resumed_vs_cold_supersteps": {
+                            a: [out[f"{a}_resumed"][-1].supersteps,
+                                out[f"{a}_cold_v1"][-1].supersteps]
+                            for a in ("cc", "sssp", "bfs")}}))
+
+        # where a resume's set-up goes: the patched block's upload, then
+        # the mailbox compose with K3's walk inputs (built on first launch)
+        from repro_torch.kernels import megastep as mega
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gb1 = device_block(r1.block, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cm1 = mega.compose_mailbox(gb1)
+        mega.out_adjacency(cm1)
+        mega.k3_lanes(cm1, "min_plus")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        log(json.dumps({"resume_setup_s": {"device_block": t1 - t0,
+                                           "compose_mailbox": t2 - t1}}))
+        del gb1, cm1
+
+        # (4, continued) a removal delta: 0.01 % of the segments present
+        # after (2), none of them reopened there
+        grid, present = grid_segments(g, side, side)
+        live = grid[present]
+        pick = np.random.default_rng(9).choice(
+            live.shape[0], (g.nnz // 2) // 10000, replace=False)
+        t0 = time.perf_counter()
+        r2 = apply_delta(pg1, EdgeDelta.removes(live[pick, 0],
+                                                live[pick, 1]),
+                         directed=False, block=r1.block)
+        t1 = time.perf_counter()
+        if verify_host_block(r2.block):
+            fail(f"verify_host_block after the removals: "
+                 f"{verify_host_block(r2.block)}")
+        if r2.stats["removed"] != 2 * pick.size:
+            fail(f"removal delta: {r2.stats['removed']} arcs removed, "
+                 f"{2 * pick.size} asked")
+        log(json.dumps({"removal_delta": {
+            "closed_segments": int(pick.size), "stats": r2.stats,
+            "apply_delta_with_block_s": t1 - t0}}))
+        pg2 = r2.pg
+        runs = {
+            "sssp_resumed_removal": (resumed("sssp", r2, d1), [K3]),
+            "sssp_cold_v2": (lambda: algorithms.sssp(pg2, src), [K3]),
+            "cc_resumed_removal": (resumed("cc", r2, labels), [K3]),
+            "cc_cold_v2": (lambda: algorithms.connected_components(pg2),
+                           [K3]),
+        }
+        out2 = drive(dev, runs, launches_4f, g.n)
+        for a in ("sssp", "cc"):
+            if not np.array_equal(out2[f"{a}_resumed_removal"][0],
+                                  out2[f"{a}_cold_v2"][0]):
+                fail(f"{a}_resumed_removal: results differ from the cold "
+                     f"run's")
+
+        # (6) the temporal store: version 1 replayed from the delta slice
+        v = st.append_delta("rn", delta)
+        t0 = time.perf_counter()
+        mat = st.materialize("rn", version=1)
+        t1 = time.perf_counter()
+        if v != 1 or mat.version != 1:
+            fail(f"temporal store: version {v}, materialized {mat.version}")
+        fields_equal(apply_delta(pg, delta, directed=False).pg, mat,
+                     "materialize(version=1)")
+        log(json.dumps({"temporal_store": {"materialize_v1_s": t1 - t0}}))
+    log("incremental path checks: store round trip, verify_host_block "
+        "clean, fused/staged/resident resumes = cold runs = scipy, the "
+        "removal delta = cold runs, materialize(1) = apply_delta — all agree")
 
 
 # ---------------- phases 4d and 4e: LM serving at full width --------------
@@ -2365,12 +2665,14 @@ def main() -> None:
     check_k5_k6(dev)
     check_k7(dev)
     k8_err = check_k8(dev)
-    pg, path_launches, plain_k4 = main_path(dev)
+    pg, path_launches, incremental_launches, plain_k4 = main_path(dev)
     for arch, op, key, piece in LM_PATHS:
         lm_path(dev, path_launches, arch, op, key, piece)
     kernels = kernel_times(dev, pg, path_launches, plain_k4)
     kernels["kernels"] += [k7_times(dev, path_launches),
                            k8_times(dev, path_launches, k8_err)]
+    for row in kernels["kernels"]:
+        row["incremental_launches"] = incremental_launches[row["name"]]
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

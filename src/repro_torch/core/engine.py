@@ -55,7 +55,10 @@ resident rounds are ONE K4 launch, which reports totals only, so their
 ``changed_hist`` and ``count_hist`` entries stay zero, exactly as on the
 TPU; on a CPU tensor every round is folded. ``supersteps``,
 ``local_iters``, ``messages_sent``, ``pair_slots`` and the state agree in
-both cases.
+both cases. A resident start with nothing to send or sweep (a resume from
+an empty seed) counts one empty superstep on both: the folded loop runs
+it, and K4, which runs no round then, is counted as having entered one
+(the JAX package's TPU path reports K4's 0 there).
 
 Everything else of the JAX engine raises ``NotImplementedError`` naming the
 ROADMAP item that brings it.
@@ -353,23 +356,39 @@ class GopherEngine:
             resume: bool = False, extra: Optional[dict] = None,
             superstep_budget: Optional[int] = None):
         """Run to quiescence. Returns (state dict of (P, ...) numpy arrays,
-        Telemetry)."""
+        Telemetry).
+
+        ``extra`` carries per-run (P, v_max) graph-block entries as numpy
+        arrays — ``x0`` (float32) and ``frontier0`` (bool) for an
+        incremental resume (``SemiringProgram(resume=True)``). They are
+        copied onto the engine's device and layered over the cached block
+        for this run only, so the cached block, its composed mailbox and the
+        staged flat adjacency stay valid for the next run."""
         if checkpointer is not None or checkpoint_every or resume \
                 or superstep_budget is not None:
             raise NotImplementedError(
                 "checkpointed runs are not ported yet: ROADMAP A6 "
                 "(checkpointing and resilience)")
-        if extra:
-            raise NotImplementedError(
-                "run(extra=) is not ported yet: ROADMAP A4 (incremental "
-                "analytics)")
         if self.exchange == "megastep":
-            gb = None
-            state, steps, tally = self._run_megastep(*self._gb_for_run())
-        else:
-            gb = self._gb_for_staged()
-            state, steps, tally = self._run_batched(gb)
-        return self._finish(state, steps, tally, gb)
+            gb, cm = self._gb_for_run()
+            return self._finish(*self._run_megastep(self._layer(gb, extra),
+                                                    cm), None)
+        gb = self._layer(self._gb_for_staged(), extra)
+        return self._finish(*self._run_batched(gb), gb)
+
+    def _layer(self, gb: dict, extra: Optional[dict]) -> dict:
+        """``gb`` with the run's ``extra`` entries over it, as tensors on
+        the engine's device (copies: no run writes into the caller's
+        arrays)."""
+        if not extra:
+            return gb
+        out = dict(gb)
+        for k, v in extra.items():
+            v = np.asarray(v)
+            dtype = {"x0": np.float32, "frontier0": bool}.get(k, v.dtype)
+            out[k] = torch.tensor(v.astype(dtype, copy=False),
+                                  device=self.device)
+        return out
 
     def run_queries(self, extra: Optional[dict] = None):
         raise NotImplementedError(
@@ -383,7 +402,10 @@ class GopherEngine:
         overflowed pairs in ``self.tier_plan``, so the next run has the
         width this pair just showed it needs. A phased run never reruns —
         an overflowing superstep already routed dense — so it only
-        escalates the phases that spilled."""
+        escalates the phases that spilled. The rerun starts from ``gb``,
+        the block the aborted attempt ran on (a resume's ``x0`` and
+        ``frontier0`` included). The fused route passes ``gb=None``: its
+        tally observes no overflow, so it never reaches the rerun."""
         P, cap = self.pg.num_parts, self.pg.mailbox_cap
         t = tally.telemetry(steps, self.exchange, P, cap, self.tier_plan)
         old = self.tier_plan
@@ -733,7 +755,9 @@ class GopherEngine:
                 tally.liters += li
                 tally.sent += nsent
                 tally.pairs += pairs
-                step += int(it)
+                # an entered resident stretch is at least one superstep,
+                # as the folded loop's first round is
+                step += max(int(it), 1)
             else:
                 while not done and step < max_s:
                     x, ch, fr, ap = mega.resident_step_semiring(

@@ -21,8 +21,10 @@ JAX package ``vmap``s them per partition):
 
 The staged sweeps run over the flat (P·v_max,) state and the block's flat
 adjacency ``gb["adj"]`` (``kernels.flat.flat_adjacency``): one kernel
-launch per sweep for all P partitions. Still to come (ROADMAP A4):
-``resume`` from a previous fixpoint.
+launch per sweep for all P partitions. ``SemiringProgram(resume=True)``
+starts from a previous fixpoint: the incremental algorithms
+(``algorithms.incremental``) hand its state and dirty seed to
+``GopherEngine.run(extra=)``.
 """
 from __future__ import annotations
 
@@ -50,13 +52,20 @@ class SemiringProgram:
     """Idempotent-semiring fixpoint programs: CC, SSSP, BFS, MaxVertex.
 
     The state carries the send set ``changed_v`` and the active frontier,
-    both seeded with ``vmask`` on a cold start; the local fixpoint is a
-    masked sweep gated on the frontier, bitwise identical to the unmasked
-    one for idempotent ⊕."""
+    both seeded with ``vmask`` on a cold start and with ``gb["frontier0"]``
+    on an incremental resume; the local fixpoint is a masked sweep gated on
+    the frontier, bitwise identical to the unmasked one for idempotent ⊕. A
+    partition whose frontier is empty runs ZERO sweeps that superstep.
+
+    ``resume=True`` starts from a previous fixpoint: ``gb["x0"]`` is the
+    prior state and ``gb["frontier0"]`` the dirty seed set (see
+    gofs.temporal / algorithms.incremental); both arrive via
+    ``GopherEngine.run(extra=...)``."""
     semiring: str                       # min_plus | max_first
-    init_fn: Optional[Callable] = None  # gb -> x0 (P, v_max)
+    init_fn: Optional[Callable] = None  # gb -> x0 (P, v_max); unused on resume
     max_local_iters: Optional[int] = None
     fixpoint_unroll: int = 1            # sweeps fused per loop iteration
+    resume: bool = False                # start from gb["x0"] / gb["frontier0"]
 
     @property
     def combine(self) -> str:
@@ -70,6 +79,9 @@ class SemiringProgram:
         return "semiring" if self.max_local_iters is None else None
 
     def init(self, gb) -> dict:
+        if self.resume:
+            seed = gb["frontier0"] & gb["vmask"]
+            return {"x": gb["x0"], "changed_v": seed, "frontier": seed}
         return {"x": self.init_fn(gb), "changed_v": gb["vmask"].clone(),
                 "frontier": gb["vmask"].clone()}
 

@@ -19,6 +19,9 @@ import numpy as np
 import scipy.sparse as sp
 
 PAD = -1  # sentinel neighbor index
+# the lane padding of every padded axis: the ELL rows, the mailbox cap, the
+# block's bins, and the growth of each under a delta
+LANE_PAD = 8
 
 
 def dedupe_edges_min(n: int, src: np.ndarray, dst: np.ndarray,
@@ -121,7 +124,8 @@ class Graph:
 
 
 def ell_from_csr(indptr: np.ndarray, indices: np.ndarray, weights: np.ndarray,
-                 n_rows: int, d_max: Optional[int] = None, lane_pad: int = 8):
+                 n_rows: int, d_max: Optional[int] = None,
+                 lane_pad: int = LANE_PAD):
     """Pack CSR rows into ELL: (nbr, wgt) of shape (n_rows, D) with PAD fill.
 
     D is padded to a multiple of ``lane_pad``. Vectorized — no per-row
@@ -202,7 +206,7 @@ class PartitionedGraph:
 
 
 def partition_graph(g: Graph, assign: np.ndarray, num_parts: int,
-                    lane_pad: int = 8) -> PartitionedGraph:
+                    lane_pad: int = LANE_PAD) -> PartitionedGraph:
     """Materialize a PartitionedGraph from a global graph + vertex->part map.
 
     This is the GoFS build step: local ELL slices, sub-graph discovery (scipy

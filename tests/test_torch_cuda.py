@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import algorithms
 from repro_torch.core import (GopherEngine, PhasedTierPlan, SemiringProgram,
                               graph_block, init_max_vertex, make_sssp_init)
 from repro_torch.gofs import (bfs_grow_partition, partition_graph,
@@ -27,6 +28,7 @@ from repro_torch.kernels.ref import (outbox_compact_plan_ref, outbox_pack_ref,
                                      semiring_spmv_ref)
 from repro_torch.kernels.semiring_spmv import (semiring_spmv_cuda,
                                                semiring_spmv_frontier_cuda)
+from _patched_versions import patched_versions, resume_all
 
 pytestmark = pytest.mark.cuda
 
@@ -373,6 +375,92 @@ def test_engine_resident_mode_is_one_k4_launch(cuda_device, semiring):
     assert np.array_equal(s["x"], sc["x"])
     assert t.supersteps == tc.supersteps
     assert np.array_equal(t.local_iters, tc.local_iters)
+
+
+# ---------------- resumed runs on patched blocks (K3, K4) ----------------
+
+PATCHED_GRAPHS = {
+    "road": (lambda: road_grid(60, 60, seed=4, weighted=True), 6),
+    "powerlaw": (lambda: powerlaw_social(3000, m=5, seed=2), 4),
+}
+_PATCHED = {}
+
+
+def _patched_reference(graph, route):
+    """The versions of one graph, the CPU's resumes of them on ``route``
+    and its cold CC and SSSP runs on each version, made once a module."""
+    if graph not in _PATCHED:
+        make, P = PATCHED_GRAPHS[graph]
+        versions = patched_versions(make(), P)
+        colds = [r for res in versions[1:] for r in (
+            algorithms.connected_components(res.pg, device="cpu")[0],
+            algorithms.sssp(res.pg, 0, device="cpu")[0])]
+        _PATCHED[graph] = (versions, colds)
+    versions, colds = _PATCHED[graph]
+    if (graph, route) not in _PATCHED:
+        _PATCHED[graph, route] = resume_all(
+            *versions, "cpu", exchange="megastep", resident=route == "k4")
+    return versions, _PATCHED[graph, route], colds
+
+
+@pytest.mark.parametrize("walk", [None, "dense", "list"])
+@pytest.mark.parametrize("route", ["k3", "k4"])
+@pytest.mark.parametrize("graph", sorted(PATCHED_GRAPHS))
+def test_incremental_resume_on_patched_blocks_matches_cpu(
+        cuda_device, monkeypatch, graph, route, walk):
+    """Resumed CC and SSSP on the card, on blocks patched with mid-row PAD
+    holes, a hub promotion and a grown cap, equal the port's CPU run of the
+    same resumes (results, supersteps, local_iters) and cold runs on each
+    version: through K3 (one launch a superstep) or, with the resident
+    plan, K4 (one launch a run), each walk forced through the wrapper's
+    constant or left to it."""
+    frac = {None: None, "dense": 0.0, "list": 2.0}[walk]
+    if frac is not None:
+        monkeypatch.setattr(
+            mega, "K3_DENSE_FRONTIER" if route == "k3" else
+            "K4_DENSE_FRONTIER", frac)
+    versions, want, colds = _patched_reference(graph, route)
+    _build.reset_launches()
+    got = resume_all(*versions, cuda_device, exchange="megastep",
+                      resident=route == "k4")
+    for i, ((x, t), (xw, tw)) in enumerate(zip(got, want)):
+        assert np.array_equal(x, xw), i
+        assert np.array_equal(x, colds[i]), i
+        assert t.supersteps == tw.supersteps, i
+        assert np.array_equal(t.local_iters, tw.local_iters), i
+    resumes = 4
+    if route == "k3":
+        assert _build.launches["resident_megastep"] == 0
+        assert _build.launches["megastep_semiring"] >= resumes
+    else:
+        # the cold runs on version 0 take K3; each resume one K4 launch
+        assert _build.launches["resident_megastep"] == resumes
+
+
+@pytest.mark.parametrize("route", ["k3", "k4"])
+def test_quiesced_resume_runs_no_sweep_on_the_card(cuda_device, route):
+    """A fixpoint resumed with an empty seed: one launch, no partition
+    sweeps, the state unchanged, and one superstep, as the CPU run counts:
+    K4 runs no round, and the engine counts the resident stretch it
+    entered as one."""
+    g = road_grid(120, 120, seed=4, weighted=True)
+    pg = partition_graph(g, bfs_grow_partition(g, 6, seed=0), 6)
+    d = algorithms.sssp(pg, 0, device=cuda_device)[0]
+    plan = PhasedTierPlan.from_graph(pg) if route == "k4" else None
+    extra = {"x0": np.where(pg.vmask, d, np.inf).astype(np.float32),
+             "frontier0": np.zeros_like(pg.vmask)}
+    prog = SemiringProgram("min_plus", resume=True)
+    _build.reset_launches()
+    s, t = GopherEngine(pg, prog, exchange="megastep", tier_plan=plan,
+                        device=cuda_device).run(extra=extra)
+    sc, tc = GopherEngine(pg, prog, exchange="megastep", tier_plan=plan,
+                          device="cpu").run(extra=extra)
+    key = "megastep_semiring" if route == "k3" else "resident_megastep"
+    assert _build.launches[key] == 1
+    assert np.array_equal(s["x"], extra["x0"])
+    assert np.array_equal(sc["x"], extra["x0"])
+    assert t.local_iters.sum() == tc.local_iters.sum() == 0
+    assert t.supersteps == tc.supersteps == 1
 
 
 @pytest.mark.parametrize("density", [0.0, 0.01, 0.5, 1.0])

@@ -166,8 +166,10 @@ UNSUPPORTED = {
         pg, _cc_program(), device="cpu").run(checkpointer=object(),
                                              checkpoint_every=2),
                      "ROADMAP A6"),
-    "extra": (lambda pg: GopherEngine(pg, _cc_program(), device="cpu").run(
-        extra={"x0": np.zeros(1)}), "ROADMAP A4"),
+    "extra": (lambda pg: GopherEngine(
+        pg, SemiringProgram("max_first", resume=True), device="cpu").run(
+        extra={"x0": np.where(pg.vmask, pg.global_id, -np.inf),
+               "frontier0": pg.vmask}), None),
     "run_queries": (lambda pg: GopherEngine(
         pg, _cc_program(), device="cpu").run_queries(), "ROADMAP A5"),
 }

@@ -29,6 +29,10 @@ GENERATORS = {
 }
 PARTITIONERS = ["hash_partition", "bfs_grow_partition",
                 "subgraph_balanced_partition"]
+DEVICE_KEYS = {"nbr", "wgt", "vmask", "out_degree", "global_id", "sg_id",
+               "re_src", "re_wgt", "re_dst_part", "re_dst_local", "re_slot",
+               "part_index", "ob_inv", "ib_lo", "ib_hub_idx", "ib_hub",
+               "wire_ewma"}
 
 
 def _graphs(name):
@@ -78,7 +82,7 @@ def test_host_block_matches(name):
     tpg = t_partition_graph(tg, tgofs.bfs_grow_partition(tg, 4, seed=0), 4)
     jb = jblocks.host_graph_block(jpg)
     tb = tblocks.host_graph_block(tpg)
-    assert set(tb) <= set(jb)
+    assert set(tb) == set(jb)
     for k, v in tb.items():
         assert v.dtype == jb[k].dtype, k
         assert np.array_equal(v, jb[k]), k
@@ -87,9 +91,32 @@ def test_host_block_matches(name):
     # the upload: torch tensors equal to the JAX device block's arrays
     jdev = jblocks.device_block(jb)
     tdev = tblocks.graph_block(tpg, "cpu")
+    # the device block leaves the planning metadata and the binned
+    # adjacency behind, and the upload of a host block equals the cold build
+    assert set(tdev) == DEVICE_KEYS
+    assert set(tblocks.device_block(tb, "cpu")) == DEVICE_KEYS
     for k, v in tdev.items():
         assert isinstance(v, torch.Tensor) and v.device.type == "cpu", k
         assert np.array_equal(v.numpy(), np.asarray(jdev[k])), k
+
+
+def test_graph_block_builds_no_binned_adjacency(monkeypatch):
+    """The engine's cold build skips the binned adjacency (O(E) host work
+    only the serving sweeps need); the host block carries it."""
+    tg = tgofs.road_grid(6, 7, seed=1)
+    tpg = t_partition_graph(tg, tgofs.bfs_grow_partition(tg, 3, seed=0), 3)
+    hb = tblocks.host_graph_block(tpg)
+    assert set(tblocks._BINNED) <= set(hb)
+
+    def refuse(*a, **kw):
+        raise AssertionError("graph_block built the binned adjacency")
+
+    monkeypatch.setattr(tblocks, "_binned_adjacency", refuse)
+    gb = tblocks.graph_block(tpg, "cpu")
+    assert set(gb) == DEVICE_KEYS
+    for k, v in gb.items():
+        assert np.array_equal(v.numpy(), tblocks.device_block(hb, "cpu")[k]
+                              .numpy()), k
 
 
 def test_host_block_keeps_attrs():

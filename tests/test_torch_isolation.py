@@ -52,8 +52,9 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_every_new_module_is_covered():
-    """The modules of the staged route, of the tier plans and of LM
-    serving (dense and ssm) are among the files checked above."""
+    """The modules of the staged route, of the tier plans, of LM serving
+    (dense and ssm) and of the store and incremental analytics are among
+    the files checked above."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("core/messages.py", "core/subgraph.py", "kernels/flat.py",
                 "kernels/outbox_compact.py", "core/tiers.py",
@@ -61,5 +62,7 @@ def test_every_new_module_is_covered():
                 "models/layers.py", "models/transformer.py",
                 "models/convert.py", "models/model.py", "models/ssm.py",
                 "kernels/flash_attention.py", "kernels/mamba_scan.py",
-                "training/train_step.py", "launch/serve.py"):
+                "training/train_step.py", "launch/serve.py",
+                "gofs/store.py", "gofs/temporal.py",
+                "algorithms/incremental.py"):
         assert f"src/repro_torch/{mod}" in names, mod

@@ -108,9 +108,35 @@ failure exits non-zero and prints no result:
       (6) the delta appended to the store and ``materialize(version=1)``
       equal to ``apply_delta`` field for field. One JSON line per run as in
       4a, the cold runs' beside the resumes';
+   g. Gopher Serve on 4a's graphs (sources drawn by numpy, seed 11; only
+      the first run has a warm-up call): (1) a
+      BFS batch of 8 queries through ``run_queries`` on the fused route
+      (``megastep_semiring_batched``, plain torch ops: no kernel), each
+      lane bit-equal to the fused scalar ``bfs()`` from its source, no
+      query converging after the batch; (2) the same batch on 'dense' and
+      'compact' (K5's query-batched pack) bit-equal to (1) with equal
+      supersteps, local_iters and query_supersteps, and on road_grid(300,
+      300) in 12 partitions 'tiered' with a too-narrow plan (it reruns
+      dense) and 'phased' bit-equal to 'dense'; (3) an SSSP batch of 4
+      bit-equal to the fused scalar ``sssp()``; (4) personalized PageRank,
+      4 queries, 30 iterations ('dense', what 'auto' gives it) within
+      rtol 1e-5, atol 0 of a float64 power iteration with the one-hot
+      teleport; (5) ``GraphQueryService`` over both graphs, its engines
+      built by its first drain: 16 bfs/reach queries on the unit graph,
+      4 sssp and 4 ppr on the weighted one and an out-of-range source in
+      one drain, every answer equal to (1)-(4)'s lanes or a scalar run,
+      the source rejected, 3 batches, then 2 repeats that are cache hits;
+      (6) ``enable_landmarks`` (8): ``approx_sssp`` at or above (3)'s exact
+      distances and equal to a landmark's own vector from it, both within
+      1e-4 relative (float32 path sums of up to some 2,800 edges, added
+      from either end), then ``apply_delta`` with 4f's delta and
+      ``rebuild_landmarks``: the refreshed vectors bit-equal to a cold
+      ``LandmarkCache.build`` on version 1. One JSON line per run as in 4a,
+      the service's summary and per-batch latency, the landmark times, and
+      one batched sweep's device time at Q = 4, 8, 16;
 5. kernel times at the paths' shapes: one ``{"kernels": [...]}`` line.
-   ``launches`` counts phase 4's timed runs but 4f's, which stand beside
-   it as ``incremental_launches``.
+   ``launches`` counts phase 4's timed runs but 4f's and 4g's, which stand
+   beside it as ``incremental_launches`` and ``serving_launches``.
    K3 is also held at the main path's CC superstep 0 with each walk
    forced. Its ``bound_ms`` counts only the rows with an active
    in-neighbour, summed over the plain version's sweeps, over the lanes
@@ -902,21 +928,27 @@ def main_path(dev):
     plain_k4 = tier_path(dev, pg, src, results, staged, path_launches, truth)
     breakdown(pg, upg, src)
     incremental_launches = dict.fromkeys(_build.launches, 0)
-    incremental_path(dev, g, ug, pg, upg, src, results, incremental_launches)
-    return pg, path_launches, incremental_launches, plain_k4
+    delta = incremental_path(dev, g, ug, pg, upg, src, results,
+                             incremental_launches)
+    serving_launches = dict.fromkeys(_build.launches, 0)
+    serving_path(dev, g, ug, pg, upg, delta, serving_launches)
+    return pg, path_launches, incremental_launches, serving_launches, plain_k4
 
 
 def drive(dev, runs: dict, path_launches: dict, n: int,
-          record=None) -> dict:
+          record=None, warm: bool = True) -> dict:
     """Run each ``name: (fn, kernels)`` once to warm up, then once more
     with the launch counts set to 0 just before it and read just after; fail
     if a kernel of its path was never launched. One JSON line per run;
     returns the timed runs' outputs, and puts each timed run's launch
-    counts into ``record`` where one is given."""
+    counts into ``record`` where one is given. ``warm=False`` skips the
+    warm-up call, where an earlier run of the same kind in this process
+    already built the kernels and primed the allocator (each run builds
+    its own engine either way): ``first_s`` is then the timed call's."""
     import torch
     from repro_torch.kernels import _build
     first = {}
-    for name, (fn, _) in runs.items():               # warm-up, not counted
+    for name, (fn, _) in runs.items() if warm else ():   # not counted
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -944,7 +976,8 @@ def drive(dev, runs: dict, path_launches: dict, n: int,
             "algorithm": name, "n": n, "parts": 12,
             "exchange": tele.exchange, "supersteps": tele.supersteps,
             "local_iters_sum": int(tele.local_iters.sum()),
-            "first_s": first[name], "warm_s": secs, "launches": launches,
+            "first_s": first.get(name, secs), "warm_s": secs,
+            "launches": launches,
             "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}))
     return results
 
@@ -1661,6 +1694,339 @@ def incremental_path(dev, g, ug, pg, upg, src, fused, launches_4f):
     log("incremental path checks: store round trip, verify_host_block "
         "clean, fused/staged/resident resumes = cold runs = scipy, the "
         "removal delta = cold runs, materialize(1) = apply_delta — all agree")
+    return delta
+
+
+# ---------------- phase 4g: Gopher Serve, query batches at RN -------------
+
+SERVE_SEED = 11                 # the sources of phase 4g's batches
+BFS_Q, SSSP_Q, PPR_Q = 8, 4, 4  # 4g's batch widths (1), (3), (4)
+LANDMARKS = 8                   # 4g (6)
+SWEEP_QS = (4, 8, 16)           # the widths 4g times one batched sweep at
+BREAKDOWN_STEPS = 2             # the supersteps of 4g's profiled batch
+LANDMARK_RTOL = 1e-4            # float32 path sums of some 2,800 edges
+
+
+def ppr_reference(g, sources, iters: int = 30) -> np.ndarray:
+    """Personalized PageRank in float64 from each source: the one-hot
+    teleport, unit-weight pulls, the dangling mass sent back through the
+    teleport — BatchedPersonalizedPageRank's arithmetic. (Q, n)."""
+    a = g.csr().copy()            # its data would alias g.weights
+    a.data[:] = 1.0
+    outdeg = g.out_degree.astype(np.float64)
+    out = np.zeros((len(sources), g.n))
+    for q, s in enumerate(sources):
+        e = np.zeros(g.n)
+        e[s] = 1.0
+        r = e.copy()
+        for _ in range(iters):
+            contrib = np.where(outdeg > 0, r / np.maximum(outdeg, 1), 0)
+            r = 0.15 * e + 0.85 * (a @ contrib + r[outdeg == 0].sum() * e)
+        out[q] = r
+    return out
+
+
+def held_ppr(got, want, what: str) -> float:
+    """PPR held to the float64 reference: allclose at rtol 1e-5, atol 0
+    (the walk's unreached vertices are exact zeros on both sides); returns
+    the max relative error."""
+    if not np.allclose(got, want, rtol=1e-5, atol=0):
+        fail(f"{what}: not within rtol 1e-5 of the float64 reference")
+    nz = want != 0
+    return float((np.abs(got[nz] - want[nz]) / want[nz]).max())
+
+
+def scalar_lanes(fn, pg, sources, dev) -> np.ndarray:
+    """(Q, n): the fused scalar run (K3) from each source, global order."""
+    return np.stack([gather(pg, fn(pg, int(s), device=dev)[0])
+                     for s in sources])
+
+
+def counting_sweeps(fn, sweeps: dict, name: str):
+    """``fn`` with its two-bin frontier sweeps counted: ``sweeps[name]`` is
+    (sweeps, wall seconds) of its last call (the fused route reads
+    ``megastep``'s name of the sweep, the staged route ``flat``'s)."""
+    import torch
+    from repro_torch.kernels import flat
+    from repro_torch.kernels import megastep as mega
+
+    def run():
+        n = [0]
+        inner = flat.binned_sweep_frontier
+
+        def counted(*args):
+            n[0] += 1
+            return inner(*args)
+        mega.binned_sweep_frontier = flat.binned_sweep_frontier = counted
+        t = time.perf_counter()
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+            return out
+        finally:
+            mega.binned_sweep_frontier = flat.binned_sweep_frontier = inner
+            sweeps[name] = (n[0], time.perf_counter() - t)
+    return run
+
+
+def sweep_times(dev, upg, gb) -> dict:
+    """ms of one batched two-bin sweep (``megastep.sweep_flat_batched``)
+    over the RN graph at each width in SWEEP_QS, by CUDA events over 20
+    sweeps after 3, with 5 % of the (row, lane) frontier set."""
+    import torch
+    from repro_torch.kernels import megastep as mega
+    cm = mega.compose_mailbox(gb, adjacency="binned")
+    out = {}
+    for q in SWEEP_QS:
+        gen = torch.Generator(device=dev).manual_seed(q)
+        x = torch.rand((cm["n"], q), device=dev, generator=gen)
+        f = torch.rand((cm["n"], q), device=dev, generator=gen) < 0.05
+        out[q] = cuda_ms(lambda: mega.sweep_flat_batched(x, f, cm,
+                                                         "min_plus"), reps=20)
+    return out
+
+
+def serving_path(dev, g, ug, pg, upg, delta, launches_4g):
+    """Phase 4g: Gopher Serve at RN scale, each run checked (see the module
+    docstring). ``delta`` is phase 4f's 1 % reopened-segment delta; the
+    timed runs' launch counts go into ``launches_4g``."""
+    import torch
+    from repro_torch import algorithms
+    from repro_torch.core import (GopherEngine, TierPlan, device_block,
+                                  host_graph_block)
+    from repro_torch.gofs import bfs_grow_partition, partition_graph, road_grid
+    from repro_torch.kernels import _build
+    from repro_torch.serving import (BatchedPersonalizedPageRank,
+                                     BatchedSemiringProgram,
+                                     GraphQueryService, LandmarkCache,
+                                     gather_query_results, ppr_query_seed,
+                                     sssp_query_init)
+    t_phase = t0 = time.perf_counter()
+    rng = np.random.default_rng(SERVE_SEED)
+    srcs = rng.choice(g.n, 32, replace=False)
+    bfs_src, sssp_src = srcs[:BFS_Q], srcs[8:8 + SSSP_Q]
+    ppr_src, more_src = srcs[12:12 + PPR_Q], srcs[16:22]
+    ugb = device_block(host_graph_block(upg), dev, binned=True)
+    wgb = device_block(host_graph_block(pg), dev, binned=True)
+    log(json.dumps({"serving_setup_s": time.perf_counter() - t0,
+                    "sources": {"bfs": bfs_src.tolist(),
+                                "sssp": sssp_src.tolist(),
+                                "ppr": ppr_src.tolist()}}))
+
+    def batch(pgx, gbx, q, init, exchange="auto", plan=None, ppr=False,
+              max_s=4096):
+        if ppr:
+            prog = BatchedPersonalizedPageRank(pgx.n_global, q, num_iters=30)
+            key = "qseed"
+        else:
+            prog = BatchedSemiringProgram("min_plus", q)
+            key = "qinit"
+
+        def run():
+            eng = GopherEngine(pgx, prog, gb=gbx, exchange=exchange,
+                               tier_plan=plan, device=dev,
+                               max_supersteps=64 if ppr else max_s)
+            return eng.run_queries(extra={key: init})
+        return run
+
+    # (1)-(4): the batches on the RN graphs; the first after a warm-up
+    bfs_init = sssp_query_init(upg, bfs_src)
+    sweeps = {}
+    out = drive(dev, {"bfs_batch": (counting_sweeps(
+        batch(upg, ugb, BFS_Q, bfs_init), sweeps, "bfs_batch"), [])},
+        launches_4g, g.n)
+    runs = {
+        "bfs_batch_dense": (batch(upg, ugb, BFS_Q, bfs_init, "dense"), []),
+        "bfs_batch_compact": (batch(upg, ugb, BFS_Q, bfs_init, "compact"),
+                              ["outbox_pack"]),
+        "sssp_batch": (batch(pg, wgb, SSSP_Q,
+                             sssp_query_init(pg, sssp_src)), []),
+        "ppr_batch": (batch(pg, wgb, PPR_Q, ppr_query_seed(pg, ppr_src),
+                            ppr=True), []),
+    }
+    runs = {k: (counting_sweeps(fn, sweeps, k), kern)
+            for k, (fn, kern) in runs.items()}
+    out.update(drive(dev, runs, launches_4g, g.n, warm=False))
+    for name, (_, t) in out.items():
+        log(json.dumps({"serving_run": name, "queries": t.query_supersteps
+                        .size, "query_supersteps": t.query_supersteps
+                        .tolist(), "exchange": t.exchange,
+                        "sweeps": sweeps[name][0],
+                        "ms_per_sweep": sweeps[name][1] * 1e3
+                        / sweeps[name][0] if sweeps[name][0] else None}))
+    # where a batch's time goes: the BFS batch's first BREAKDOWN_STEPS
+    # supersteps, timed, then again under the profiler
+    head = counting_sweeps(batch(upg, ugb, BFS_Q, bfs_init,
+                                 max_s=BREAKDOWN_STEPS), sweeps, "head")
+    head()
+    bd = device_breakdown(head, sweeps["head"][1] * 1e3,
+                          ("outbox_pack", "pack_kernel"))
+    log(json.dumps({"serving_breakdown": {
+        "run": f"bfs_batch, supersteps 0-{BREAKDOWN_STEPS - 1}",
+        "sweeps": sweeps["head"][0], **bd}}))
+    bfs = gather_query_results(upg, out["bfs_batch"][0]["x"])
+    t = out["bfs_batch"][1]
+    want = scalar_lanes(algorithms.bfs, upg, bfs_src, dev)
+    if not np.array_equal(bfs, want):
+        fail("bfs_batch: lanes differ from the scalar bfs() runs")
+    if not (t.query_supersteps <= t.supersteps).all():
+        fail("bfs_batch: a query converged after the batch")
+    for ex in ("dense", "compact"):
+        st, te = out[f"bfs_batch_{ex}"]
+        if not np.array_equal(st["x"], out["bfs_batch"][0]["x"]):
+            fail(f"bfs_batch_{ex}: lanes differ from the megastep batch")
+        if (te.supersteps != t.supersteps
+                or not np.array_equal(te.local_iters, t.local_iters)
+                or not np.array_equal(te.query_supersteps,
+                                      t.query_supersteps)):
+            fail(f"bfs_batch_{ex}: supersteps or local_iters differ")
+    sssp = gather_query_results(pg, out["sssp_batch"][0]["x"])
+    if not np.array_equal(sssp, scalar_lanes(algorithms.sssp, pg, sssp_src,
+                                             dev)):
+        fail("sssp_batch: lanes differ from the scalar sssp() runs")
+    ppr_want = ppr_reference(g, ppr_src)
+    ppr = gather_query_results(pg, out["ppr_batch"][0]["r"])
+    ppr_err = held_ppr(ppr, ppr_want, "ppr_batch")
+
+    # (2): tiered with a too-narrow plan (it reruns dense) and phased, on a
+    # 300 x 300 grid, held to dense there
+    sg = road_grid(300, 300, drop_frac=0.03, seed=1)
+    spg = partition_graph(sg, bfs_grow_partition(sg, 12, seed=0), 12)
+    shb = host_graph_block(spg)
+    sgb = device_block(shb, dev, binned=True)
+    occ = shb["wire_ewma"]
+    narrow = TierPlan.build(np.zeros_like(occ), occ, spg.mailbox_cap)
+    s_init = sssp_query_init(spg, rng.choice(sg.n, BFS_Q, replace=False))
+    small = {
+        "small_bfs_batch_dense": (batch(spg, sgb, BFS_Q, s_init, "dense"),
+                                  []),
+        "small_bfs_batch_tiered": (batch(spg, sgb, BFS_Q, s_init, "tiered",
+                                         narrow), ["outbox_pack"]),
+        "small_bfs_batch_phased": (batch(spg, sgb, BFS_Q, s_init, "phased"),
+                                   ["outbox_pack"]),
+    }
+    sout = drive(dev, small, launches_4g, sg.n, warm=False)
+    ref = sout["small_bfs_batch_dense"]
+    for name in ("small_bfs_batch_tiered", "small_bfs_batch_phased"):
+        st, te = sout[name]
+        if (not np.array_equal(st["x"], ref[0]["x"])
+                or te.supersteps != ref[1].supersteps
+                or not np.array_equal(te.query_supersteps,
+                                      ref[1].query_supersteps)):
+            fail(f"{name}: differs from the dense batch")
+    if not sout["small_bfs_batch_tiered"][1].retried:
+        fail("small_bfs_batch_tiered: the too-narrow plan did not rerun")
+
+    # one batched sweep's device time at each width
+    sweep_ms = sweep_times(dev, upg, ugb)
+
+    # (5): the service over both graphs, one mixed stream
+    svc = GraphQueryService({"rn": pg, "rn_unit": upg}, device=dev)
+    stream = ([("bfs", "rn_unit", int(s)) for s in bfs_src]
+              + [("bfs", "rn_unit", int(s)) for s in more_src]
+              + [("reach", "rn_unit", (int(bfs_src[0]), int(bfs_src[1]))),
+                 ("reach", "rn_unit", (int(bfs_src[2]), int(bfs_src[3])))]
+              + [("sssp", "rn", int(s)) for s in sssp_src]
+              + [("ppr", "rn", int(s)) for s in ppr_src]
+              + [("sssp", "rn", g.n + 5)])
+    for kind, gname, s in stream:
+        svc.submit(kind, gname, s)
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    resp = svc.drain()
+    drain_s = time.perf_counter() - t0
+    repeats = [svc.query("bfs", "rn_unit", int(bfs_src[0])),
+               svc.query("sssp", "rn", int(sssp_src[1]))]
+    for k, c in _build.launches.items():
+        launches_4g[k] += c
+    more = scalar_lanes(algorithms.bfs, upg, more_src, dev)
+    lane = {("bfs", int(s)): bfs[i] for i, s in enumerate(bfs_src)}
+    lane.update({("bfs", int(s)): more[i] for i, s in enumerate(more_src)})
+    lane.update({("sssp", int(s)): sssp[i] for i, s in enumerate(sssp_src)})
+    for i, (kind, gname, s) in enumerate(stream):
+        r = resp[i]
+        if kind == "sssp" and s == g.n + 5:
+            if r.error is None or "out of range" not in r.error:
+                fail(f"service: source {s} was not rejected")
+            continue
+        if r.error is not None or r.cached:
+            fail(f"service: {kind} {s}: error {r.error}, cached {r.cached}")
+        if kind == "ppr":
+            held_ppr(r.result, ppr_want[list(ppr_src).index(s)],
+                     f"service ppr {s}")
+        elif kind == "reach":
+            if not np.array_equal(r.result, np.minimum(lane["bfs", s[0]],
+                                                       lane["bfs", s[1]])):
+                fail(f"service: reach {s} differs from its seeds' BFS")
+        elif not np.array_equal(r.result, lane[kind, s]):
+            fail(f"service: {kind} {s} differs from the batch's lane")
+    if not all(r.cached and r.error is None for r in repeats):
+        fail("service: a repeated query was not a cache hit")
+    if not (np.array_equal(repeats[0].result, lane["bfs", int(bfs_src[0])])
+            and np.array_equal(repeats[1].result,
+                               lane["sssp", int(sssp_src[1])])):
+        fail("service: a cache hit differs from its first answer")
+    summary = svc.stats.summary()
+    if (summary["batches"], summary["rejected"], summary["cache_hits"]) != (
+            3, 1, 2):
+        fail(f"service: {summary}")
+    log(json.dumps({"service": {
+        "queries": len(stream), "drain_s": drain_s, "summary": summary,
+        "batch_latency_ms": {
+            f"{q.graph}/{q.family}": max(
+                r.latency_s for r in resp.values()
+                if r.error is None and r.query.graph == q.graph
+                and r.query.family == q.family) * 1e3
+            for q in {r.query for r in resp.values() if r.error is None}},
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}}))
+
+    # (6): landmarks, then phase 4f's delta applied through the service
+    t0 = time.perf_counter()
+    lc = svc.enable_landmarks("rn", LANDMARKS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    # the bounds hold in exact arithmetic; in float32 a path's sum rounds
+    # otherwise when it is added up from the landmark than from the source
+    deficit = 0.0
+    for i, s in enumerate(sssp_src):
+        d, up = sssp[i], lc.approx_sssp(int(s))
+        fin = np.isfinite(d)
+        if not np.array_equal(np.isfinite(up), fin):
+            fail(f"approx_sssp({s}) is finite where the distance is not")
+        rel = (d[fin] - up[fin]) / np.maximum(d[fin], 1e-30)
+        deficit = max(deficit, float(rel.max()))
+    if deficit > LANDMARK_RTOL:
+        fail(f"approx_sssp is {deficit:.3e} below the exact distance")
+    for i, lm in enumerate(lc.landmarks):
+        if not np.allclose(lc.approx_sssp(int(lm)), lc.dist[i],
+                           rtol=LANDMARK_RTOL, atol=0):
+            fail(f"approx_sssp from landmark {lm} is not its distance")
+    t0 = time.perf_counter()
+    svc.apply_delta("rn", delta, rebuild_landmarks=True)
+    torch.cuda.synchronize()
+    apply_s = time.perf_counter() - t0
+    lc1 = svc.landmark_caches["rn"]
+    t0 = time.perf_counter()
+    cold = LandmarkCache.build(svc.graphs["rn"], landmarks=lc.landmarks,
+                               device=dev)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    if not np.array_equal(lc1.dist, cold.dist):
+        fail("the refreshed landmarks differ from a cold build on version 1")
+    if svc.graphs["rn"].version != 1 or lc1.graph_version != 1:
+        fail("apply_delta: the graph or the landmarks are not on version 1")
+    log(json.dumps({"landmarks": {
+        "num": LANDMARKS, "build_s": build_s, "apply_delta_s": apply_s,
+        "delta_apply_s": list(svc.stats.delta_apply_s),
+        "cold_build_v1_s": cold_s, "telemetry": svc.landmark_telemetry("rn"),
+        "approx_below_exact_max_rel": deficit},
+        "sweep_ms": sweep_ms, "ppr_max_rel_err": ppr_err,
+        "phase_4g_s": time.perf_counter() - t_phase}))
+    log("serving path checks: bfs/sssp batches = scalar runs, dense = "
+        "compact = megastep, tiered (rerun) = phased = dense, ppr = float64 "
+        "reference, the service's answers, hits and rejection, landmark "
+        "bounds and the refresh = a cold build — all agree")
 
 
 # ---------------- phases 4d and 4e: LM serving at full width --------------
@@ -2665,7 +3031,8 @@ def main() -> None:
     check_k5_k6(dev)
     check_k7(dev)
     k8_err = check_k8(dev)
-    pg, path_launches, incremental_launches, plain_k4 = main_path(dev)
+    (pg, path_launches, incremental_launches, serving_launches,
+     plain_k4) = main_path(dev)
     for arch, op, key, piece in LM_PATHS:
         lm_path(dev, path_launches, arch, op, key, piece)
     kernels = kernel_times(dev, pg, path_launches, plain_k4)
@@ -2673,6 +3040,7 @@ def main() -> None:
                            k8_times(dev, path_launches, k8_err)]
     for row in kernels["kernels"]:
         row["incremental_launches"] = incremental_launches[row["name"]]
+        row["serving_launches"] = serving_launches[row["name"]]
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

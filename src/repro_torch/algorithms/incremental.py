@@ -33,6 +33,8 @@ Each entry point runs on ``device`` (the card unless the caller asks for
 the CPU) and takes ``gb=``, a device block of the new version — e.g.
 ``core.blocks.device_block(DeltaResult.block, device)``, the zero-repack
 patched block — so the restart skips the per-version re-pack.
+``incremental_sssp_batched`` resumes Q sources in one query-batched run
+(``serving.batched``), with the same seeds and each lane's own resets.
 """
 from __future__ import annotations
 
@@ -158,12 +160,45 @@ def incremental_sssp_batched(pg: PartitionedGraph, sources_global,
                              gb: Optional[dict] = None,
                              exchange: str = "auto", tier_plan=None,
                              device="cuda"):
-    """Q-source incremental SSSP in one query-batched run: it needs the
-    batched programs and ``GopherEngine.run_queries`` of the serving
-    subsystem."""
-    raise NotImplementedError(
-        "incremental_sssp_batched needs the query-batched serving path: "
-        "ROADMAP A5 (serving)")
+    """Q-source incremental SSSP: resume ALL query lanes from their previous
+    fixpoints in ONE query-batched run (the landmark refresh of
+    ``serving.LandmarkCache``). ``prev_dist`` is (Q, n_global) in global
+    vertex order; returns (dist (Q, n_global), Telemetry), bit-identical to
+    a cold batched run on the new graph.
+
+    The dirty seed is shared across lanes (an inserted edge can improve any
+    lane; extra frontier on a converged lane re-relaxes to the same values,
+    a no-op for idempotent ⊕), while removals reset each lane's
+    meta-reachable region to its OWN cold init before the restart. ``gb``
+    is a device block of the new version with the binned adjacency
+    (``core.blocks.device_block(DeltaResult.block, device, binned=True)``,
+    the service's shared one); ``exchange``/``tier_plan`` route the
+    restart."""
+    from repro_torch.serving.batched import (BatchedSemiringProgram,
+                                             gather_query_results,
+                                             sssp_query_init)
+    sources_global = np.asarray(sources_global, np.int64).reshape(-1)
+    L = int(sources_global.shape[0])
+    P, v_max = pg.num_parts, pg.v_max
+    prev = np.asarray(prev_dist, np.float32)
+    x0 = np.full((P, v_max, L), np.inf, np.float32)
+    for p in range(P):
+        m = pg.vmask[p]
+        x0[p][m] = prev[:, pg.global_id[p][m]].T
+    frontier = np.asarray(delta.dirty_insert, bool).copy()
+    if delta.dirty_remove.any():
+        reset = _meta_reachable(pg, np.asarray(delta.dirty_remove, bool))
+        init = sssp_query_init(pg, sources_global)      # (P, v_max, L)
+        x0[reset] = init[reset]
+        frontier |= reset | _boundary_sources(pg, reset)
+    frontier &= pg.vmask
+    qf = np.broadcast_to(frontier[..., None], x0.shape)
+    prog = BatchedSemiringProgram(semiring="min_plus", num_queries=L,
+                                  resume=True)
+    eng = GopherEngine(pg, prog, backend=backend, mesh=mesh, gb=gb,
+                       exchange=exchange, tier_plan=tier_plan, device=device)
+    state, tele = eng.run_queries(extra={"qx0": x0, "qfrontier0": qf})
+    return gather_query_results(pg, state["x"]), tele
 
 
 def incremental_connected_components(

@@ -8,9 +8,10 @@ from a PartitionedGraph: the raw GoFS fields, the two-binned ELL adjacency
 from (``core.tiers``). The HOST block (numpy) is built once, O(E) host
 work; ``device_block`` uploads it as torch tensors onto one device,
 decoding the feed maps to runtime flat indices on the way and leaving the
-host-only entries behind: the planning metadata, and the binned adjacency,
-which only the serving sweeps read (ROADMAP A5). ``graph_block``, the
-engine's cold build, does not compute the binned adjacency at all.
+host-only entries behind: the planning metadata, and — unless asked for
+with ``binned=True`` — the binned adjacency, which only the serving sweeps
+(query-batched programs) read. ``graph_block``, the engine's cold build,
+computes the binned adjacency only for such a program.
 
 ``patch_host_block`` edits the previous version's HOST block in O(|delta|)
 for the temporal path (``gofs.temporal.apply_delta``): touched local ELL
@@ -48,9 +49,9 @@ _SLOT_STRIDE = 1 << 16
 # leading-axis convention).
 _HOST_ONLY = ("changed_ewma", "announce_ewma", "phase_pair_ewma")
 
-# the binned adjacency: read only by the serving sweeps (ROADMAP A5), so it
-# stays in the host block, where patch_host_block keeps it current, and off
-# the device block until then
+# the binned adjacency: read only by the serving sweeps, so it stays in the
+# host block, where patch_host_block keeps it current, and goes to the
+# device only for query-batched programs (device_block(binned=True))
 _BINNED = ("nbr_lo", "wgt_lo", "adj_hub_idx", "adj_hub_nbr", "adj_hub_wgt")
 
 
@@ -202,15 +203,18 @@ def _decode_feeds(host_gb: dict):
     return dec(host_gb["ib_lo"]), dec(host_gb["ib_hub"])
 
 
-def device_block(host_gb: dict, device) -> dict:
+def device_block(host_gb: dict, device, binned: bool = False) -> dict:
     """Upload a host block to ``device`` as torch tensors, decoding the feed
     maps to runtime flat indices (see _SLOT_STRIDE). Host-only metadata
-    (_HOST_ONLY) and the binned adjacency (_BINNED) stay behind."""
+    (_HOST_ONLY) stays behind, and so does the binned adjacency (_BINNED)
+    unless ``binned``: only query-batched programs (``serving``) read it,
+    so a scalar run's device memory holds none of it. The serving layer
+    uploads one such block a graph, which all its pooled engines share."""
     device = torch.device(device)
     ib_lo, ib_hub = _decode_feeds(host_gb)
     out = {}
     for k, v in host_gb.items():
-        if k in _HOST_ONLY or k in _BINNED:
+        if k in _HOST_ONLY or (k in _BINNED and not binned):
             continue
         if k == "ib_lo":
             v = ib_lo
@@ -220,9 +224,12 @@ def device_block(host_gb: dict, device) -> dict:
     return out
 
 
-def graph_block(pg: PartitionedGraph, device) -> dict:
+def graph_block(pg: PartitionedGraph, device, binned: bool = False) -> dict:
     """The device-side dict of per-partition tensors (leading axis P),
-    built without the binned adjacency the device block leaves behind."""
+    built without the binned adjacency unless ``binned`` (what a
+    query-batched program reads)."""
+    if binned:
+        return device_block(host_graph_block(pg), device, binned=True)
     return device_block(_engine_host_block(pg), device)
 
 

@@ -42,6 +42,14 @@ Five wire disciplines (``exchange=``):
               instead, so no run repeats, and the spilling phase is
               escalated afterwards
 
+A query-batched program (``serving.batched``, ``program.num_queries`` Q)
+runs through :meth:`GopherEngine.run_queries` on every exchange but the
+resident mode: its state is query-trailing (P, v_max, Q), its fused route
+is ``kernels.megastep.megastep_semiring_batched`` (plain torch ops, no
+kernel), its staged packs ship a Q-vector a slot (kernel K5's plan on
+'compact', 'tiered' and 'phased'), and the run halts when no lane changed
+anywhere; ``Telemetry.query_supersteps`` keeps each lane's last change.
+
 Each BSP loop is a Python loop over supersteps; the telemetry stays on the
 device until the run ends, and the halt vote (how many partitions changed,
 stacked on the phased route with the demotion streak's count) is the only
@@ -72,7 +80,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import messages as msg
-from repro_torch.core.blocks import graph_block
+from repro_torch.core.blocks import _BINNED, graph_block
 from repro_torch.core.tiers import DEMOTE_STREAK, PhasedTierPlan, TierPlan
 from repro_torch.gofs.formats import PartitionedGraph
 from repro_torch.kernels import flat, ops
@@ -99,11 +107,14 @@ def resolve_device(device) -> torch.device:
 @dataclasses.dataclass
 class Telemetry:
     """What a run records (the JAX package's Telemetry fields of the
-    local backend's single-query routes)."""
+    local backend's routes)."""
     supersteps: int
     local_iters: np.ndarray        # (P,) cumulative sweep iterations
     changed_hist: np.ndarray       # (supersteps,) #partitions changed
     messages_sent: int
+    # query-batched runs: (Q,) the superstep after which each query last
+    # changed (0 for a query that never did); None on single-query runs
+    query_supersteps: Optional[np.ndarray] = None
     # round-indexed (length supersteps + 1): round 0 is the inbox prime (the
     # initial state's messages), round s + 1 the exchange after superstep s.
     #   'dense'    PHYSICAL: the P²·cap buffer every round
@@ -140,15 +151,17 @@ class Telemetry:
 
     @staticmethod
     def model_bytes(slots: int, num_parts: int, rounds: int, cap: int,
-                    compact: bool) -> int:
-        """The dense/compact comm-volume model of a single-query run: per
-        round the dense exchange ships every pair row — P² · cap values at
-        4 B — while the compact exchange ships, per pair, a count header
-        (4 B) plus count packed slots at 8 B (value and slot id) each. (The
-        tiered and phased routes use TierSchedule's geometry instead.)"""
+                    compact: bool, num_queries: Optional[int] = None) -> int:
+        """The dense/compact comm-volume model: per round the dense exchange
+        ships every pair row — P² · cap · Q values at 4 B (Q = 1 for a
+        single query) — while the compact exchange ships, per pair, a count
+        header (4 B) plus count packed slots at 4·Q value bytes and a 4-byte
+        slot id each. (The tiered and phased routes use TierSchedule's
+        geometry instead.)"""
+        q = num_queries or 1
         if not compact:
-            return rounds * num_parts * num_parts * cap * 4
-        return slots * 8 + rounds * num_parts * num_parts * 4
+            return rounds * num_parts * num_parts * cap * q * 4
+        return slots * (4 * q + 4) + rounds * num_parts * num_parts * 4
 
 
 class _Tally:
@@ -160,8 +173,11 @@ class _Tally:
     count."""
 
     def __init__(self, P: int, max_s: int, nsent0, wire0, pairs0, device,
-                 over0=None, phases: Optional[int] = None, dstep0=None):
+                 over0=None, phases: Optional[int] = None, dstep0=None,
+                 queries: Optional[int] = None):
         self.liters = torch.zeros(P, dtype=torch.int32, device=device)
+        self.qsteps = (torch.zeros(queries, dtype=torch.int32, device=device)
+                       if queries is not None else None)
         self.hist = torch.zeros(max_s, dtype=torch.int32, device=device)
         self.whist = torch.zeros(max_s + 1, dtype=torch.int64, device=device)
         self.whist[0] = wire0
@@ -188,8 +204,11 @@ class _Tally:
             self.seg_end = [0] * phases
 
     def fold(self, step: int, nchanged, liters, nsent, wire, pairs,
-             over=None, phase: Optional[int] = None, dstep=None) -> None:
+             over=None, phase: Optional[int] = None, dstep=None,
+             changed_q=None) -> None:
         self.liters += liters
+        if changed_q is not None:
+            self.qsteps = torch.where(changed_q, step + 1, self.qsteps)
         self.hist[step] = nchanged
         self.whist[step + 1] = wire
         self.sent += nsent
@@ -207,10 +226,11 @@ class _Tally:
             self.dsteps += dstep
 
     def telemetry(self, steps: int, exchange: str, num_parts: int, cap: int,
-                  plan=None) -> Telemetry:
+                  plan=None, num_queries: Optional[int] = None) -> Telemetry:
         """Close the tally of a run of ``steps`` supersteps on route
         ``exchange``; ``plan`` is the tier plan the tiered/phased run
-        routed with (its schedules price the wire's bytes)."""
+        routed with (its schedules price the wire's bytes, a query batch's
+        ``num_queries`` values a slot)."""
         rounds = steps + 1
         whist = self.whist[:rounds].cpu().numpy()
         wire = int(whist.sum())
@@ -220,6 +240,8 @@ class _Tally:
             changed_hist=self.hist[:steps].cpu().numpy(),
             messages_sent=int(self.sent),
             wire_hist=whist, wire_slots=wire, exchange=exchange)
+        if self.qsteps is not None:
+            t.query_supersteps = self.qsteps.cpu().numpy()
         if self.chist is not None:
             t.count_hist = self.chist[:rounds].cpu().numpy()
         if self.phases is not None:
@@ -232,8 +254,9 @@ class _Tally:
             rounds_k = np.bincount(phist, minlength=K)
             scheds = [p.schedule(1) for p in plan.phase_plans()]
             t.bytes_on_wire = int(
-                wire * 4 + sum(scheds[k].round_index_slots()
-                               * int(rounds_k[k]) * 4 for k in range(K)))
+                wire * 4 * (num_queries or 1)
+                + sum(scheds[k].round_index_slots() * int(rounds_k[k]) * 4
+                      for k in range(K)))
             by_phase = np.transpose(self.pairs.cpu().numpy(), (1, 0, 2))
             over_k = np.transpose(self.over.cpu().numpy(), (1, 0, 2))
             t.phase_pair_slots = by_phase
@@ -253,10 +276,12 @@ class _Tally:
         if exchange == "megastep":
             t.bytes_on_wire = 0
         elif exchange == "tiered":
-            t.bytes_on_wire = plan.schedule(1).round_bytes(None) * rounds
+            t.bytes_on_wire = plan.schedule(1).round_bytes(num_queries) \
+                * rounds
         else:
             t.bytes_on_wire = Telemetry.model_bytes(
-                wire, num_parts, rounds, cap, exchange == "compact")
+                wire, num_parts, rounds, cap, exchange == "compact",
+                num_queries)
         if self.pairs is not None:
             t.pair_slots = self.pairs.cpu().numpy()
             t.pair_rounds = rounds
@@ -323,33 +348,56 @@ class GopherEngine:
                           else None)
         self.pg = pg
         self.program = program
+        # Q of a query-batched program (serving.batched), None otherwise:
+        # its state is query-trailing (P, v_max, Q) and it runs through
+        # run_queries. There is no resident mode for it (none in the JAX
+        # package either): its fused route is megastep_semiring_batched
+        self.num_queries = getattr(program, "num_queries", None)
         self.max_supersteps = max_supersteps
         self.exchange = exchange
-        self._gb = gb                # cached device-side graph block
+        self._gb = gb                # cached device-side graph block; a
+                                     # shared one lets many engines (the
+                                     # service's pool) use one device copy
         self._mega_cm = None         # composed mailbox, built once per engine
         self._staged_gb = None       # block + flat adjacency, once per engine
 
     def _graph_block(self) -> dict:
+        """The device block, built once per engine unless one was passed.
+        A query-batched program reads the binned adjacency, so its block
+        carries it (``graph_block(binned=True)``); a passed block must
+        too."""
         if self._gb is None:
-            self._gb = graph_block(self.pg, self.device)
+            self._gb = graph_block(self.pg, self.device,
+                                   binned=self.num_queries is not None)
+        if self.num_queries is not None and not set(_BINNED) <= set(
+                self._gb):
+            raise ValueError(
+                "a query-batched program reads the binned adjacency: pass "
+                "a block uploaded by device_block(host_gb, device, "
+                "binned=True)")
         return self._gb
 
     def _gb_for_run(self):
         """The graph block and its composed mailbox
-        (``kernels.megastep.compose_mailbox``), both built once per engine
-        and shared by every run."""
+        (``kernels.megastep.compose_mailbox``, with the two-bin adjacency
+        for a query batch), both built once per engine and shared by every
+        run."""
         gb = self._graph_block()
         if self._mega_cm is None:
-            self._mega_cm = mega.compose_mailbox(gb)
+            self._mega_cm = mega.compose_mailbox(
+                gb, adjacency="full" if self.num_queries is None
+                else "binned")
         return gb, self._mega_cm
 
     def _gb_for_staged(self) -> dict:
         """The graph block with the flat adjacency the staged sweeps read
-        (``gb["adj"]``, ``kernels.flat.flat_adjacency``), built once
-        per engine."""
+        (``gb["adj"]``: ``kernels.flat.flat_adjacency``, or for a query
+        batch ``flat_binned_adjacency``), built once per engine."""
         if self._staged_gb is None:
             gb = self._graph_block()
-            self._staged_gb = {**gb, "adj": flat.flat_adjacency(gb)}
+            self._staged_gb = {**gb, "adj": (
+                flat.flat_adjacency(gb) if self.num_queries is None
+                else flat.flat_binned_adjacency(gb))}
         return self._staged_gb
 
     def run(self, checkpointer=None, checkpoint_every: int = 0,
@@ -369,12 +417,41 @@ class GopherEngine:
             raise NotImplementedError(
                 "checkpointed runs are not ported yet: ROADMAP A6 "
                 "(checkpointing and resilience)")
+        if self.num_queries is not None:
+            raise ValueError("a query-batched program runs through "
+                             "run_queries")
+        return self._run(extra)
+
+    def run_queries(self, extra: Optional[dict] = None):
+        """Run a query-batched program (``program.num_queries`` = Q) to the
+        quiescence of ALL its queries in ONE BSP run, on any exchange.
+
+        ``extra`` carries the per-request inputs as (P, v_max, Q) numpy
+        arrays (``qinit``, ``qseed``, or ``qx0``/``qfrontier0`` for a
+        resume), layered over the cached block for this run only, so the
+        block, its composed mailbox and the engine stay valid for the next
+        batch. Returns (state of (P, v_max, Q) numpy arrays, query-trailing,
+        and Telemetry); ``telemetry.query_supersteps[q]`` is the superstep
+        after which query q last changed. Queries share the supersteps and
+        the sweeps (the batch runs while any lane moves) but not their
+        messages: a quiesced lane sends nothing."""
+        if self.num_queries is None:
+            raise ValueError("run_queries requires a query-batched program")
+        return self._run(extra)
+
+    def _run(self, extra: Optional[dict]):
         if self.exchange == "megastep":
             gb, cm = self._gb_for_run()
             return self._finish(*self._run_megastep(self._layer(gb, extra),
                                                     cm), None)
         gb = self._layer(self._gb_for_staged(), extra)
         return self._finish(*self._run_batched(gb), gb)
+
+    # the dtypes of the per-run extra entries (x0/frontier0 of a resume,
+    # the query arrays of a batch)
+    _EXTRA_DTYPES = {"x0": np.float32, "frontier0": bool,
+                     "qinit": np.float32, "qseed": np.float32,
+                     "qx0": np.float32, "qfrontier0": bool}
 
     def _layer(self, gb: dict, extra: Optional[dict]) -> dict:
         """``gb`` with the run's ``extra`` entries over it, as tensors on
@@ -385,14 +462,10 @@ class GopherEngine:
         out = dict(gb)
         for k, v in extra.items():
             v = np.asarray(v)
-            dtype = {"x0": np.float32, "frontier0": bool}.get(k, v.dtype)
+            dtype = self._EXTRA_DTYPES.get(k, v.dtype)
             out[k] = torch.tensor(v.astype(dtype, copy=False),
                                   device=self.device)
         return out
-
-    def run_queries(self, extra: Optional[dict] = None):
-        raise NotImplementedError(
-            "query-batched runs are not ported yet: ROADMAP A5 (serving)")
 
     def _finish(self, state, steps: int, tally: "_Tally", gb):
         """Close out a run. On the tiered route a pair whose active slots
@@ -406,8 +479,8 @@ class GopherEngine:
         the block the aborted attempt ran on (a resume's ``x0`` and
         ``frontier0`` included). The fused route passes ``gb=None``: its
         tally observes no overflow, so it never reaches the rerun."""
-        P, cap = self.pg.num_parts, self.pg.mailbox_cap
-        t = tally.telemetry(steps, self.exchange, P, cap, self.tier_plan)
+        P, cap, Q = self.pg.num_parts, self.pg.mailbox_cap, self.num_queries
+        t = tally.telemetry(steps, self.exchange, P, cap, self.tier_plan, Q)
         old = self.tier_plan
         if t.spills and self.exchange == "phased":
             over_k = np.transpose(tally.over.cpu().numpy(), (1, 0, 2))
@@ -419,7 +492,7 @@ class GopherEngine:
         elif t.spills and self.exchange == "tiered":
             self.tier_plan = old.escalate(t.pair_overflow > 0)
             state, steps2, tally2 = self._run_batched(gb, mode="dense")
-            t2 = tally2.telemetry(steps2, "dense", P, cap)
+            t2 = tally2.telemetry(steps2, "dense", P, cap, num_queries=Q)
             t2.exchange = "tiered"
             t2.retried = True
             t2.spills = t.spills
@@ -431,7 +504,7 @@ class GopherEngine:
             t2.pair_rounds = steps + 1
             # the aborted attempt's geometry crossed the wire too
             t2.wire_slots += t.wire_slots
-            t2.bytes_on_wire += old.schedule(1).round_bytes(None) * (steps + 1)
+            t2.bytes_on_wire += old.schedule(1).round_bytes(Q) * (steps + 1)
             t = t2
         return {k: v.cpu().numpy() for k, v in state.items()}, t
 
@@ -481,6 +554,10 @@ class GopherEngine:
         plus {'over': (P, P) overflow flags} on 'tiered', plus {'dstep':
         0/1 dense-retry flag} on 'phased' — the per-pair observations the
         telemetry sums.
+
+        A query batch (``num_queries`` Q) exchanges query-trailing values:
+        every slot carries its Q-vector, (P, P, cap·Q) on the wire, and a
+        slot is active when any lane sends (``messages.*_batched``).
         """
         pack, route = self.make_exchange_stages(gb, phase=phase, mode=mode)
 
@@ -505,20 +582,27 @@ class GopherEngine:
         round's routed slots, 'dstep': the 0/1 dense-retry flag}."""
         prog = self.program
         P, cap, v_max = self.pg.num_parts, self.pg.mailbox_cap, self.pg.v_max
+        Q = self.num_queries
         combine = prog.combine
         mode = mode or self.exchange
         if mode not in ("dense", "compact", "tiered", "phased"):
             raise ValueError(f"the {mode!r} route has no staged exchange")
+        gather = (msg.build_outbox_gather if Q is None
+                  else msg.build_outbox_gather_batched)
 
         def finish(iv):
-            return msg.combine_inbox_gather(iv, gb["ib_lo"], gb["ib_hub_idx"],
-                                            gb["ib_hub"], v_max, combine)
+            if Q is None:
+                return msg.combine_inbox_gather(
+                    iv, gb["ib_lo"], gb["ib_hub_idx"], gb["ib_hub"], v_max,
+                    combine)
+            return msg.combine_inbox_gather_batched(
+                iv, gb["ib_lo"], gb["ib_hub_idx"], gb["ib_hub"], v_max, cap,
+                combine)
 
         if mode == "dense":
             def pack(state):
                 vals, send = prog.messages(state, gb)
-                slot_vals = msg.build_outbox_gather(vals, send, gb["ob_inv"],
-                                                    P, cap, combine)
+                slot_vals = gather(vals, send, gb["ob_inv"], P, cap, combine)
                 return (slot_vals,), send.sum(), P * P * cap, {}
 
             def route(payload):
@@ -527,10 +611,15 @@ class GopherEngine:
             return pack, route
 
         if mode == "compact":
+            build = (msg.build_outbox_compact if Q is None
+                     else msg.build_outbox_compact_batched)
+            unpack = (msg.unpack_slots if Q is None
+                      else msg.unpack_slots_batched)
+
             def pack(state):
                 vals, send = prog.messages(state, gb)
-                pvals, pinv, counts = msg.build_outbox_compact(
-                    vals, send, gb["ob_inv"], P, cap, combine)
+                pvals, pinv, counts = build(vals, send, gb["ob_inv"], P, cap,
+                                            combine)
                 # the packed prefixes and their slot maps travel; counts is
                 # the header a real transport would read each length from
                 return ((pvals, pinv), send.sum(), counts.sum(),
@@ -538,9 +627,8 @@ class GopherEngine:
 
             def route(payload):
                 pvals, pinv = payload
-                return finish(msg.unpack_slots(msg.route_local(pvals),
-                                               msg.route_local(pinv),
-                                               combine)), {}
+                return finish(unpack(msg.route_local(pvals),
+                                     msg.route_local(pinv), combine)), {}
             return pack, route
 
         # tiered / phased
@@ -559,32 +647,37 @@ class GopherEngine:
         ident = flat.COMBINE_IDENTITY[combine]
         slots = sched.device_round_slots()
         R = P * P
+        # a slot's values: one, or a query batch's Q-vector
+        tail = () if Q is None else (Q,)
 
         def pack(state):
             vals, send = prog.messages(state, gb)
-            slot_vals = msg.build_outbox_gather(vals, send, gb["ob_inv"], P,
-                                                cap, combine)
+            slot_vals = gather(vals, send, gb["ob_inv"], P, cap,
+                               combine).reshape(P, P, cap, *tail)
             act = msg.active_slots(send, gb["ob_inv"], P, cap)
             # the pack truncates each row to its tier width and flags the
             # rows whose active slots did not fit
             pvals, sids, _, counts, over = ops.outbox_pack(
-                slot_vals.reshape(R, cap), act.reshape(R, cap), limits, ident)
+                slot_vals.reshape(R, cap, *tail), act.reshape(R, cap), limits,
+                ident)
             return ((slot_vals, pvals, sids, over), send.sum(), slots,
                     {"pairs": counts.reshape(P, P),
                      "over": over.reshape(P, P)})
 
         def route(payload):
             slot_vals, pvals, sids, over = payload
-            iv = msg.route_tiered(slot_vals, pvals.reshape(P, P, cap),
+            iv = msg.route_tiered(slot_vals, pvals.reshape(P, P, cap, *tail),
                                   sids.reshape(P, P, cap), sched, combine,
                                   tables=tables)
+            if mode == "phased":
+                # on one device the dense route is a transpose, so both are
+                # computed and the overflow flag selects on the device
+                retry = (over > 0).any()
+                iv = torch.where(retry, msg.route_local(slot_vals), iv)
+                dstep = retry.int()
+            iv = iv.reshape(P, P, -1)
             if mode == "tiered":
                 return finish(iv), {}
-            # phased: on one device the dense route is a transpose, so both
-            # are computed and the overflow flag selects on the device
-            retry = (over > 0).any()
-            iv = torch.where(retry, msg.route_local(slot_vals), iv)
-            dstep = retry.int()
             return finish(iv), {"wire": slots + dstep * (R * cap - slots),
                                 "dstep": dstep}
 
@@ -604,14 +697,14 @@ class GopherEngine:
         state = prog.init(gb)
         inbox, nsent0, wire0, ex0 = self.make_exchange(gb, mode=mode)(state)
         tally = _Tally(P, max_s, nsent0, wire0, ex0.get("pairs"), self.device,
-                       over0=ex0.get("over"))
+                       over0=ex0.get("over"), queries=self.num_queries)
         step, done = 0, False
         while not done and step < max_s:
             state, inbox, changed, liters, nsent, wire, ex = sstep(
                 state, inbox, step)
-            nchanged = changed.sum()
+            nchanged, changed_q = _halt_vote(changed)
             tally.fold(step, nchanged, liters, nsent, wire, ex.get("pairs"),
-                       over=ex.get("over"))
+                       over=ex.get("over"), changed_q=changed_q)
             step += 1
             done = int(nchanged) == 0    # the superstep's one host read
         return state, step, tally
@@ -644,7 +737,8 @@ class GopherEngine:
         state = prog.init(gb)
         inbox, nsent0, wire0, ex0 = self.make_exchange(gb, phase=0)(state)
         tally = _Tally(P, max_s, nsent0, wire0, ex0["pairs"], self.device,
-                       over0=ex0["over"], phases=K, dstep0=ex0["dstep"])
+                       over0=ex0["over"], phases=K, dstep0=ex0["dstep"],
+                       queries=self.num_queries)
         zero = torch.zeros((), dtype=torch.int64, device=self.device)
         step, done = 0, False
         for k in range(K):
@@ -657,11 +751,12 @@ class GopherEngine:
                             and streak < DEMOTE_STREAK))):
                 state, inbox, changed, liters, nsent, wire, ex = ssteps[k](
                     state, inbox, step)
-                nchanged = changed.sum()
+                nchanged, changed_q = _halt_vote(changed)
                 viol = ((ex["pairs"] > nlim).sum() if nlim is not None
                         else zero)
                 tally.fold(step, nchanged, liters, nsent, wire, ex["pairs"],
-                           over=ex["over"], phase=k, dstep=ex["dstep"])
+                           over=ex["over"], phase=k, dstep=ex["dstep"],
+                           changed_q=changed_q)
                 step += 1
                 # the superstep's one host read: halt vote and streak
                 nch, nviol = torch.stack([nchanged.to(torch.int64),
@@ -718,6 +813,8 @@ class GopherEngine:
             return state, step, tally
 
         semiring = prog.semiring
+        if prog.megastep_kind == "batched_semiring":
+            return self._run_megastep_batched(state0, cm)
         x = state0["x"].reshape(-1).contiguous()
         ch = state0["changed_v"].reshape(-1).contiguous()
         fr = state0["frontier"].reshape(-1).contiguous()
@@ -767,3 +864,41 @@ class GopherEngine:
         state = {"x": x.reshape(P, v_max), "changed_v": ch.reshape(P, v_max),
                  "frontier": fr.reshape(P, v_max)}
         return state, step, tally
+
+    def _run_megastep_batched(self, state0: dict, cm: dict):
+        """The fused route of a query batch: one
+        ``kernels.megastep.megastep_semiring_batched`` a superstep over flat
+        (P·v_max, Q) state, plain torch ops. The halt vote is any lane
+        anywhere; each lane's last changing superstep is its
+        ``query_supersteps`` entry."""
+        prog = self.program
+        P, v_max, Q = cm["num_parts"], cm["v_max"], self.num_queries
+        max_s = self.max_supersteps
+        x, ch, fr = (state0[k].reshape(-1, Q).contiguous()
+                     for k in ("x", "changed_v", "frontier"))
+        pairs0, nsent0 = mega.round_stats(ch, cm)
+        tally = _Tally(P, max_s, nsent0, 0, pairs0, self.device, queries=Q)
+        step, done = 0, False
+        while not done and step < max_s:
+            x, ch, fr, li = mega.megastep_semiring_batched(
+                x, ch, fr, cm, prog.semiring, unroll=prog.fixpoint_unroll)
+            pairs, nsent = mega.round_stats(ch, cm)
+            nchanged, changed_q = _halt_vote(
+                ch.reshape(P, v_max, Q).any(dim=1))
+            tally.fold(step, nchanged, li, nsent, 0, pairs,
+                       changed_q=changed_q)
+            step += 1
+            done = int(nchanged) == 0    # the superstep's one host read
+        state = {"x": x.reshape(P, v_max, Q),
+                 "changed_v": ch.reshape(P, v_max, Q),
+                 "frontier": fr.reshape(P, v_max, Q)}
+        return state, step, tally
+
+
+def _halt_vote(changed):
+    """A superstep's halt vote from its per-partition ``changed``: (P,) for
+    a single query, (P, Q) for a batch. Returns (how many partitions
+    changed, the (Q,) lanes that changed anywhere or None)."""
+    if changed.dim() == 1:
+        return changed.sum(), None
+    return changed.any(dim=1).sum(), changed.any(dim=0)

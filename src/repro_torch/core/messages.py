@@ -22,6 +22,10 @@ leading partition axis out.
 - :func:`route_tiered` is the tiered exchange's route along a
   ``core.tiers.TierSchedule``: hot pairs ship the dense row, warm and cold
   pairs their packed tier-width prefix, excluded pairs nothing.
+- the ``*_batched`` forms carry a query batch: values QUERY-TRAILING,
+  (P, r_max, Q) at the sender and (P, P, cap·Q) on the wire, so every slot
+  moves one contiguous Q-vector; the pack's plan and the active slots are
+  those of the any-over-Q send set.
 """
 from __future__ import annotations
 
@@ -118,15 +122,58 @@ def combine_inbox_gather(in_vals, ib_lo, ib_hub_idx, ib_hub, v_max: int,
     return out[:, :v_max]
 
 
+def build_outbox_gather_batched(vals, send_mask, ob_inv, num_parts: int,
+                                cap: int, combine: str):
+    """The query-batched gather-form outbox, QUERY-TRAILING: ``vals`` and
+    ``send_mask`` are (P, r_max, Q), and each slot pulls its edge's
+    contiguous Q-vector in one gather. Returns (P, P_dst, cap·Q), slot-major
+    (slot·Q + q) along each pair row."""
+    ident = COMBINE_IDENTITY[combine]
+    P, _, Q = vals.shape
+    masked = torch.where(send_mask, vals, ident)
+    valid = ob_inv != PAD
+    idx = torch.where(valid, ob_inv, 0).long()
+    got = torch.gather(masked, 1, idx[..., None].expand(-1, -1, Q))
+    return torch.where(valid[..., None], got, ident).reshape(
+        P, num_parts, cap * Q)
+
+
+def combine_inbox_gather_batched(in_vals, ib_lo, ib_hub_idx, ib_hub,
+                                 v_max: int, cap: int, combine: str):
+    """The query-batched gather-form combine, QUERY-TRAILING: received
+    (P, num_src, cap·Q) slots -> (P, v_max, Q). Each vertex's feed slots
+    pull contiguous Q-vectors and reduce over the feed axis; the hub
+    receivers merge back by a ``scatter_reduce_``, as in
+    :func:`combine_inbox_gather`."""
+    ident = COMBINE_IDENTITY[combine]
+    P, num_src = in_vals.shape[:2]
+    Q = in_vals.shape[2] // cap
+    flat = in_vals.reshape(P, num_src * cap, Q)
+
+    def pull(m):
+        valid = m != PAD
+        idx = torch.where(valid, m, 0).long().reshape(P, -1, 1)
+        got = torch.gather(flat, 1, idx.expand(-1, -1, Q))
+        return torch.where(valid[..., None], got.reshape(*m.shape, Q), ident)
+
+    y = combine_reduce(combine, pull(ib_lo), -2)        # (P, v_max, Q)
+    yh = combine_reduce(combine, pull(ib_hub), -2)      # (P, hr_max, Q)
+    idx = torch.where(ib_hub_idx != PAD, ib_hub_idx, v_max).long()
+    out = torch.cat([y, y.new_full((P, 1, Q), ident)], dim=1)
+    out.scatter_reduce_(1, idx[..., None].expand(-1, -1, Q), yh,
+                        _SCATTER[combine], include_self=True)
+    return out[:, :v_max]
+
+
 # ---------------- the compact exchange ----------------
 
 def active_slots(send_mask, ob_inv, num_parts: int, cap: int):
     """(P, P_dst, cap) bool: the outbox slots whose source vertex is in the
-    send set this superstep."""
-    if send_mask.dim() != 2:
-        raise NotImplementedError(
-            "query-batched send masks are not ported yet: ROADMAP A5 "
-            "(serving)")
+    send set this superstep. A query-batched (P, r_max, Q) send mask
+    activates a slot when ANY lane sends: its contiguous Q-vector ships (or
+    does not) as one unit."""
+    if send_mask.dim() == 3:
+        send_mask = send_mask.any(dim=-1)
     P = send_mask.shape[0]
     valid = ob_inv != PAD
     act = _take(send_mask, torch.where(valid, ob_inv, 0))
@@ -153,6 +200,26 @@ def build_outbox_compact(vals, send_mask, ob_inv, num_parts: int, cap: int,
             counts.reshape(P, num_parts))
 
 
+def build_outbox_compact_batched(vals, send_mask, ob_inv, num_parts: int,
+                                 cap: int, combine: str):
+    """The query-batched compacted outbox: ``vals``/``send_mask`` (P, r_max,
+    Q); the pack is ``kernels.ops.outbox_pack`` over (P·P, cap, Q) slot
+    values (kernel K5's plan on the card, then one masked scatter of the
+    Q-vectors). Returns (pvals (P, P_dst, cap·Q), pinv (P, P_dst, cap),
+    counts (P, P_dst))."""
+    ident = COMBINE_IDENTITY[combine]
+    P, _, Q = vals.shape
+    slot_vals = build_outbox_gather_batched(vals, send_mask, ob_inv,
+                                            num_parts, cap, combine)
+    active = active_slots(send_mask, ob_inv, num_parts, cap)
+    R = P * num_parts
+    full = torch.full((R,), cap, dtype=torch.int32, device=vals.device)
+    pvals, _, pinv, counts, _ = ops.outbox_pack(
+        slot_vals.reshape(R, cap, Q), active.reshape(R, cap), full, ident)
+    return (pvals.reshape(P, num_parts, cap * Q),
+            pinv.reshape(P, num_parts, cap), counts.reshape(P, num_parts))
+
+
 def unpack_slots(pvals, pinv, combine: str):
     """Receiver side: packed (P, num_src, cap) prefixes and their slot ->
     position maps -> the dense slot values the inbox combine expects. A
@@ -161,6 +228,20 @@ def unpack_slots(pvals, pinv, combine: str):
     valid = pinv != PAD
     got = torch.gather(pvals, 2, torch.where(valid, pinv, 0).long())
     return torch.where(valid, got, ident)
+
+
+def unpack_slots_batched(pvals, pinv, combine: str):
+    """The query-batched receiver: packed (P, num_src, cap·Q) prefixes and
+    their (P, num_src, cap) maps -> the dense (P, num_src, cap·Q) slots,
+    each slot pulling its contiguous Q-vector."""
+    ident = COMBINE_IDENTITY[combine]
+    P, num_src, cap = pinv.shape
+    Q = pvals.shape[2] // cap
+    valid = (pinv != PAD)[..., None]
+    idx = torch.where(pinv != PAD, pinv, 0).long()[..., None]
+    got = torch.gather(pvals.reshape(P, num_src, cap, Q), 2,
+                       idx.expand(-1, -1, -1, Q))
+    return torch.where(valid, got, ident).reshape(P, num_src, cap * Q)
 
 
 def route_local(outbox_vals):
@@ -206,20 +287,24 @@ def route_tiered(dense_vals, pvals, sids, sched, combine: str,
     """Route one superstep's outboxes along the tier schedule, on one
     device (D = 1: every "shift" is local and no collective runs).
 
-    dense_vals (v, P, cap)  gather-form dense slot values (hot rows ship
-                            these as they are — no slot ids travel)
-    pvals      (v, P, cap)  packed prefixes (warm/cold rows ship their
-                            first tier-width columns)
-    sids       (v, P, cap)  packed position -> slot id maps
-    sched                   a one-device ``core.tiers.TierSchedule``
-    tables                  its :func:`tiered_tables` (built here if None)
+    dense_vals (v, P, cap[, Q])  gather-form dense slot values (hot rows
+                                 ship these as they are — no slot ids
+                                 travel)
+    pvals      (v, P, cap[, Q])  packed prefixes (warm/cold rows ship their
+                                 first tier-width columns)
+    sids       (v, P, cap)       packed position -> slot id maps
+    sched                        a one-device ``core.tiers.TierSchedule``
+    tables                       its :func:`tiered_tables` (built here if
+                                 None)
 
-    Returns the received dense slot array (v, P, cap): every occupied slot
-    of a routed pair holds its exact value, everything else the
-    ⊕-identity, so when no pair overflowed its tier width it is
-    bit-identical to :func:`route_local`'s delivery. A write the JAX
-    package drops (``mode="drop"``) goes to one extra sink slot past the
-    end, which is cut off; each real slot is written at most once."""
+    A query batch carries the trailing Q axis, and every slot moves its
+    Q-vector. Returns the received dense slot array, shaped as
+    ``dense_vals``: every occupied slot of a routed pair holds its exact
+    value, everything else the ⊕-identity, so when no pair overflowed its
+    tier width it is bit-identical to :func:`route_local`'s delivery. A
+    write the JAX package drops (``mode="drop"``) goes to one extra sink
+    slot past the end, which is cut off; each real slot is written at most
+    once."""
     if axis_name is not None:
         raise NotImplementedError(
             "route_tiered over a mesh axis is not ported yet: ROADMAP A8 "
@@ -227,40 +312,28 @@ def route_tiered(dense_vals, pvals, sids, sched, combine: str,
     if tables is None:
         tables = tiered_tables(sched, dense_vals.device)
     ident = COMBINE_IDENTITY[combine]
-    v, P, cap = dense_vals.shape
+    v, P, cap = dense_vals.shape[:3]
+    tail = dense_vals.shape[3:]
     rows = v * P
-    out = torch.full((rows + 1, cap), ident, dtype=dense_vals.dtype,
+    out = torch.full((rows + 1, cap, *tail), ident, dtype=dense_vals.dtype,
                      device=dense_vals.device)
     if tables["hot_src"] is not None:
-        out[tables["hot_dst"]] = dense_vals.reshape(rows, cap)[
+        out[tables["hot_dst"]] = dense_vals.reshape(rows, cap, *tail)[
             tables["hot_src"]]
-    flat = out.reshape(-1)
-    pflat = pvals.reshape(rows, cap)
+    flat = out.reshape(-1, *tail)
+    pflat = pvals.reshape(rows, cap, *tail)
     iflat = sids.reshape(rows, cap)
     for width, (src, dst) in tables["packed"]:
         bv = pflat[src][:, :width]
         bi = iflat[src][:, :width]
         pos = torch.where(bi != PAD, dst[:, None] * cap + bi.long(),
                           rows * cap)                  # the sink slot
-        flat[pos.reshape(-1)] = bv.reshape(-1)
-    return out[:rows].reshape(v, P, cap)
+        flat[pos.reshape(-1)] = bv.reshape(-1, *tail)
+    return out[:rows].reshape(v, P, cap, *tail)
 
 
 # ---------------- not ported yet ----------------
 
-def _not_ported(name: str, item: str):
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet: ROADMAP {item}")
-    refuse.__name__ = name
-    return refuse
-
-
-build_outbox_gather_batched = _not_ported("build_outbox_gather_batched",
-                                          "A5 (serving)")
-combine_inbox_gather_batched = _not_ported("combine_inbox_gather_batched",
-                                           "A5 (serving)")
-build_outbox_compact_batched = _not_ported("build_outbox_compact_batched",
-                                           "A5 (serving)")
-unpack_slots_batched = _not_ported("unpack_slots_batched", "A5 (serving)")
-route_shard_map = _not_ported("route_shard_map",
-                              "A8 (the multi-device backend)")
+def route_shard_map(*args, **kwargs):
+    raise NotImplementedError("route_shard_map is not ported yet: ROADMAP A8 "
+                              "(the multi-device backend)")

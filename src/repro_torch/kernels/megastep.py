@@ -1,6 +1,6 @@
 """The fused superstep over flat (P·v_max,) state, and kernel K3.
 
-The port of the JAX package's ``kernels/megastep.py`` for scalar programs:
+The port of the JAX package's ``kernels/megastep.py``:
 
 - :func:`compose_mailbox` folds the graph block's three routing hops
   (remote edge -> outbox slot via ``ob_inv``, slot -> wire, wire -> inbox
@@ -17,6 +17,10 @@ The port of the JAX package's ``kernels/megastep.py`` for scalar programs:
   active in-neighbour, read through :func:`out_adjacency`); on a CPU
   tensor it is the plain :func:`megastep_semiring_ref`, whose fixpoint is
   ``kernels.flat.local_fixpoint`` over the plain masked sweep.
+- :func:`megastep_semiring_batched` is the fused superstep of a query
+  batch over (P·v_max, Q) state, with the composed mailbox's two-bin
+  adjacency (``compose_mailbox(adjacency='binned')``): plain torch ops on
+  every device, as the JAX package's is plain XLA (no kernel takes it).
 - :func:`megastep_pagerank` is one PageRank superstep; its pull is
   ``kernels.flat.sweep_flat_dense``, kernel K1 on the card.
 - :func:`resident_megastep` runs the resident narrow-phase mode: many
@@ -43,8 +47,10 @@ import torch
 
 from repro_torch.gofs.formats import PAD
 from repro_torch.kernels import _build
-from repro_torch.kernels.flat import (COMBINE_IDENTITY, combine_ew,
+from repro_torch.kernels.flat import (COMBINE_IDENTITY, binned_plan_of,
+                                      binned_sweep_frontier, combine_ew,
                                       combine_reduce, flat_adjacency,
+                                      flat_binned_adjacency,
                                       idempotent_combine, local_fixpoint,
                                       sweep_flat_dense)
 from repro_torch.kernels.ref import semiring_spmv_frontier_ref
@@ -76,9 +82,9 @@ K4_DENSE_FRONTIER = 0.0625
 
 # ---------------- composed routing maps ----------------
 
-def compose_mailbox(gb: dict) -> dict:
+def compose_mailbox(gb: dict, adjacency: str = "full") -> dict:
     """Fold the staged mailbox's three routing hops into direct gather maps
-    (the JAX package's ``compose_mailbox`` with ``adjacency='full'``).
+    (the JAX package's ``compose_mailbox``).
 
     For destination vertex (p, v), feed lane m of ``ib_lo[p, v]`` names a
     received slot ``src * cap + slot``; that slot's value on the staged path
@@ -87,8 +93,14 @@ def compose_mailbox(gb: dict) -> dict:
     once per run yields, per feed lane: the source's FLAT state index, a
     validity mask and the edge weight. Also composed: the vertex-level slot
     map ``vdst`` and per-vertex edge counts ``edge_cnt`` that give a round's
-    per-pair counts and message count (:func:`round_stats`).
+    per-pair counts and message count (:func:`round_stats`), and the local
+    adjacency: ``adjacency='full'`` the flat ELL
+    (``kernels.flat.flat_adjacency``) of the scalar programs, ``'binned'``
+    the flat two-bin ELL (``kernels.flat.flat_binned_adjacency``) of the
+    query batches.
     """
+    if adjacency not in ("full", "binned"):
+        raise ValueError(f"unknown adjacency {adjacency!r}")
     ob_inv = gb["ob_inv"]
     dev = ob_inv.device
     P = ob_inv.shape[0]
@@ -166,7 +178,8 @@ def compose_mailbox(gb: dict) -> dict:
         "hub_w": hub_w.reshape(P * hr_max, m_hi).contiguous(),
         "hub_row": hub_row.contiguous(), "hub_row_ok": hub_row_ok,
         "vdst": vdst.contiguous(), "edge_cnt": edge_cnt,
-        **flat_adjacency(gb),
+        **(flat_adjacency(gb) if adjacency == "full"
+           else flat_binned_adjacency(gb)),
     }
 
 
@@ -175,38 +188,51 @@ def compose_mailbox(gb: dict) -> dict:
 def deliver_flat(vals: torch.Tensor, live, cm: dict, combine: str,
                  with_weight: bool) -> torch.Tensor:
     """The staged exchange's pack -> route -> inbox-combine pipeline as one
-    gather + lane reduce over the composed maps. ``vals`` is the (n,)
-    per-source message value (pre-⊗ except the edge weight); ``live`` gates
-    sends (None = unconditional, PageRank-style)."""
+    gather + lane reduce over the composed maps. ``vals`` is the (n,) or
+    query-trailing (n, Q) per-source message value (pre-⊗ except the edge
+    weight); ``live`` (same shape) gates sends (None = unconditional,
+    PageRank-style)."""
     ident = COMBINE_IDENTITY[combine]
+    batched = vals.dim() == 2
 
     def pull(src, ok, w):
         g = vals[src]
+        if batched:
+            ok, w = ok[..., None], w[..., None]
         if with_weight:
             g = g + w
         if live is not None:
             ok = ok & live[src]
         return torch.where(ok, g, ident)
 
+    lanes = -2 if batched else -1
     y = combine_reduce(combine, pull(cm["lo_src"], cm["lo_ok"], cm["lo_w"]),
-                       -1)
+                       lanes)
     yh = combine_reduce(combine, pull(cm["hub_src"], cm["hub_ok"],
-                                      cm["hub_w"]), -1)
-    hub = torch.where(cm["hub_row_ok"], yh[cm["hub_row"]], ident)
+                                      cm["hub_w"]), lanes)
+    hro = cm["hub_row_ok"]
+    hub = torch.where(hro[:, None] if batched else hro, yh[cm["hub_row"]],
+                      ident)
     return combine_ew(combine, y, hub)
 
 
 def round_stats(changed, cm: dict):
     """One round's wire observation from the send set: the (P, P) per-pair
     active slot counts and the message count. ``changed=None`` counts
-    unconditional sends (PageRank). Counts stay below 2^24, exact in f32."""
+    unconditional sends (PageRank). A query-trailing (n, Q) send set
+    activates a slot when ANY lane sends (its Q-vector ships as one unit)
+    but counts messages per lane. Counts stay below 2^24, exact in f32."""
     P, v_max = cm["num_parts"], cm["v_max"]
     cnt, vdst = cm["edge_cnt"], cm["vdst"]
     if changed is None:
         pairs = vdst.reshape(P, v_max, P).sum(dim=1)
         return pairs.int(), cnt.sum().int()
-    chf = changed.float()
-    nsent = torch.dot(chf, cnt)
+    if changed.dim() == 2:
+        nsent = torch.dot(changed.float().sum(dim=1), cnt)
+        chf = changed.any(dim=1).float()
+    else:
+        chf = changed.float()
+        nsent = torch.dot(chf, cnt)
     pairs = torch.bmm(chf.reshape(P, 1, v_max), vdst.reshape(P, v_max, P))
     return pairs.reshape(P, P).int(), nsent.int()
 
@@ -226,6 +252,33 @@ def megastep_semiring_ref(x, changed, frontier, cm: dict, semiring: str,
     f = frontier | ((xc != x) & vm)
     xc, f, li = local_fixpoint(xc, f, cm, vm, cm["num_parts"], semiring,
                                unroll)
+    return xc, (xc != x) & vm, f, li
+
+
+def sweep_flat_batched(x, f, cm: dict, semiring: str):
+    """The frontier-masked two-bin multi-query sweep over the composed
+    mailbox's flat binned adjacency (``compose_mailbox(adjacency=
+    'binned')``): ``ops.binned_sweep`` over all P partitions at once."""
+    return binned_sweep_frontier(x, f, binned_plan_of(cm), semiring)[0]
+
+
+def megastep_semiring_batched(x, changed, frontier, cm: dict, semiring: str,
+                              unroll: int = 2):
+    """The fused superstep of a query batch on flat query-trailing (n, Q)
+    state — the serving path's: deliver, ⊕-combine, the masked local
+    fixpoint over the two-bin sweep (:func:`sweep_flat_batched`), the new
+    send set. Plain torch ops on every device, as the JAX package computes
+    it in plain XLA; lane for lane the batched program's superstep and
+    exchange. Returns ``(x2, changed2, f_left, liters)``."""
+    combine = idempotent_combine(semiring)
+    vm = cm["vmask"][:, None]
+    binned_plan_of(cm)
+    inbox = deliver_flat(x, changed, cm, combine, semiring == "min_plus")
+    xc = combine_ew(combine, x, inbox)
+    f = frontier | ((xc != x) & vm)
+    xc, f, li = local_fixpoint(xc, f, cm, vm, cm["num_parts"], semiring,
+                               unroll, sweep=binned_sweep_frontier,
+                               operands=("plan",))
     return xc, (xc != x) & vm, f, li
 
 

@@ -7,7 +7,8 @@ the overflow flag. ``outbox_compact_plan_cuda`` launches K6 (the port of
 ``outbox_compact_plan_pallas``): the plan alone. Each row gets a block,
 which loads a tile of slots in one round and scans its ballot counts after
 one barrier (:func:`k5_layout` reports the build's layout). The int32
-outputs share one allocation. Their plain versions are
+outputs share one allocation. Query-batched (R, cap, Q) values take K5's
+plan and one masked scatter of their Q-vectors. Their plain versions are
 ``kernels.ref.outbox_pack_ref`` and ``outbox_compact_plan_ref``;
 ``kernels.ops`` picks between kernel and plain version by the tensors'
 device.
@@ -18,7 +19,9 @@ import ctypes
 
 import torch
 
+from repro_torch.gofs.formats import PAD
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import scatter_prefix
 
 
 def _check_rows(active: torch.Tensor, what: str):
@@ -54,23 +57,35 @@ def outbox_pack_cuda(slot_vals: torch.Tensor, active: torch.Tensor,
                      limit: torch.Tensor, ident: float):
     """(R, cap) float32 slot values, (R, cap) bool active mask and (R,)
     int32 budget -> (pvals, sids, pinv, counts, over) by kernel K5,
-    bit-identical to ``outbox_pack_ref``."""
+    bit-identical to ``outbox_pack_ref``.
+
+    Query-batched (R, cap, Q) values take the JAX package's route: the plan
+    (with each row's truncation and overflow) does not depend on the
+    values, so K5 computes it over zero values, and the Q-vectors go to
+    their packed positions through ``pinv`` by one masked scatter
+    (``kernels.ref.scatter_prefix``)."""
     dev, rows, cap = _check_rows(active, "K5")
-    if slot_vals.dim() != 2:
-        raise NotImplementedError(
-            "query-batched slot values are not ported yet: ROADMAP A5 "
-            "(serving)")
-    _build.need(slot_vals, "slot_vals", torch.float32, dev, (rows, cap))
+    batched = slot_vals.dim() == 3
+    if batched:
+        _build.need(slot_vals, "slot_vals", torch.float32, dev,
+                    (rows, cap, slot_vals.shape[2]))
+        vals = torch.zeros((rows, cap), dtype=torch.float32, device=dev)
+    else:
+        _build.need(slot_vals, "slot_vals", torch.float32, dev, (rows, cap))
+        vals = slot_vals
     _build.need(limit, "limit", torch.int32, dev, (rows,))
     pvals = torch.empty((rows, cap), dtype=torch.float32, device=dev)
     sids, pinv, counts, over = _int_outputs(dev, rows, cap, 2)
     err = _build.library().outbox_pack_launch(
-        active.data_ptr(), slot_vals.data_ptr(), limit.data_ptr(),
+        active.data_ptr(), vals.data_ptr(), limit.data_ptr(),
         pvals.data_ptr(), sids.data_ptr(), pinv.data_ptr(), counts.data_ptr(),
         over.data_ptr(), rows, cap, float(ident), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "outbox_pack")
     _build.launches["outbox_pack"] += 1
+    if batched:
+        pvals = scatter_prefix(slot_vals, torch.where(pinv != PAD, pinv, cap)
+                               .long(), ident)
     return pvals, sids, pinv, counts, over
 
 

@@ -73,11 +73,13 @@ def outbox_pack_ref(slot_vals: torch.Tensor, active: torch.Tensor,
     """Compaction plan, truncation and value pack in one pass: the packed
     position of an active slot is its prefix count minus one.
 
-    slot_vals: (R, cap) float32 dense slot values; active: (R, cap) bool;
-    limit: (R,) int32 per-row slot budget — positions at or past it are
-    dropped and flagged in ``over``. Returns
+    slot_vals: (R, cap) or query-batched (R, cap, Q) float32 dense slot
+    values; active: (R, cap) bool; limit: (R,) int32 per-row slot budget —
+    positions at or past it are dropped and flagged in ``over``. Returns
 
-      pvals  (R, cap) float32  packed prefix, ``ident`` past min(count, limit)
+      pvals  like slot_vals    packed prefix, ``ident`` past min(count,
+                               limit); a query-batched slot moves its whole
+                               Q-vector
       sids   (R, cap) int32    packed position -> slot id (PAD past the prefix)
       pinv   (R, cap) int32    slot id -> packed position (PAD if inactive or
                                dropped)
@@ -86,10 +88,6 @@ def outbox_pack_ref(slot_vals: torch.Tensor, active: torch.Tensor,
 
     Values are placed by a scatter of the values themselves, never by a
     multiply, so an active ±inf message survives."""
-    if slot_vals.dim() != 2:
-        raise NotImplementedError(
-            "query-batched slot values are not ported yet: ROADMAP A5 "
-            "(serving)")
     R, cap = active.shape
     csum = torch.cumsum(active.int(), dim=1)
     counts = csum[:, -1] if cap else torch.zeros(R, dtype=torch.int64,
@@ -101,8 +99,21 @@ def outbox_pack_ref(slot_vals: torch.Tensor, active: torch.Tensor,
                         device=active.device).expand(R, cap)
     sids = torch.full((R, cap + 1), PAD, dtype=torch.int32,
                       device=active.device).scatter_(1, dest, slot)
-    pvals = torch.full((R, cap + 1), ident, dtype=slot_vals.dtype,
-                       device=active.device).scatter_(1, dest, slot_vals)
+    pvals = scatter_prefix(slot_vals, dest, ident)
     pinv = torch.where(keep, pos, PAD).int()
     over = (counts > limit).int()
-    return pvals[:, :cap], sids[:, :cap], pinv, counts.int(), over
+    return pvals, sids[:, :cap], pinv, counts.int(), over
+
+
+def scatter_prefix(slot_vals: torch.Tensor, dest: torch.Tensor,
+                   ident: float) -> torch.Tensor:
+    """The value half of the pack: slot (r, c) of ``slot_vals`` — a value,
+    or with a trailing query axis a Q-vector — lands at packed position
+    ``dest[r, c]``; ``dest == cap`` drops it. Every other position holds
+    ``ident``."""
+    R, cap = dest.shape
+    tail = slot_vals.shape[2:]
+    idx = dest.reshape(R, cap, *(1,) * len(tail)).expand(slot_vals.shape)
+    out = torch.full((R, cap + 1, *tail), ident, dtype=slot_vals.dtype,
+                     device=slot_vals.device)
+    return out.scatter_(1, idx, slot_vals)[:, :cap]

@@ -1,0 +1,602 @@
+"""Synchronous multi-tenant graph-query serving loop.
+
+The port of the JAX package's ``serving/service.py``. Request lifecycle:
+
+    submit()  ->  pending queue (ticket + arrival timestamp)
+    drain()   ->  1. deadline admission, then the exact-cache pass
+                     (ResultCache): hits never touch the engine, and
+                     identical in-flight queries are deduplicated
+                  2. planner: admit, group by (graph, family), pad to
+                     power-of-two buckets
+                  3. one batched BSP run per batch on a pooled engine —
+                     engines are pooled per (graph, family, bucket) and all
+                     engines of a graph share ONE device graph block (with
+                     its binned adjacency), so steady state is: copy the
+                     query arrays to the device, run supersteps, gather
+                  4. per-query Response with latency + the query's OWN
+                     convergence superstep (telemetry.query_supersteps)
+
+Every batch run and every delta apply goes through a per-graph
+``CircuitBreaker`` and a bounded exponential-backoff retry
+(``resilience.degrade``). Aggregate telemetry (QPS, latency percentiles,
+cache hit rate, bucket fill) accumulates in ServiceStats.
+
+What the port leaves out, each with the ROADMAP item that brings it: the
+fault-injection hooks and ``rebalance`` (A6, which raises), the metrics
+registry (A7: ``metrics=`` raises), the per-graph SkewTracker and the
+``imbalance``/``skew`` keys of ``stats()`` (A7), and ``backend=
+'shard_map'`` or a ``mesh`` (A8, which raise). Engines run on ``device``
+(the card unless the caller passes ``device='cpu'``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from repro_torch.core import (GopherEngine, device_block, host_graph_block,
+                              resolve_device, update_changed_profile,
+                              update_phase_profile, update_profile,
+                              verify_host_block)
+from repro_torch.gofs.formats import PartitionedGraph
+from repro_torch.gofs.temporal import DeltaValidationError
+from repro_torch.resilience.degrade import CircuitBreaker, backoff_delays
+from repro_torch.resilience.faults import BlockCorruptionFault
+from repro_torch.serving import planner as pl
+from repro_torch.serving.batched import (BatchedPersonalizedPageRank,
+                                         BatchedSemiringProgram,
+                                         gather_query_results, ppr_query_seed,
+                                         reachability_query_init)
+from repro_torch.serving.cache import LandmarkCache, ResultCache
+
+
+@dataclasses.dataclass
+class Request:
+    ticket: int
+    query: pl.Query
+    t_submit: float
+
+
+@dataclasses.dataclass
+class Response:
+    ticket: int
+    query: pl.Query
+    result: Optional[np.ndarray]   # (n,) values in global vertex order
+    cached: bool = False
+    error: Optional[str] = None
+    latency_s: float = 0.0
+    supersteps: int = 0            # the query's own convergence superstep
+
+
+@dataclasses.dataclass
+class ServiceStats:
+    served: int = 0
+    cache_hits: int = 0
+    rejected: int = 0
+    batches: int = 0
+    engine_supersteps: int = 0
+    landmark_rebootstraps: int = 0   # drift-triggered full re-selections
+    busy_seconds: float = 0.0
+    # Gopher Shield degradation counters
+    deadline_misses: int = 0         # queries answered (or dropped) past SLO
+    query_retries: int = 0           # batch-run retry attempts
+    delta_retries: int = 0           # delta-apply retry attempts
+    delta_failures: int = 0          # delta batches given up on (stale mode)
+    recoveries: int = 0              # retry/stale episodes that healed
+    stale_served: int = 0            # responses served at version v while a
+                                     # failed delta left v+1 pending
+    breaker_opens: int = 0           # circuit-breaker open transitions
+    degraded_batches: int = 0        # batches answered with a typed error
+                                     # instead of a client-facing exception
+    # Gopher Balance live-migration counters (migration waits for A6: both
+    # stay 0)
+    migrations: int = 0
+    migration_rollbacks: int = 0
+    # bounded windows: long-running services must not grow without limit
+    lane_fill: deque = dataclasses.field(
+        default_factory=lambda: deque(maxlen=1024))
+    latencies_s: deque = dataclasses.field(
+        default_factory=lambda: deque(maxlen=8192))
+    delta_apply_s: deque = dataclasses.field(
+        default_factory=lambda: deque(maxlen=1024))
+    # back-reference set by GraphQueryService so ``svc.stats()`` can fold in
+    # the per-graph landmark and breaker state
+    _service: object = dataclasses.field(default=None, repr=False,
+                                         compare=False)
+
+    def qps(self) -> float:
+        return self.served / self.busy_seconds if self.busy_seconds > 0 else 0.0
+
+    def latency_ms(self, pct: float = 50.0) -> float:
+        if not self.latencies_s:
+            return 0.0
+        return float(np.percentile(np.asarray(self.latencies_s), pct) * 1e3)
+
+    def cache_hit_rate(self) -> float:
+        return self.cache_hits / self.served if self.served > 0 else 0.0
+
+    def summary(self) -> dict:
+        return dict(served=self.served, cache_hits=self.cache_hits,
+                    rejected=self.rejected, batches=self.batches,
+                    qps=round(self.qps(), 1),
+                    p50_ms=round(self.latency_ms(50), 2),
+                    p99_ms=round(self.latency_ms(99), 2),
+                    mean_fill=round(float(np.mean(self.lane_fill)), 2)
+                    if self.lane_fill else 1.0)
+
+    def __call__(self) -> dict:
+        """The serving report — ``svc.stats()``: everything in
+        :meth:`summary` plus the latency tail, cache hit rate, delta-apply
+        latency, the degradation counters and the landmark and breaker
+        state (the JAX package's report without its skew keys, A7)."""
+        out = self.summary()
+        out.update(
+            p95_ms=round(self.latency_ms(95), 2),
+            cache_hit_rate=round(self.cache_hit_rate(), 4),
+            engine_supersteps=self.engine_supersteps,
+            landmark_rebootstraps=self.landmark_rebootstraps,
+            delta_apply_p50_ms=round(
+                float(np.percentile(np.asarray(self.delta_apply_s), 50) * 1e3),
+                3) if self.delta_apply_s else 0.0,
+            deadline_misses=self.deadline_misses,
+            query_retries=self.query_retries,
+            delta_retries=self.delta_retries,
+            delta_failures=self.delta_failures,
+            recoveries=self.recoveries,
+            stale_served=self.stale_served,
+            breaker_opens=self.breaker_opens,
+            degraded_batches=self.degraded_batches,
+            migrations=self.migrations,
+            migration_rollbacks=self.migration_rollbacks)
+        svc = self._service
+        if svc is not None:
+            out["result_cache"] = svc.cache.stats()
+            lms = {g: svc.landmark_telemetry(g) for g in svc.landmark_caches}
+            if lms:
+                out["landmarks"] = lms
+            if svc.breakers:
+                out["breakers"] = {g: b.state
+                                   for g, b in svc.breakers.items()}
+            if svc._stale_graphs:
+                out["stale_graphs"] = sorted(svc._stale_graphs)
+        return out
+
+
+class GraphQueryService:
+    """Serves sssp / bfs / reach / ppr queries over registered graphs."""
+
+    def __init__(self, graphs: Dict[str, PartitionedGraph],
+                 backend: str = "local", mesh=None, max_batch: int = 64,
+                 cache_capacity: int = 1024, ppr_iters: int = 30,
+                 warm_start: bool = False, metrics=None,
+                 deadline_s: Optional[float] = None, max_retries: int = 2,
+                 retry_base_s: float = 0.05, breaker_threshold: int = 3,
+                 breaker_cooldown_s: float = 30.0, clock=time.monotonic,
+                 device="cuda"):
+        if backend != "local" or mesh is not None:
+            raise NotImplementedError(
+                "only the 'local' backend is ported (ROADMAP A8: the "
+                "multi-device backend)")
+        if metrics is not None:
+            raise NotImplementedError(
+                "the metrics registry is not ported yet: ROADMAP A7 "
+                "(observability)")
+        self.device = resolve_device(device)
+        self.graphs = dict(graphs)
+        self.backend = backend
+        self.mesh = mesh
+        self.max_batch = max_batch
+        self.ppr_iters = ppr_iters
+        self.warm_start = warm_start
+        # Gopher Shield degradation policy: per-query deadline (None = no
+        # SLO), bounded exponential-backoff retry on batch runs and delta
+        # applies, and a per-graph circuit breaker. The clock is injectable
+        # so tests drive deadlines/cooldowns without sleeping.
+        self.deadline_s = deadline_s
+        self.max_retries = int(max_retries)
+        self.retry_base_s = float(retry_base_s)
+        self.breaker_threshold = int(breaker_threshold)
+        self.breaker_cooldown_s = float(breaker_cooldown_s)
+        self.clock = clock
+        self.breakers: Dict[str, CircuitBreaker] = {}
+        self._stale_graphs: set = set()  # graphs whose last delta FAILED:
+                                         # still serving version v while
+                                         # v+1 is pending (stale-serving)
+        self.cache = ResultCache(cache_capacity)
+        self.stats = ServiceStats()
+        self.stats._service = self
+        self.landmark_caches: Dict[str, LandmarkCache] = {}
+        self._gb: Dict[str, dict] = {}       # device graph blocks
+        self._host_gb: Dict[str, dict] = {}  # patchable host twins (temporal)
+        self._engines: Dict[tuple, GopherEngine] = {}
+        self._pending: List[Request] = []
+        self._next_ticket = 0
+        if warm_start:
+            for name in self.graphs:
+                self.warm(name)
+
+    # ---------------- graph lifecycle (temporal serving) ----------------
+    def _cache_key(self, q: pl.Query) -> tuple:
+        """Exact-cache key = query key + the target graph's VERSION, so a
+        result computed at version k can never answer a query at k+1 (an
+        unknown graph keys at version -1 and flows to admission rejection)."""
+        pg = self.graphs.get(q.graph)
+        return (q.cache_key(), pg.version if pg is not None else -1)
+
+    def update_graph(self, name: str, pg: PartitionedGraph) -> None:
+        """Swap in a new version of a registered graph and invalidate every
+        per-graph derived artifact: cached results, pooled engines + their
+        shared device block (shapes may have changed), and the landmark
+        cache. Invalidation is UNCONDITIONAL for the graph name — the new
+        graph may carry the same version number as the old one, so version
+        equality proves nothing. (``apply_delta`` is the cheaper path for
+        version bumps that came from an edge delta: it patches blocks and
+        landmark vectors instead of dropping them.)"""
+        self.graphs[name] = pg
+        self.cache.invalidate(lambda k: k[0][0] == name)
+        self._gb.pop(name, None)
+        self._host_gb.pop(name, None)
+        self._engines = {k: e for k, e in self._engines.items()
+                         if k[0] != name}
+        self.landmark_caches.pop(name, None)
+
+    def apply_delta(self, name: str, delta, directed: bool = False,
+                    rebuild_landmarks: bool = False):
+        """Ingest an edge-delta batch for a registered graph
+        (``gofs.temporal``): bumps the graph version and invalidates the
+        exact-result cache, but — unlike ``update_graph`` — keeps the
+        derived state warm:
+
+          - the host block is ZERO-REPACK patched in O(|delta|)
+            (``apply_delta(block=...)``), audited
+            (``verify_host_block``) and uploaded as the graph's one shared
+            device block;
+          - with ``rebuild_landmarks=True`` the landmark tier is MAINTAINED,
+            not rebuilt: vectors the delta provably could not change stay
+            (``LandmarkCache.stale_landmarks``), the rest resume from their
+            previous fixpoints in one batched restart
+            (``incremental_sssp_batched``) on the shared block. When the
+            cache's stale-refresh EWMA crosses the drift threshold
+            (``LandmarkCache.drifted``) the tier is RE-BOOTSTRAPPED with a
+            fresh landmark selection instead, and
+            ``stats.landmark_rebootstraps`` counts it.
+
+        Returns the DeltaResult so callers can chain incremental analytics
+        off the dirty seeds.
+
+        The apply is retried ``max_retries`` times with exponential
+        backoff. A patched block that fails its audit raises
+        :class:`BlockCorruptionFault` and drops the cached block twins, so
+        the next attempt cold-rebuilds from the still-installed version v.
+        A :class:`DeltaValidationError` is permanent — nothing was
+        installed — and re-raises at once. When every retry is spent the
+        graph enters STALE-SERVING: version v keeps answering queries while
+        v+1 stays pending; the next successful apply counts a recovery."""
+        t0 = time.perf_counter()
+        delays = backoff_delays(self.retry_base_s, self.max_retries)
+        last: Optional[BaseException] = None
+        for attempt in range(self.max_retries + 1):
+            try:
+                res = self._apply_delta_once(name, delta, directed,
+                                             rebuild_landmarks, t0)
+            except DeltaValidationError:
+                self.stats.delta_failures += 1
+                raise
+            except BlockCorruptionFault as e:
+                last = e
+                self.stats.delta_retries += 1
+                self._host_gb.pop(name, None)
+                self._gb.pop(name, None)
+            except Exception as e:  # serving-loop boundary: degrade, not leak
+                last = e
+                self.stats.delta_retries += 1
+            else:
+                if attempt or name in self._stale_graphs:
+                    self._stale_graphs.discard(name)
+                    self.stats.recoveries += 1
+                return res
+            if attempt < self.max_retries:
+                time.sleep(delays[attempt])
+        self._stale_graphs.add(name)
+        self.stats.delta_failures += 1
+        raise last
+
+    def _apply_delta_once(self, name: str, delta, directed: bool,
+                          rebuild_landmarks: bool, t0: float):
+        from repro_torch.gofs.temporal import apply_delta as _apply
+        old_lc = self.landmark_caches.get(name)
+        host_gb = self._host_gb.get(name)
+        if host_gb is None:
+            host_gb = host_graph_block(self.graphs[name])
+        res = _apply(self.graphs[name], delta, directed=directed,
+                     block=host_gb)
+        # corrupted-block detection BEFORE install: a patched block that
+        # fails the structural audit must never replace the serving twin
+        problems = verify_host_block(res.block)
+        if problems:
+            raise BlockCorruptionFault(
+                "blocks.patch", "corrupt_block", -1, {},
+                {"problems": "; ".join(problems[:3])})
+        self.update_graph(name, res.pg)
+        self._host_gb[name] = res.block
+        self._gb[name] = device_block(res.block, self.device, binned=True)
+        if rebuild_landmarks and old_lc is not None:
+            if old_lc.drifted():
+                self.landmark_caches[name] = LandmarkCache.build(
+                    res.pg, num_landmarks=old_lc.num_landmarks,
+                    strategy=old_lc.strategy, gb=self._gb[name],
+                    device=self.device)
+                self.stats.landmark_rebootstraps += 1
+            else:
+                self.landmark_caches[name] = old_lc.refresh(
+                    res.pg, res, delta, directed=directed, gb=self._gb[name],
+                    profile_block=res.block, device=self.device)
+        if self.warm_start:
+            self.warm(name)
+        self.stats.delta_apply_s.append(time.perf_counter() - t0)
+        return res
+
+    def rebalance(self, name: str, policy=None):
+        """Live migration off a straggler partition (Gopher Balance): it
+        needs the per-graph SkewTracker and the migration machinery."""
+        raise NotImplementedError(
+            "rebalance is not ported yet: ROADMAP A6 (checkpointing and "
+            "resilience: balance.py's migration)")
+
+    def landmark_telemetry(self, name: str) -> Optional[dict]:
+        """The landmark tier's drift signal for one graph: per-version
+        stale-refresh fraction EWMA, refresh count, and whether the next
+        maintained delta would trigger a re-bootstrap."""
+        lc = self.landmark_caches.get(name)
+        if lc is None:
+            return None
+        return dict(num_landmarks=lc.num_landmarks,
+                    graph_version=lc.graph_version,
+                    refreshed_landmarks=lc.refreshed_landmarks,
+                    refreshes=lc.refreshes,
+                    stale_frac_ewma=round(lc.stale_frac_ewma, 4),
+                    drifted=lc.drifted(),
+                    rebootstraps=self.stats.landmark_rebootstraps)
+
+    # ---------------- request intake ----------------
+    def submit(self, kind: str, graph: str, sources) -> int:
+        """Enqueue a query; returns its ticket."""
+        t = self._next_ticket
+        self._next_ticket += 1
+        self._pending.append(Request(ticket=t,
+                                     query=pl.Query.make(kind, graph, sources),
+                                     t_submit=time.perf_counter()))
+        return t
+
+    def query(self, kind: str, graph: str, sources) -> Response:
+        """Convenience: submit one query and drain immediately."""
+        t = self.submit(kind, graph, sources)
+        return self.drain()[t]
+
+    # ---------------- scheduler loop ----------------
+    def drain(self) -> Dict[int, Response]:
+        """Serve every pending request; returns {ticket: Response}."""
+        t0 = time.perf_counter()
+        reqs, self._pending = self._pending, []
+        responses: Dict[int, Response] = {}
+
+        # 1. per-query deadline admission: a request that already overran
+        # its SLO is answered with a typed error instead of occupying an
+        # engine lane; then the exact-cache pass and the dedupe of
+        # identical in-flight queries
+        by_key: Dict[tuple, List[Request]] = {}
+        for r in reqs:
+            if (self.deadline_s is not None
+                    and t0 - r.t_submit > self.deadline_s):
+                self.stats.deadline_misses += 1
+                responses[r.ticket] = Response(
+                    ticket=r.ticket, query=r.query, result=None,
+                    error="deadline exceeded",
+                    latency_s=t0 - r.t_submit)
+                continue
+            key = self._cache_key(r.query)
+            hit = self.cache.get(key)
+            if hit is not None:
+                self.stats.cache_hits += 1
+                responses[r.ticket] = Response(
+                    ticket=r.ticket, query=r.query, result=hit, cached=True,
+                    latency_s=time.perf_counter() - r.t_submit)
+            else:
+                by_key.setdefault(key, []).append(r)
+
+        # 2. plan over unique uncached queries
+        sizes = {name: pg.n_global for name, pg in self.graphs.items()}
+        unique = [rs[0].query for rs in by_key.values()]
+        batches, rejected = pl.plan(unique, sizes, max_batch=self.max_batch)
+        for q, reason in rejected:
+            self.stats.rejected += len(by_key[self._cache_key(q)])
+            for r in by_key[self._cache_key(q)]:
+                responses[r.ticket] = Response(
+                    ticket=r.ticket, query=r.query, result=None, error=reason,
+                    latency_s=time.perf_counter() - r.t_submit)
+
+        # 3. one engine run per batch — a batch whose retries are exhausted
+        # (or whose graph's breaker is open) DEGRADES to typed error
+        # responses; the exception never reaches the client
+        for batch in batches:
+            try:
+                results, qsteps = self._run_batch(batch)
+            except Exception as e:
+                self.stats.degraded_batches += 1
+                err = f"degraded: {e}"
+                for q in batch.queries:
+                    for r in by_key[self._cache_key(q)]:
+                        responses[r.ticket] = Response(
+                            ticket=r.ticket, query=r.query, result=None,
+                            error=err,
+                            latency_s=time.perf_counter() - r.t_submit)
+                continue
+            for i, q in enumerate(batch.queries):
+                # own copy — a row VIEW would pin the whole (Q, n) batch
+                # array in the cache for its lifetime
+                res = np.array(results[i])
+                self.cache.put(self._cache_key(q), res)
+                for r in by_key[self._cache_key(q)]:
+                    responses[r.ticket] = Response(
+                        ticket=r.ticket, query=r.query, result=res,
+                        latency_s=time.perf_counter() - r.t_submit,
+                        supersteps=int(qsteps[i]))
+
+        # 4. aggregate telemetry
+        done = [resp for resp in responses.values() if resp.error is None]
+        if self._stale_graphs:
+            self.stats.stale_served += sum(
+                1 for resp in done if resp.query.graph in self._stale_graphs)
+        if self.deadline_s is not None:
+            # delivered-but-late responses count as misses too (the client
+            # got an answer; the SLO did not)
+            self.stats.deadline_misses += sum(
+                1 for resp in done if resp.latency_s > self.deadline_s)
+        self.stats.served += len(done)
+        self.stats.latencies_s.extend(resp.latency_s for resp in done)
+        self.stats.busy_seconds += time.perf_counter() - t0
+        return responses
+
+    # ---------------- batch execution ----------------
+    def _run_batch(self, batch: pl.Batch):
+        """One batched engine run behind the graph's circuit breaker and a
+        bounded exponential-backoff retry. A graph whose breaker is OPEN
+        refuses the run outright — its queries degrade to typed error
+        responses in drain() while the caches and landmarks still answer —
+        instead of burning retries on a broken graph; the cooldown's one
+        HALF_OPEN trial re-closes it on success."""
+        br = self.breakers.get(batch.graph)
+        if br is None:
+            br = self.breakers[batch.graph] = CircuitBreaker(
+                threshold=self.breaker_threshold,
+                cooldown_s=self.breaker_cooldown_s, clock=self.clock)
+        delays = backoff_delays(self.retry_base_s, self.max_retries)
+        last: Optional[BaseException] = None
+        for attempt in range(self.max_retries + 1):
+            if not br.allow():
+                raise RuntimeError(f"circuit open for graph "
+                                   f"{batch.graph!r} ({br.opens} opens)")
+            try:
+                out = self._run_batch_once(batch)
+            except Exception as e:
+                last = e
+                opens = br.opens
+                br.record_failure()
+                if br.opens > opens:
+                    self.stats.breaker_opens += 1
+                self.stats.query_retries += 1
+            else:
+                br.record_ok()
+                if attempt:
+                    self.stats.recoveries += 1
+                return out
+            if attempt < self.max_retries:
+                time.sleep(delays[attempt])
+        raise last
+
+    def _query_arrays(self, pg: PartitionedGraph, family: str,
+                      lanes: list) -> tuple:
+        """The run's extra entries and the state key its results are in."""
+        if family == "ppr":
+            return {"qseed": ppr_query_seed(pg, [q[0] for q in lanes])}, "r"
+        return {"qinit": reachability_query_init(pg, lanes)}, "x"
+
+    def _run_batch_once(self, batch: pl.Batch):
+        pg = self.graphs[batch.graph]
+        Q = batch.padded_q
+        # pad lanes replay query 0; their results are sliced away below
+        lanes = batch.queries + [batch.queries[0]] * (Q - len(batch.queries))
+        extra, state_key = self._query_arrays(
+            pg, batch.family, [q.sources for q in lanes])
+        eng = self._engine(batch.graph, batch.family, Q)
+        state, tele = eng.run_queries(extra=extra)
+        results = gather_query_results(pg, state[state_key])
+        self.stats.batches += 1
+        self.stats.engine_supersteps += tele.supersteps
+        self.stats.lane_fill.append(batch.fill)
+        # fold this batch's per-pair wire observation into the graph's
+        # traffic profile and its frontier histogram into the
+        # changed-histogram EWMA (what the next tier plan is built from)
+        host = self._host_gb.get(batch.graph)
+        if host is not None:
+            if tele.pair_slots is not None:
+                update_profile(host, tele.pair_slots, tele.pair_rounds)
+            if tele.count_hist is not None:
+                update_changed_profile(host, tele.count_hist)
+            if tele.phase_pair_slots is not None:
+                update_phase_profile(host, tele.phase_pair_slots,
+                                     tele.phase_hist)
+        return results[:len(batch.queries)], tele.query_supersteps
+
+    def _graph_block(self, graph: str) -> dict:
+        """The graph's one device block, with the binned adjacency the
+        query-batched programs read, shared by all its pooled engines."""
+        if graph not in self._gb:
+            host = self._host_gb.get(graph)
+            if host is None:
+                host = host_graph_block(self.graphs[graph])
+                self._host_gb[graph] = host   # keep the patchable twin for
+                                              # the next apply_delta
+            self._gb[graph] = device_block(host, self.device, binned=True)
+        return self._gb[graph]
+
+    def _engine(self, graph: str, family: str, Q: int) -> GopherEngine:
+        """The pooled engine of (graph, family, bucket). ``exchange='auto'``
+        resolves to the fused route for the traversal family and to the
+        staged dense route for PPR."""
+        key = (graph, family, Q)
+        if key not in self._engines:
+            pg = self.graphs[graph]
+            if family == "ppr":
+                prog = BatchedPersonalizedPageRank(
+                    n_global=pg.n_global, num_queries=Q,
+                    num_iters=self.ppr_iters)
+                max_ss = max(self.ppr_iters + 1, 64)
+            else:
+                prog = BatchedSemiringProgram(semiring="min_plus",
+                                              num_queries=Q)
+                max_ss = 4096
+            self._engines[key] = GopherEngine(
+                pg, prog, max_supersteps=max_ss,
+                gb=self._graph_block(graph), device=self.device)
+        return self._engines[key]
+
+    def warm(self, name: str, families=("reach",), qs=(1,)) -> int:
+        """Run one batch per (family, bucket) ``name`` will serve, from
+        vertex 0, off the request path: it builds the pooled engine and its
+        composed mailbox, the kernels, and primes PyTorch's caching
+        allocator (there is no ahead-of-time compile to do, so this is the
+        JAX package's fallback of one real run). A query kind names its
+        family (``reach`` warms the traversal engine). ``qs`` entries are
+        the planner's padded bucket sizes. Returns the number of batches
+        run; the stats do not count them."""
+        pg = self.graphs[name]
+        done = 0
+        for family in families:
+            family = pl.FAMILY_OF_KIND.get(family, family)
+            for Q in qs:
+                extra, _ = self._query_arrays(pg, family, [(0,)] * Q)
+                self._engine(name, family, Q).run_queries(extra=extra)
+                done += 1
+        return done
+
+    # ---------------- landmark tier (approximate SSSP, zero supersteps) ----
+    def enable_landmarks(self, graph: str, num_landmarks: int = 8,
+                         strategy: str = "degree") -> LandmarkCache:
+        """Bootstrap the landmark cache with one batched SSSP run on the
+        graph's shared block."""
+        lc = LandmarkCache.build(self.graphs[graph],
+                                 num_landmarks=num_landmarks,
+                                 strategy=strategy,
+                                 gb=self._graph_block(graph),
+                                 device=self.device)
+        self.landmark_caches[graph] = lc
+        return lc
+
+    def approx_sssp(self, graph: str, source: int) -> np.ndarray:
+        """Triangle-inequality upper bounds on d(source, ·) — answered from
+        the landmark cache without running the engine."""
+        return self.landmark_caches[graph].approx_sssp(source)

@@ -529,6 +529,111 @@ def test_k5_k6_outbox_pack_matches_plain(cuda_device, rows, cap, density,
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("rows,cap,q", [(144, 969, 8), (4096, 1023, 1)])
+@pytest.mark.parametrize("density", [0.0, 0.05, 0.5, 1.0])
+def test_k5_query_batched_pack_matches_plain(cuda_device, rows, cap, q,
+                                            density):
+    """K5 with (R, cap, Q) values — its plan over zero values, then one
+    masked scatter of the Q-vectors — bit-equal to the plain version, at
+    the serving path's batched compact shape (P² rows of the RN graph's
+    cap, Q 8) and at 4096 rows of a long cap, one launch a call."""
+    rng = np.random.default_rng(rows + cap + q)
+    active = rng.random((rows, cap)) < density
+    vals = rng.uniform(-5.0, 5.0, (rows, cap, q)).astype(np.float32)
+    vals[rng.random((rows, cap, q)) < 0.1] = np.inf
+    lim = rng.integers(0, cap + 3, rows).astype(np.int32)
+    lim[::2] = cap
+    vals, active, lim = (torch.from_numpy(a).to(cuda_device)
+                         for a in (vals, active, lim))
+    for ident in (float("inf"), float("-inf")):
+        before = _build.launches["outbox_pack"]
+        got = outbox_pack_cuda(vals, active, lim, ident)
+        want = outbox_pack_ref(vals, active, lim, ident)
+        torch.cuda.synchronize()
+        assert _build.launches["outbox_pack"] == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def _serving_graph():
+    """A road grid with unit weights (BFS) in 6 partitions, and its
+    weighted build (SSSP) on the same partition."""
+    g = road_grid(60, 60, drop_frac=0.05, seed=2)
+    assign = bfs_grow_partition(g, 6, seed=0)
+    wg = road_grid(60, 60, drop_frac=0.05, seed=2, weighted=True)
+    return partition_graph(g, assign, 6), partition_graph(wg, assign, 6)
+
+
+@pytest.mark.parametrize("exchange",
+                         ["megastep", "dense", "compact", "tiered", "phased"])
+def test_run_queries_on_the_card_matches_the_cpu(cuda_device, exchange):
+    """A BFS and an SSSP batch through ``run_queries`` on the card equal
+    the CPU's run (state, supersteps, query_supersteps, local_iters,
+    count_hist); the staged packs launch K5, the fused route no kernel."""
+    from repro_torch import serving
+    for pg, srcs in zip(_serving_graph(), ([0, 77, 1800, 3000],
+                                           [5, 2500])):
+        prog = serving.BatchedSemiringProgram("min_plus", len(srcs))
+        extra = {"qinit": serving.sssp_query_init(pg, srcs)}
+        _build.reset_launches()
+        s, t = GopherEngine(pg, prog, exchange=exchange,
+                            device=cuda_device).run_queries(extra=extra)
+        launches = dict(_build.launches)
+        sc, tc = GopherEngine(pg, prog, exchange=exchange,
+                              device="cpu").run_queries(extra=extra)
+        for k in s:
+            assert np.array_equal(s[k], sc[k]), k
+        for k in ("supersteps", "query_supersteps", "local_iters",
+                  "count_hist", "messages_sent", "wire_slots"):
+            assert np.array_equal(np.asarray(getattr(t, k)),
+                                  np.asarray(getattr(tc, k))), k
+        packs = launches["outbox_pack"]
+        assert packs > 0 if exchange in ("compact", "tiered", "phased") \
+            else packs == 0
+        assert launches["megastep_semiring"] == 0
+
+
+def test_serving_on_the_card_matches_the_cpu(cuda_device):
+    """One stream through ``GraphQueryService`` on the card and on the CPU:
+    the same responses (PPR allclose), batches, hits and rejections, and
+    the landmark refresh after ``apply_delta`` equal on both."""
+    from repro_torch import serving
+    from repro_torch.gofs import EdgeDelta
+    upg, wpg = _serving_graph()
+    stream = [("bfs", "u", 0), ("bfs", "u", 900), ("reach", "u", (5, 6)),
+              ("sssp", "w", 17), ("sssp", "w", 3000), ("ppr", "w", 40),
+              ("ppr", "w", 41), ("bfs", "u", 900), ("sssp", "w", 10 ** 7)]
+    outs, lms = [], []
+    for dev in (cuda_device, "cpu"):
+        svc = serving.GraphQueryService({"u": upg, "w": wpg}, device=dev)
+        for kind, g, s in stream:
+            svc.submit(kind, g, s)
+        out = svc.drain()
+        out[-1] = svc.query("sssp", "w", 17)
+        svc.enable_landmarks("w", 4)
+        svc.apply_delta("w", EdgeDelta.inserts([0, 7], [1500, 2900],
+                                               [0.5, 0.5]),
+                        rebuild_landmarks=True)
+        outs.append((out, svc.stats.summary()))
+        lms.append(svc.landmark_caches["w"].dist)
+    (gpu, gs), (cpu, cs) = outs
+    for k in ("served", "cache_hits", "rejected", "batches"):
+        assert gs[k] == cs[k], k
+    assert gpu[-1].cached
+    for t, r in cpu.items():
+        g = gpu[t]
+        assert (g.error, g.cached, g.supersteps) == (r.error, r.cached,
+                                                      r.supersteps), t
+        if r.result is None:
+            assert g.result is None
+        elif r.query.kind == "ppr":
+            np.testing.assert_allclose(g.result, r.result, rtol=1e-5,
+                                       atol=1e-9)
+        else:
+            assert np.array_equal(g.result, r.result), t
+    assert np.array_equal(lms[0], lms[1])
+
+
 # (B, Sq, Sk, H, KV, dh, causal, window, q_offset). bf16 at dh 64, 80,
 # 128 and 256 runs the tensor-core kernel, the rest the SIMT one.
 K7_CUDA_CASES = [

@@ -28,6 +28,8 @@ from repro_torch.core import (GopherEngine, PageRankProgram,  # noqa: E402
                               PhasedTierPlan, SemiringProgram,
                               init_max_vertex)
 from repro_torch.gofs.formats import partitioned_graph_from_fields  # noqa: E402
+from repro_torch.serving import (BatchedSemiringProgram,  # noqa: E402
+                                 sssp_query_init)
 
 GRAPHS = {
     "small": dict(rows=10, cols=11, drop_frac=0.06, seed=3, weighted=True),
@@ -171,7 +173,8 @@ UNSUPPORTED = {
         extra={"x0": np.where(pg.vmask, pg.global_id, -np.inf),
                "frontier0": pg.vmask}), None),
     "run_queries": (lambda pg: GopherEngine(
-        pg, _cc_program(), device="cpu").run_queries(), "ROADMAP A5"),
+        pg, BatchedSemiringProgram("min_plus", 2), device="cpu").run_queries(
+        extra={"qinit": sssp_query_init(pg, [0, 1])}), None),
 }
 
 

@@ -146,12 +146,13 @@ def test_incremental_matches_jax_and_cold(scenario, runs):
 
 
 def test_incremental_refusals(runs):
-    """The batched resume waits for serving (A5), and a JAX-only
-    ``spmv_backend`` is refused."""
+    """The batched resume on a mesh waits for the multi-device backend
+    (A8), and a JAX-only ``spmv_backend`` is refused."""
     r = runs["removal"]
-    with pytest.raises(NotImplementedError, match="A5"):
-        talg.incremental_sssp_batched(r["tres"].pg, [0, 1], None, r["tres"],
-                                      device="cpu")
+    with pytest.raises(NotImplementedError, match="A8"):
+        talg.incremental_sssp_batched(
+            r["tres"].pg, [0, 1], np.zeros((2, r["tres"].pg.n_global)),
+            r["tres"], backend="shard_map", device="cpu")
     r = runs["insert"]
     with pytest.raises(NotImplementedError, match="spmv_backend"):
         talg.incremental_bfs(r["tres"].pg, 3, r["path_prev"], r["tres"],

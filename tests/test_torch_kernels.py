@@ -251,12 +251,21 @@ def test_outbox_compact_plan_matches_jax_at_tiling_sizes(case):
 
 
 def test_outbox_pack_refuses_query_batched_values():
-    vals = torch.zeros((2, 3, 4))
-    active = torch.zeros((2, 3), dtype=torch.bool)
-    limit = torch.full((2,), 3, dtype=torch.int32)
+    """Query-batched (R, cap, Q) values pack (each slot's Q-vector moves as
+    its scalar would); values whose (R, cap) is not the mask's are refused."""
+    rng = np.random.default_rng(5)
+    vals = torch.from_numpy(rng.normal(size=(2, 3, 4)).astype(np.float32))
+    active = torch.tensor([[True, False, True], [False, True, True]])
+    limit = torch.tensor([3, 1], dtype=torch.int32)
     for fn in (ops.outbox_pack, outbox_pack_ref):
-        with pytest.raises(NotImplementedError, match="A5"):
-            fn(vals, active, limit, 0.0)
+        pv, sids, pinv, counts, over = fn(vals, active, limit, 0.0)
+        for q in range(4):
+            want = outbox_pack_ref(vals[..., q], active, limit, 0.0)
+            assert torch.equal(pv[..., q], want[0])
+            for got, w in zip((sids, pinv, counts, over), want[1:]):
+                assert torch.equal(got, w)
+        with pytest.raises(RuntimeError):
+            fn(vals[:, :2], active, limit, 0.0)
 
 
 # ---------------- the fused superstep ----------------

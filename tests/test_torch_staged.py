@@ -483,10 +483,9 @@ def test_compact_pack_and_unpack_match_jax(blocks, name):
 
 
 def test_unported_routes_name_their_items():
-    for fn, item in ((tmsg.build_outbox_gather_batched, "A5"),
-                     (tmsg.route_shard_map, "A8")):
-        with pytest.raises(NotImplementedError, match=item):
-            fn()
-    with pytest.raises(NotImplementedError, match="A5"):
-        tmsg.active_slots(torch.zeros((2, 3, 4), dtype=torch.bool),
-                          torch.zeros((2, 8), dtype=torch.int32), 2, 4)
+    with pytest.raises(NotImplementedError, match="A8"):
+        tmsg.route_shard_map()
+    with pytest.raises(NotImplementedError, match="A8"):
+        tmsg.route_tiered(torch.zeros((2, 2, 4)), torch.zeros((2, 2, 4)),
+                          torch.zeros((2, 2, 4), dtype=torch.int32), None,
+                          "min", axis_name="parts")

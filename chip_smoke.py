@@ -134,9 +134,42 @@ failure exits non-zero and prints no result:
       ``LandmarkCache.build`` on version 1. One JSON line per run as in 4a,
       the service's summary and per-batch latency, the landmark times, and
       one batched sweep's device time at Q = 4, 8, 16;
+   h. checkpointing and resilience on 4a's weighted graph, after 4g (each
+      run once, with the launch counts set to 0 just before it): (1)
+      ``exchange='compact'`` CC with a ``Checkpointer`` in a temporary
+      directory and ``checkpoint_every=2``, its labels bit-equal to 4a's
+      and its supersteps, local_iters, messages_sent, changed_hist and
+      count_hist equal to 4b's compact run, K2 and K5 launched; an
+      uncheckpointed compact CC timed beside it; the snapshots' steps and
+      bytes on disk, one ``restore`` of the last snapshot onto the card,
+      and one ``save`` of it sync and ``async_save`` (device-to-host, CRC
+      and write seconds); (2) compact SSSP with ``checkpoint_every=8``
+      crashed by a ``FaultPlan`` at ``engine.superstep`` visit 20 and
+      recovered through ``run_with_recovery``: one restart, resumed from
+      step 16, the distances and supersteps 4a's; (3) that run's latest
+      snapshot bit-flipped: ``verify_step`` fails it, ``latest_good_step``
+      falls back one snapshot, and the resumed run is bit-equal again; (4)
+      30-iteration PageRank on 'compact' (K1, K5) crashed at visit 12,
+      recovered from step 10, within rtol 1e-5, atol 0 of 4b's dense
+      PageRank; (5) a straggler on partition 0 (0.1 s a superstep, spread
+      over its live vertices) in a checkpointed CC: ``part_seconds[0] −
+      part_seconds[p]`` equals the stalls ``plan.record()`` reports for
+      every other p, to its rounding, and the labels are 4a's; an
+      ``rn_migration`` line: for each partition its live vertices, free
+      slots, sub-graph count and smallest sub-graph, the destination
+      ``plan_migration`` picks (the lightest partition with a free slot)
+      with its free slots, and the plan at the default budget (no move is
+      forced); (6) ``repro_torch.launch.chaos``
+      ``--quick --device cuda`` (report in ``chiprun_out/chaos_torch.json``):
+      every scenario but ``device_loss`` passes, ``skew_heal`` migrates at
+      least once and cuts the imbalance 2x or more. One JSON line per run
+      as in 4a, a ``checkpoint``, ``straggler``, ``rn_migration`` and
+      ``chaos`` line and the phase's seconds;
 5. kernel times at the paths' shapes: one ``{"kernels": [...]}`` line.
-   ``launches`` counts phase 4's timed runs but 4f's and 4g's, which stand
-   beside it as ``incremental_launches`` and ``serving_launches``.
+   ``launches`` counts phase 4's timed runs but 4f's, 4g's and 4h's, which
+   stand beside it as ``incremental_launches``, ``serving_launches`` and
+   ``checkpoint_launches`` (4h's every run, its uncheckpointed CC and the
+   chaos scenarios included).
    K3 is also held at the main path's CC superstep 0 with each walk
    forced. Its ``bound_ms`` counts only the rows with an active
    in-neighbour, summed over the plain version's sweeps, over the lanes
@@ -932,7 +965,10 @@ def main_path(dev):
                              incremental_launches)
     serving_launches = dict.fromkeys(_build.launches, 0)
     serving_path(dev, g, ug, pg, upg, delta, serving_launches)
-    return pg, path_launches, incremental_launches, serving_launches, plain_k4
+    checkpoint_launches = dict.fromkeys(_build.launches, 0)
+    checkpoint_path(dev, pg, src, results, staged, checkpoint_launches)
+    return (pg, path_launches, incremental_launches, serving_launches,
+            checkpoint_launches, plain_k4)
 
 
 def drive(dev, runs: dict, path_launches: dict, n: int,
@@ -2029,6 +2065,262 @@ def serving_path(dev, g, ug, pg, upg, delta, launches_4g):
         "bounds and the refresh = a cold build — all agree")
 
 
+# ---------------- phase 4h: checkpointing and resilience ----------------
+
+CK_CRASH_AT, CK_SSSP_EVERY = 20, 8   # 4h (2): the crash's visit, snapshots
+PR_CRASH_AT, PR_EVERY = 12, 5        # 4h (4)
+STALL_S = 0.1                        # 4h (5): a straggler's stall a superstep
+
+
+def _disk_bytes(directory: str) -> int:
+    import os
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(directory) for f in files)
+
+
+def checkpoint_path(dev, pg, src, fused, staged, launches_4h):
+    """Phase 4h: checkpointed runs, crash recovery, a snapshot fallback, a
+    targeted straggler and the chaos scenarios at RN scale, each checked
+    (see the module docstring). ``fused`` and ``staged`` hold phases 4a's
+    and 4b's results; every run's launch counts go into ``launches_4h``."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.core import (GopherEngine, PageRankProgram,
+                                  SemiringProgram, init_max_vertex,
+                                  make_sssp_init)
+    from repro_torch.kernels import _build
+    from repro_torch.launch import chaos
+    from repro_torch.resilience import faults, run_with_recovery
+    from repro_torch.resilience.balance import BalancePolicy, plan_migration
+    from repro_torch.training.checkpoint import Checkpointer
+    t_phase = time.perf_counter()
+    k1, k2, k5 = "semiring_spmv", "semiring_spmv_frontier", "outbox_pack"
+    loc = (int(pg.part_of[src]), int(pg.local_of[src]))
+    cc = SemiringProgram("max_first", init_max_vertex)
+    sssp = SemiringProgram("min_plus", make_sssp_init(*loc))
+    pr = PageRankProgram(n_global=pg.n_global, num_iters=30)
+
+    def timed(name, fn, kernels, **extra):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = dict(_build.launches)
+        for k in kernels:
+            if launches[k] == 0:
+                fail(f"{name}: kernel {k} was never launched")
+        for k, c in launches.items():
+            launches_4h[k] += c
+        tele = out[1]
+        log(json.dumps({"algorithm": name, "n": pg.n_global, "parts": 12,
+                        "exchange": tele.exchange,
+                        "supersteps": tele.supersteps,
+                        "local_iters_sum": int(tele.local_iters.sum()),
+                        "warm_s": secs, "launches": launches, **extra}))
+        return out, secs
+
+    def same_run(t, want, what):
+        for f in ("supersteps", "local_iters", "messages_sent",
+                  "changed_hist", "count_hist"):
+            if not np.array_equal(np.asarray(getattr(t, f)),
+                                  np.asarray(getattr(want, f))):
+                fail(f"{what}: {f} differs from phase 4b's compact run")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_4h_") as tmp:
+        # (1) checkpointed CC against 4a's labels and 4b's compact run, and
+        # an uncheckpointed compact CC timed beside it
+        (_, t_plain), plain_s = timed(
+            "cc_compact_uncheckpointed",
+            lambda: GopherEngine(pg, cc, exchange="compact").run(), [k2, k5])
+        d = os.path.join(tmp, "cc")
+        (state, t), ck_s = timed(
+            "cc_checkpointed", lambda: GopherEngine(
+                pg, cc, exchange="compact").run(
+                checkpointer=Checkpointer(d), checkpoint_every=2), [k2, k5])
+        if not np.array_equal(_as_result(pg, "cc", state["x"]),
+                              fused["cc"][0]):
+            fail("cc_checkpointed: labels differ from the fused route's")
+        same_run(t, staged["cc_compact"][1], "cc_checkpointed")
+        same_run(t_plain, staged["cc_compact"][1], "cc_compact_uncheckpointed")
+        ck = Checkpointer(d)
+        steps = sorted(int(x.split("_")[1]) for x in os.listdir(d))
+        like = {"state": {"x": 0, "changed_v": 0, "frontier": 0},
+                "inbox": 0}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap, _ = ck.restore(like, step=steps[-1], device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if not np.array_equal(snap["state"]["x"].cpu().numpy(), state["x"]):
+            fail("cc_checkpointed: the last snapshot is not the run's state")
+        sync = Checkpointer(os.path.join(tmp, "sync"))
+        t0 = time.perf_counter()
+        sync.save(snap, 0)
+        sync_s = time.perf_counter() - t0
+        asyn = Checkpointer(os.path.join(tmp, "async"), async_save=True)
+        t0 = time.perf_counter()
+        asyn.save(snap, 0)
+        async_return_s = time.perf_counter() - t0
+        asyn.wait()
+        async_s = time.perf_counter() - t0
+        if not (sync.verify_step(0) and asyn.verify_step(0)):
+            fail("the timed saves do not verify")
+        log(json.dumps({"checkpoint": {
+            "snapshots": steps, "bytes_on_disk": _disk_bytes(d),
+            "snapshot_bytes": _disk_bytes(os.path.join(tmp, "sync")),
+            "warm_s": ck_s, "uncheckpointed_warm_s": plain_s,
+            "save_sync_s": sync_s, "save_sync_split_s": sync.last_save_s,
+            "save_async_return_s": async_return_s,
+            "save_async_total_s": async_s,
+            "save_async_split_s": asyn.last_save_s,
+            "restore_s": restore_s}}))
+        del snap
+
+        # (2) a crash at superstep 20 of a checkpointed SSSP, recovered
+        d = os.path.join(tmp, "sssp")
+        plan = faults.FaultPlan([faults.FaultSpec(
+            "engine.superstep", "crash", at=CK_CRASH_AT)])
+        eng = GopherEngine(pg, sssp, exchange="compact")
+        with faults.inject(plan):
+            (state, t, rep), _ = timed(
+                "sssp_crash_recovered", lambda: run_with_recovery(
+                    eng, Checkpointer(d), every=CK_SSSP_EVERY), [k2, k5])
+        want_step = CK_CRASH_AT // CK_SSSP_EVERY * CK_SSSP_EVERY
+        if (rep.restarts, rep.attempts, rep.resumed_steps) != \
+                (1, 2, [want_step]) or rep.faults != [dict(
+                    site="engine.superstep", kind="crash",
+                    visit=CK_CRASH_AT)]:
+            fail(f"sssp_crash_recovered: report {rep.as_dict()}")
+        dist = _as_result(pg, "sssp", state["x"])
+        if not np.array_equal(dist, fused["sssp"][0]) or \
+                t.supersteps != fused["sssp"][-1].supersteps or \
+                rep.final_step != t.supersteps:
+            fail("sssp_crash_recovered: differs from the fused route's run")
+        if t.changed_hist[:want_step].any():
+            fail("sssp_crash_recovered: hist slots before the resume")
+
+        # (3) the latest snapshot bit-flipped: fall back one, resume
+        ck = Checkpointer(d)
+        latest = ck.latest_step()
+        with open(os.path.join(d, f"step_{latest}", "host_0.npz"),
+                  "r+b") as f:
+            f.seek(200)
+            f.write(b"\xde\xad\xbe\xef")
+        good = ck.latest_good_step()
+        snaps = sorted(int(x.split("_")[1]) for x in os.listdir(d))
+        if ck.verify_step(latest) or good != snaps[-2]:
+            fail(f"fallback: verify/latest_good_step gave {good} of {snaps}")
+        (state, t), _ = timed(
+            "sssp_fallback_resumed", lambda: GopherEngine(
+                pg, sssp, exchange="compact").run(
+                checkpointer=ck, checkpoint_every=CK_SSSP_EVERY,
+                resume=True), [k2, k5],
+            latest_step=latest, fallback_step=good)
+        if not np.array_equal(_as_result(pg, "sssp", state["x"]),
+                              fused["sssp"][0]):
+            fail("sssp_fallback_resumed: differs from the fused route's run")
+
+        # (4) 30-iteration PageRank, crashed at superstep 12, recovered
+        plan = faults.FaultPlan([faults.FaultSpec(
+            "engine.superstep", "crash", at=PR_CRASH_AT)])
+        eng = GopherEngine(pg, pr, exchange="compact")
+        with faults.inject(plan):
+            (state, t, rep), _ = timed(
+                "pagerank_crash_recovered", lambda: run_with_recovery(
+                    eng, Checkpointer(os.path.join(tmp, "pr")),
+                    every=PR_EVERY), [k1, k5])
+        want = staged["pagerank_dense"][0]["r"]
+        r = _masked(pg, state["r"], 0.0)
+        if rep.restarts != 1 or t.supersteps != 30 or not np.allclose(
+                r, _masked(pg, want, 0.0), rtol=1e-5, atol=0):
+            fail(f"pagerank_crash_recovered: max abs diff "
+                 f"{np.abs(r - _masked(pg, want, 0.0)).max()} from 4b's "
+                 f"dense PageRank (restarts {rep.restarts})")
+
+        # (5) a straggler on partition 0: its stalls land in part_seconds
+        verts0 = int(np.asarray(pg.vmask)[0].sum())
+        plan = faults.FaultPlan([faults.FaultSpec(
+            "engine.superstep", "straggler", prob=1.0, times=9999,
+            delay_s=STALL_S / verts0, payload={"part": 0})])
+        with faults.inject(plan):
+            (state, t), _ = timed(
+                "cc_straggler", lambda: GopherEngine(
+                    pg, cc, exchange="compact").run(
+                    checkpointer=Checkpointer(os.path.join(tmp, "slow")),
+                    checkpoint_every=2), [k2, k5])
+        fired = plan.record()
+        stalls = sum(x["stall_s"] for x in fired)
+        gap = t.part_seconds[0] - np.delete(t.part_seconds, 0)
+        if len(fired) != t.supersteps or not np.allclose(
+                gap, stalls, rtol=0, atol=1e-6 * len(fired)):
+            fail(f"cc_straggler: part_seconds[0] - others {gap} against "
+                 f"the recorded stalls {stalls}")
+        if not np.array_equal(_as_result(pg, "cc", state["x"]),
+                              fused["cc"][0]):
+            fail("cc_straggler: labels differ from the fused route's")
+        log(json.dumps({"straggler": {
+            "stall_s": stalls, "part_seconds": t.part_seconds.tolist(),
+            "skew": t.skew()}}))
+
+    # plan_migration at RN, partition by partition: the destination it
+    # picks (the lightest partition with a free slot), that destination's
+    # free slots beside the source's smallest sub-graph, and the plan
+    budget = BalancePolicy().max_verts_per_step
+    vm = np.asarray(pg.vmask, bool)
+    live = vm.sum(1)
+    free = pg.v_max - live
+    parts = []
+    for p in range(pg.num_parts):
+        sizes = np.unique(pg.sg_id[p][vm[p]], return_counts=True)[1]
+        dsts = [int(q) for q in np.argsort(live, kind="stable")
+                if q != p and free[q] > 0]
+        plan = plan_migration(pg, src=p, budget=budget)
+        parts.append({
+            "part": p, "live": int(live[p]), "free_slots": int(free[p]),
+            "num_subgraphs": int(pg.num_subgraphs[p]),
+            "smallest_subgraph": int(sizes.min()),
+            "dst": dsts[0] if dsts else None,
+            "dst_free_slots": int(free[dsts[0]]) if dsts else 0,
+            "plan": None if plan is None else dataclasses.asdict(plan)})
+    log(json.dumps({"rn_migration": {"budget": budget, "v_max": pg.v_max,
+                                     "parts": parts}}))
+
+    # (6) the chaos scenarios on their own small graphs, on the card
+    out = str(Path(__file__).resolve().parent / "chiprun_out"
+              / "chaos_torch.json")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rc = chaos.main(["--quick", "--device", "cuda", "--out", out])
+    chaos_s = time.perf_counter() - t0
+    for k, c in _build.launches.items():
+        launches_4h[k] += c
+    with open(out) as f:
+        report = json.load(f)
+    if rc != 0:
+        fail(f"chaos: rc {rc}, {report['summary']}, failed: " + str({
+            k: v.get("error", v) for k, v in report["scenarios"].items()
+            if not v["ok"]}))
+    heal = report["scenarios"]["skew_heal"]["algos"]["cc"]
+    if not heal["migrations"] or heal["imbalance_drop"] < 2.0:
+        fail(f"chaos: skew_heal {heal}")
+    log(json.dumps({"chaos": {
+        "seconds": chaos_s, "summary": report["summary"],
+        "scenario_s": {k: v["seconds"]
+                       for k, v in report["scenarios"].items()},
+        "skew_heal": {k: heal[k] for k in ("migrations", "imbalance_before",
+                                          "imbalance_after",
+                                          "imbalance_drop")}},
+        "phase_4h_s": time.perf_counter() - t_phase}))
+    log("checkpoint path checks: checkpointed CC = 4a = 4b compact, the "
+        "crashed SSSP recovered from its snapshot and after a bit-flipped "
+        "one = 4a, recovered PageRank = 4b dense, the straggler's stalls "
+        "in part_seconds exactly, the chaos scenarios — all agree")
+
+
 # ---------------- phases 4d and 4e: LM serving at full width --------------
 
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
@@ -3032,7 +3324,7 @@ def main() -> None:
     check_k7(dev)
     k8_err = check_k8(dev)
     (pg, path_launches, incremental_launches, serving_launches,
-     plain_k4) = main_path(dev)
+     checkpoint_launches, plain_k4) = main_path(dev)
     for arch, op, key, piece in LM_PATHS:
         lm_path(dev, path_launches, arch, op, key, piece)
     kernels = kernel_times(dev, pg, path_launches, plain_k4)
@@ -3041,6 +3333,7 @@ def main() -> None:
     for row in kernels["kernels"]:
         row["incremental_launches"] = incremental_launches[row["name"]]
         row["serving_launches"] = serving_launches[row["name"]]
+        row["checkpoint_launches"] = checkpoint_launches[row["name"]]
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

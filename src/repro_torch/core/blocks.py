@@ -35,6 +35,7 @@ from repro_torch.core.tiers import (MAX_PHASES, PHASE_HIST_LEN,
                                     occupancy_from_ob_inv)
 from repro_torch.gofs.formats import (LANE_PAD, PAD, PartitionedGraph,
                                       _cumcount, grow_last_axis)
+from repro_torch.resilience import faults as _faults
 
 _GB_FIELDS = ["nbr", "wgt", "vmask", "out_degree", "global_id", "sg_id",
               "re_src", "re_wgt", "re_dst_part", "re_dst_local", "re_slot"]
@@ -314,7 +315,8 @@ def patch_host_block(gb: dict, new_pg: PartitionedGraph,
         block's shapes; feed positions are stride-encoded
         (_SLOT_STRIDE), so growth re-lays only ob_inv, in O(P²·cap).
     """
-    # the fault hook blocks.patch waits for ROADMAP A6 (resilience)
+    _faults.fire("blocks.patch", version=getattr(new_pg, "version", None),
+                 parts=new_pg.num_parts)
     out = dict(gb)                               # copy-on-write per array
     for k in _GB_FIELDS:
         out[k] = np.asarray(getattr(new_pg, k))

@@ -68,12 +68,20 @@ an empty seed) counts one empty superstep on both: the folded loop runs
 it, and K4, which runs no round then, is counted as having entered one
 (the JAX package's TPU path reports K4's 0 there).
 
+A run with a ``training.checkpoint.Checkpointer`` (``run(checkpointer=,
+checkpoint_every=)``) is the JAX package's checkpointed loop: the staged
+loop stepped on the host, split at the network boundary, snapshotting
+(state, inbox) at superstep barriers — the paper's synchronization points
+are the recovery lines. Its fault sites (``resilience.faults``) fire on the
+host between launches.
+
 Everything else of the JAX engine raises ``NotImplementedError`` naming the
 ROADMAP item that brings it.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -85,6 +93,8 @@ from repro_torch.core.tiers import DEMOTE_STREAK, PhasedTierPlan, TierPlan
 from repro_torch.gofs.formats import PartitionedGraph
 from repro_torch.kernels import flat, ops
 from repro_torch.kernels import megastep as mega
+from repro_torch.obs import skew as obs_skew
+from repro_torch.resilience import faults as _faults
 
 _EXCHANGES = ("auto", "compact", "dense", "tiered", "phased", "megastep")
 
@@ -148,6 +158,14 @@ class Telemetry:
     phase_pair_slots: Optional[np.ndarray] = None    # (K, P, P) Σ counts
     dense_retry_steps: int = 0                 # rounds routed dense after
                                                # an in-phase overflow
+    # Gopher Balance: wall-clock seconds attributed per partition by the
+    # checkpointed loop — the TIME channel of the skew report. Injected
+    # straggler stalls land on their targeted partition; the rest of each
+    # superstep's time (the card's work included: the clock stops after
+    # the halt vote's host read) spreads evenly, since one process cannot
+    # see per-partition splits of a batched launch. None on the other
+    # loops, which keep no per-superstep host clock.
+    part_seconds: Optional[np.ndarray] = None  # (P,) float64
 
     @staticmethod
     def model_bytes(slots: int, num_parts: int, rounds: int, cap: int,
@@ -162,6 +180,12 @@ class Telemetry:
         if not compact:
             return rounds * num_parts * num_parts * cap * q * 4
         return slots * (4 * q + 4) + rounds * num_parts * num_parts * 4
+
+    def skew(self) -> dict:
+        """Gopher Scope: the run's partition-imbalance report (straggler
+        score off local_iters, wire skew off pair_slots, the time channel
+        off part_seconds) — see ``obs.skew.skew_report``."""
+        return obs_skew.skew_report(self)
 
 
 class _Tally:
@@ -226,13 +250,18 @@ class _Tally:
             self.dsteps += dstep
 
     def telemetry(self, steps: int, exchange: str, num_parts: int, cap: int,
-                  plan=None, num_queries: Optional[int] = None) -> Telemetry:
+                  plan=None, num_queries: Optional[int] = None,
+                  rounds: Optional[int] = None) -> Telemetry:
         """Close the tally of a run of ``steps`` supersteps on route
         ``exchange``; ``plan`` is the tier plan the tiered/phased run
         routed with (its schedules price the wire's bytes, a query batch's
-        ``num_queries`` values a slot)."""
-        rounds = steps + 1
-        whist = self.whist[:rounds].cpu().numpy()
+        ``num_queries`` values a slot). ``rounds`` is the exchanges this
+        process ran, ``steps + 1`` (the supersteps and the inbox prime)
+        unless a resumed run says otherwise: it prices the byte model and
+        ``pair_rounds``; the histograms always cover ``steps + 1`` rounds,
+        zero before a resume's restored step."""
+        whist = self.whist[:steps + 1].cpu().numpy()
+        rounds = steps + 1 if rounds is None else rounds
         wire = int(whist.sum())
         t = Telemetry(
             supersteps=steps,
@@ -243,10 +272,10 @@ class _Tally:
         if self.qsteps is not None:
             t.query_supersteps = self.qsteps.cpu().numpy()
         if self.chist is not None:
-            t.count_hist = self.chist[:rounds].cpu().numpy()
+            t.count_hist = self.chist[:steps + 1].cpu().numpy()
         if self.phases is not None:
             K = self.phases
-            phist = self.phist[:rounds].cpu().numpy()
+            phist = self.phist[:steps + 1].cpu().numpy()
             # each round's routed value slots (wire totals them, retried
             # rounds at dense geometry) plus each phase's index lanes for
             # its rounds (a slight overcount on retried rounds — dense
@@ -306,6 +335,11 @@ class GopherEngine:
                 "multi-device backend)")
         if exchange not in _EXCHANGES:
             raise ValueError(f"unknown exchange {exchange!r}")
+        # the exchange as asked for, before 'auto' and the plan
+        # normalisation below: failover and migration rebuild engines
+        # from it
+        self.exchange_requested = exchange
+        self.backend = backend
         if tier_plan is not None and not isinstance(
                 tier_plan, (TierPlan, PhasedTierPlan)):
             raise TypeError(f"tier_plan must be a TierPlan or a "
@@ -411,15 +445,25 @@ class GopherEngine:
         incremental resume (``SemiringProgram(resume=True)``). They are
         copied onto the engine's device and layered over the cached block
         for this run only, so the cached block, its composed mailbox and the
-        staged flat adjacency stay valid for the next run."""
-        if checkpointer is not None or checkpoint_every or resume \
-                or superstep_budget is not None:
-            raise NotImplementedError(
-                "checkpointed runs are not ported yet: ROADMAP A6 "
-                "(checkpointing and resilience)")
+        staged flat adjacency stay valid for the next run.
+
+        With a ``training.checkpoint.Checkpointer`` and
+        ``checkpoint_every=N`` the run snapshots (state, inbox) every N
+        supersteps and, with ``resume=True``, restarts from the newest
+        snapshot that passes its checksums (see :meth:`_run_checkpointed`).
+        ``superstep_budget`` (checkpointed runs only) caps THIS call at that
+        many supersteps and snapshots at the cut, so a supervisor (Gopher
+        Balance's ``run_with_rebalance``) can interleave decisions between
+        segments of one logical run and resume exactly where it stopped."""
         if self.num_queries is not None:
             raise ValueError("a query-batched program runs through "
                              "run_queries")
+        if checkpointer is not None and checkpoint_every > 0:
+            return self._run_checkpointed(checkpointer, checkpoint_every,
+                                          resume, extra=extra,
+                                          superstep_budget=superstep_budget)
+        if superstep_budget is not None:
+            raise ValueError("superstep_budget requires a checkpointed run")
         return self._run(extra)
 
     def run_queries(self, extra: Optional[dict] = None):
@@ -767,6 +811,115 @@ class GopherEngine:
                 streak = streak + 1 if nviol == 0 else 0
             tally.seg_end[k] = step
         return state, step, tally
+
+    # ---------------- the checkpointed route ----------------
+
+    def _run_checkpointed(self, ck, every: int, resume: bool,
+                          extra: Optional[dict] = None,
+                          superstep_budget: Optional[int] = None):
+        """Checkpointable BSP: the staged loop stepped on the host and split
+        at the network boundary (the program's superstep, then ``pack``,
+        then ``route``, from :meth:`make_exchange_stages`), snapshotting
+        ``{"state", "inbox"}`` at superstep ``step`` every ``every``
+        supersteps, at a budget's cut, at quiescence and at
+        ``max_supersteps``. Megastep, tiered and phased engines run it on
+        the compact staged loop, as the JAX package does: same results
+        (bit-identical for idempotent ⊕), and the fused route carries no
+        staged (state, inbox) pair to snapshot. The run reuses the engine's
+        cached block; ``extra`` layers over it as in :meth:`run`.
+
+        With ``resume`` the run restores the newest snapshot that passes
+        checksum verification (``Checkpointer.latest_good_step``: a corrupt
+        latest snapshot falls back to the previous good one; none is a cold
+        start). The telemetry then covers this process's supersteps only:
+        the histograms' slots before the restored step are zero, and the
+        byte model counts the rounds run here (no prime).
+
+        Fault sites fire on the host, between launches: ``exchange.route``
+        before the prime's route and each superstep's, ``engine.superstep``
+        before each sweep. ``Telemetry.part_seconds`` times each superstep
+        from before its fault site to after the halt vote's one host read,
+        charges injected stalls to their partition and spreads the rest
+        evenly."""
+        if self.exchange in ("megastep", "tiered", "phased"):
+            prev = self.exchange
+            self.exchange = "compact"
+            try:
+                return self._run_checkpointed(
+                    ck, every, resume, extra,
+                    superstep_budget=superstep_budget)
+            finally:
+                self.exchange = prev
+        gb = self._layer(self._gb_for_staged(), extra)
+        prog = self.program
+        P = self.pg.num_parts
+        max_s = self.max_supersteps
+        pack, route = self.make_exchange_stages(gb)
+        compact = self.exchange == "compact"
+        # Gopher Balance's time channel
+        psec = np.zeros(P, np.float64)
+        part_verts = tuple(int(x) for x in
+                           np.asarray(self.pg.vmask, bool).sum(1))
+
+        good = ck.latest_good_step() if resume else None
+        if good is not None:
+            # the restore reads only the structure: its leaves' paths
+            snap_like = {"state": prog.init(gb), "inbox": torch.empty(0)}
+            snap, step = ck.restore(snap_like, step=good, device=self.device)
+            state, inbox = snap["state"], snap["inbox"]
+            step = int(step)
+            pairs0 = (torch.zeros((P, P), dtype=torch.int32,
+                                  device=self.device) if compact else None)
+            tally = _Tally(P, max_s, 0, 0, pairs0, self.device)
+            primed = False
+        else:
+            state = prog.init(gb)
+            payload, nsent0, wire0, ex0 = pack(state)
+            _faults.fire("exchange.route", step=0, backend=self.backend)
+            inbox, rex0 = route(payload)
+            tally = _Tally(P, max_s, nsent0, rex0.get("wire", wire0),
+                           ex0.get("pairs"), self.device)
+            step = 0
+            primed = True
+
+        start = step
+        budget = superstep_budget
+        done = False
+        while not done and step < max_s and (budget is None
+                                             or step - start < budget):
+            t0 = time.perf_counter()
+            eff = _faults.fire("engine.superstep", step=step,
+                               backend=self.backend, part_verts=part_verts,
+                               num_devices=1)
+            state, changed, liters = prog.superstep(state, inbox, gb, step)
+            payload, nsent, wire, ex = pack(state)
+            _faults.fire("exchange.route", step=step + 1,
+                         backend=self.backend)
+            inbox, rex = route(payload)
+            nchanged, _ = _halt_vote(changed)
+            tally.fold(step, nchanged, liters, nsent, rex.get("wire", wire),
+                       ex.get("pairs"))
+            nch = int(nchanged)              # the superstep's one host read
+            dt = time.perf_counter() - t0
+            stalls = (eff or {}).get("stalls", [])
+            inj = sum(s for p, s in stalls if 0 <= p < P)
+            psec += max(dt - inj, 0.0) / P
+            for p, s in stalls:
+                if 0 <= p < P:
+                    psec[p] += s
+            step += 1
+            done = nch == 0
+            cut = budget is not None and step - start >= budget
+            if done or cut or (step - start) % every == 0 or step >= max_s:
+                ck.save({"state": state, "inbox": inbox}, step)
+        # after a resume the wire counters cover only THIS process's
+        # exchanges, so the byte model counts the same rounds (no prime
+        # ran, and the supersteps before the resume shipped elsewhere)
+        rounds = step - start + (1 if primed else 0)
+        t = tally.telemetry(step, self.exchange, P, self.pg.mailbox_cap,
+                            rounds=rounds)
+        t.part_seconds = psec
+        return {k: v.cpu().numpy() for k, v in state.items()}, t
 
     # ---------------- the fused route ----------------
 

@@ -159,7 +159,11 @@ class PageRankProgram:
             r0 = torch.where(vmask, self.init_fn(gb), 0.0)
         else:
             r0 = torch.where(vmask, 1.0 / self.n_global, 0.0)
-        return {"r": r0.to(torch.float32), "delta": INF}
+        # delta is (P,), as the JAX package's vmapped init gives it, so a
+        # snapshot's leaves have the same shapes in both packages
+        delta = torch.full((vmask.shape[0],), INF, dtype=torch.float32,
+                           device=vmask.device)
+        return {"r": r0.to(torch.float32), "delta": delta}
 
     def _contrib(self, r, gb):
         deg = gb["out_degree"].to(torch.float32)

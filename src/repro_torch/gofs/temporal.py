@@ -216,6 +216,71 @@ def _local_subgraphs(nbr: np.ndarray, vmask: np.ndarray, parts):
             yield p, sg, 0
 
 
+# fill of a grown remote-edge entry: re_src, re_wgt, re_dst_part,
+# re_dst_local, re_slot
+_RE_FILL = (PAD, 0.0, 0, 0, 0)
+
+
+def _ell_insert(nbr, wgt, p, v, u, w):
+    """Put the local in-edge u -> v of weight w into the first PAD lane of
+    partition p's ELL row v; when that row is full every row grows by
+    ``LANE_PAD`` lanes. Returns the (possibly grown) ``(nbr, wgt)``."""
+    free = np.flatnonzero(nbr[p, v] == PAD)
+    if free.size == 0:
+        nbr = grow_last_axis(nbr, LANE_PAD, PAD)
+        wgt = grow_last_axis(wgt, LANE_PAD, 0.0)
+        free = np.flatnonzero(nbr[p, v] == PAD)
+    nbr[p, v, free[0]] = u
+    wgt[p, v, free[0]] = w
+    return nbr, wgt
+
+
+def _recycled_slot(remote, p, pv):
+    """The smallest mailbox slot unused by the live remote edges of the
+    (p, pv) pair: freed slots are recycled so the mailbox doesn't creep
+    wider. ``remote`` is [re_src, re_wgt, re_dst_part, re_dst_local,
+    re_slot]."""
+    re_src, _, re_dp, _, re_slot = remote
+    pair = (re_src[p] != PAD) & (re_dp[p] == pv)
+    used = np.zeros(int(pair.sum()) + 1, bool)
+    in_range = re_slot[p][pair]
+    used[in_range[in_range < used.size]] = True
+    return int(np.flatnonzero(~used)[0])
+
+
+def _add_remote_edge(remote, p, u, pv, lv, w):
+    """Store the remote edge (p, u) -> (pv, lv) of weight w in the first free
+    entry of partition p's remote-edge list, on its pair's recycled slot.
+    ``remote`` is the list [re_src, re_wgt, re_dst_part, re_dst_local,
+    re_slot]; when p has no free entry all five grow by ``LANE_PAD`` entries
+    and are replaced in the list. Returns ``(slot, entry)``."""
+    holes = np.flatnonzero(remote[0][p] == PAD)
+    if holes.size == 0:
+        remote[:] = [grow_last_axis(a, LANE_PAD, f)
+                     for a, f in zip(remote, _RE_FILL)]
+        holes = np.flatnonzero(remote[0][p] == PAD)
+    e = int(holes[0])
+    slot = _recycled_slot(remote, p, pv)
+    for a, x in zip(remote, (u, w, pv, lv, slot)):
+        a[p, e] = x
+    return slot, e
+
+
+def _mailbox_cap(re_src, re_slot, block, num_parts):
+    """A patched version's mailbox capacity: an exact fit over the live
+    remote edges; STICKY when patching a block (flat slot positions must
+    stay valid — growth is lane-padded so one overflowing pair doesn't
+    recompile every version)."""
+    live = re_src != PAD
+    cap = int(re_slot[live].max()) + 1 if live.any() else 1
+    if block is not None:
+        cap_block = block["ob_inv"].shape[1] // num_parts
+        if cap > cap_block:
+            cap = ((cap + LANE_PAD - 1) // LANE_PAD) * LANE_PAD
+        cap = max(cap, cap_block)
+    return cap
+
+
 def apply_delta(pg: PartitionedGraph, delta: EdgeDelta,
                 directed: bool = False, block: Optional[dict] = None,
                 weight_domain: str = "nonneg") -> DeltaResult:
@@ -264,6 +329,7 @@ def apply_delta(pg: PartitionedGraph, delta: EdgeDelta,
     re_dp = pg.re_dst_part.copy()
     re_dl = pg.re_dst_local.copy()
     re_slot = pg.re_slot.copy()
+    remote = [re_src, re_wgt, re_dp, re_dl, re_slot]
     out_degree = pg.out_degree.copy()
     sg_id = pg.sg_id.copy()
     num_sg = pg.num_subgraphs.copy()
@@ -316,13 +382,7 @@ def apply_delta(pg: PartitionedGraph, delta: EdgeDelta,
                 stats["weight_updated"] += 1
                 touched_mask[pv, lv] = True
                 continue
-            free = np.flatnonzero(nbr[pv, lv] == PAD)
-            if free.size == 0:
-                nbr = grow_last_axis(nbr, LANE_PAD, PAD)
-                wgt = grow_last_axis(wgt, LANE_PAD, 0.0)
-                free = np.flatnonzero(nbr[pv, lv] == PAD)
-            nbr[pv, lv, free[0]] = lu
-            wgt[pv, lv, free[0]] = w
+            nbr, wgt = _ell_insert(nbr, wgt, pv, lv, lu, w)
             touched_local.add(pv)
             touched_mask[pv, lv] = True
         else:
@@ -332,41 +392,13 @@ def apply_delta(pg: PartitionedGraph, delta: EdgeDelta,
                 re_wgt[pu, m[0]] = min(float(re_wgt[pu, m[0]]), float(w))
                 stats["weight_updated"] += 1
                 continue
-            free = np.flatnonzero(re_src[pu] == PAD)
-            if free.size == 0:
-                re_src = grow_last_axis(re_src, LANE_PAD, PAD)
-                re_wgt = grow_last_axis(re_wgt, LANE_PAD, 0.0)
-                re_dp = grow_last_axis(re_dp, LANE_PAD, 0)
-                re_dl = grow_last_axis(re_dl, LANE_PAD, 0)
-                re_slot = grow_last_axis(re_slot, LANE_PAD, 0)
-                free = np.flatnonzero(re_src[pu] == PAD)
-            e = free[0]
-            # smallest slot unused by live edges of the (pu, pv) pair —
-            # freed slots are recycled so the mailbox doesn't creep wider
-            pair = (re_src[pu] != PAD) & (re_dp[pu] == pv)
-            used = np.zeros(int(pair.sum()) + 1, bool)
-            in_range = re_slot[pu][pair]
-            used[in_range[in_range < used.size]] = True
-            slot = int(np.flatnonzero(~used)[0])
-            re_src[pu, e] = lu
-            re_wgt[pu, e] = w
-            re_dp[pu, e] = pv
-            re_dl[pu, e] = lv
-            re_slot[pu, e] = slot
-            ev_radd.append((pu, pv, lv, slot, int(e)))
+            slot, e = _add_remote_edge(remote, pu, lu, pv, lv, w)
+            re_src, re_wgt, re_dp, re_dl, re_slot = remote
+            ev_radd.append((pu, pv, lv, slot, e))
         out_degree[pu, lu] += 1
         stats["inserted"] += 1
 
-    # ---- mailbox capacity: exact fit over live remote edges; STICKY when
-    # patching a block (flat slot positions must stay valid — growth is
-    # lane-padded so one overflowing pair doesn't recompile every version)
-    live = re_src != PAD
-    cap = int(re_slot[live].max()) + 1 if live.any() else 1
-    if block is not None:
-        cap_block = block["ob_inv"].shape[1] // P
-        if cap > cap_block:
-            cap = ((cap + LANE_PAD - 1) // LANE_PAD) * LANE_PAD
-        cap = max(cap, cap_block)
+    cap = _mailbox_cap(re_src, re_slot, block, P)
 
     # ---- sub-graph rediscovery, touched partitions only (one scipy call)
     for p, sg_p, n_p in _local_subgraphs(nbr, pg.vmask, sorted(touched_local)):

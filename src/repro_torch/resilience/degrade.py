@@ -2,7 +2,7 @@
 
 The port's copy of the JAX package's ``resilience/degrade.py`` (no JAX in
 it). ``serving.GraphQueryService`` passes every batch run and every delta
-apply through it; the rest of the resilience layer waits for ROADMAP A6.
+apply through it.
 
 :class:`CircuitBreaker` is the standard three-state machine, per graph:
 

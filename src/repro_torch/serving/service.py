@@ -21,12 +21,16 @@ Every batch run and every delta apply goes through a per-graph
 (``resilience.degrade``). Aggregate telemetry (QPS, latency percentiles,
 cache hit rate, bucket fill) accumulates in ServiceStats.
 
+Gopher Shield's fault sites ``svc.apply_delta`` and ``svc.query``
+(``resilience.faults``) fire on entry of every attempt; every batch's
+telemetry feeds the graph's ``SkewTracker`` (``svc.skew``, the
+``imbalance``/``skew`` keys of ``stats()``), which ``rebalance`` reads to
+migrate sub-graphs off a straggler partition (Gopher Balance).
+
 What the port leaves out, each with the ROADMAP item that brings it: the
-fault-injection hooks and ``rebalance`` (A6, which raises), the metrics
-registry (A7: ``metrics=`` raises), the per-graph SkewTracker and the
-``imbalance``/``skew`` keys of ``stats()`` (A7), and ``backend=
-'shard_map'`` or a ``mesh`` (A8, which raise). Engines run on ``device``
-(the card unless the caller passes ``device='cpu'``).
+metrics registry (A7: ``metrics=`` raises), and ``backend='shard_map'``
+or a ``mesh`` (A8, which raise). Engines run on ``device`` (the card
+unless the caller passes ``device='cpu'``).
 """
 from __future__ import annotations
 
@@ -43,6 +47,8 @@ from repro_torch.core import (GopherEngine, device_block, host_graph_block,
                               verify_host_block)
 from repro_torch.gofs.formats import PartitionedGraph
 from repro_torch.gofs.temporal import DeltaValidationError
+from repro_torch.obs.skew import SkewTracker
+from repro_torch.resilience import faults as _faults
 from repro_torch.resilience.degrade import CircuitBreaker, backoff_delays
 from repro_torch.resilience.faults import BlockCorruptionFault
 from repro_torch.serving import planner as pl
@@ -91,10 +97,10 @@ class ServiceStats:
     breaker_opens: int = 0           # circuit-breaker open transitions
     degraded_batches: int = 0        # batches answered with a typed error
                                      # instead of a client-facing exception
-    # Gopher Balance live-migration counters (migration waits for A6: both
-    # stay 0)
-    migrations: int = 0
-    migration_rollbacks: int = 0
+    # Gopher Balance live-migration counters
+    migrations: int = 0              # skew-healing migrations installed
+    migration_rollbacks: int = 0     # patched blocks that failed the audit
+                                     # (pre-migration version kept serving)
     # bounded windows: long-running services must not grow without limit
     lane_fill: deque = dataclasses.field(
         default_factory=lambda: deque(maxlen=1024))
@@ -103,7 +109,7 @@ class ServiceStats:
     delta_apply_s: deque = dataclasses.field(
         default_factory=lambda: deque(maxlen=1024))
     # back-reference set by GraphQueryService so ``svc.stats()`` can fold in
-    # the per-graph landmark and breaker state
+    # the per-graph skew, landmark and breaker state
     _service: object = dataclasses.field(default=None, repr=False,
                                          compare=False)
 
@@ -130,8 +136,8 @@ class ServiceStats:
     def __call__(self) -> dict:
         """The serving report — ``svc.stats()``: everything in
         :meth:`summary` plus the latency tail, cache hit rate, delta-apply
-        latency, the degradation counters and the landmark and breaker
-        state (the JAX package's report without its skew keys, A7)."""
+        latency, the degradation counters, per-graph partition imbalance
+        (the live SkewTracker) and the landmark and breaker state."""
         out = self.summary()
         out.update(
             p95_ms=round(self.latency_ms(95), 2),
@@ -153,6 +159,9 @@ class ServiceStats:
             migration_rollbacks=self.migration_rollbacks)
         svc = self._service
         if svc is not None:
+            out["imbalance"] = {g: t.imbalance()
+                                for g, t in svc.skew.items()}
+            out["skew"] = {g: t.report() for g, t in svc.skew.items()}
             out["result_cache"] = svc.cache.stats()
             lms = {g: svc.landmark_telemetry(g) for g in svc.landmark_caches}
             if lms:
@@ -209,6 +218,8 @@ class GraphQueryService:
         self.stats = ServiceStats()
         self.stats._service = self
         self.landmark_caches: Dict[str, LandmarkCache] = {}
+        # per-graph live straggler picture, fed by every batch run
+        self.skew: Dict[str, SkewTracker] = {}
         self._gb: Dict[str, dict] = {}       # device graph blocks
         self._host_gb: Dict[str, dict] = {}  # patchable host twins (temporal)
         self._engines: Dict[tuple, GopherEngine] = {}
@@ -280,6 +291,7 @@ class GraphQueryService:
         last: Optional[BaseException] = None
         for attempt in range(self.max_retries + 1):
             try:
+                _faults.fire("svc.apply_delta", graph=name, attempt=attempt)
                 res = self._apply_delta_once(name, delta, directed,
                                              rebuild_landmarks, t0)
             except DeltaValidationError:
@@ -340,11 +352,75 @@ class GraphQueryService:
         return res
 
     def rebalance(self, name: str, policy=None):
-        """Live migration off a straggler partition (Gopher Balance): it
-        needs the per-graph SkewTracker and the migration machinery."""
-        raise NotImplementedError(
-            "rebalance is not ported yet: ROADMAP A6 (checkpointing and "
-            "resilience: balance.py's migration)")
+        """Gopher Balance on the serving path: read the graph's live
+        :class:`SkewTracker`, ask ``launch.elastic.rebalance_hint`` whether
+        the partition layout is worth healing, and if so migrate sub-graphs
+        off the straggler partition through the same synthetic-delta
+        machinery ``apply_delta`` uses — ``patch_host_block`` on the host
+        twin, O(moved cut), no re-partition.
+
+        The move rides the STALE-SERVING discipline: version v keeps
+        answering every query until the patched block passes its
+        ``verify_host_block`` audit; a failed audit installs NOTHING
+        (``stats.migration_rollbacks`` counts it, the graph's circuit
+        breaker records the failure) and v serves on. On success the
+        patched version installs exactly like a delta (update_graph +
+        block twins) and ``stats.migrations`` ticks.
+
+        Returns the ``MigrationResult`` when a migration installed, else
+        None (balanced graph, nothing movable, or rolled back)."""
+        from repro_torch.launch import elastic
+        from repro_torch.resilience.balance import (BalancePolicy,
+                                                    apply_migration,
+                                                    plan_migration)
+
+        pol = policy or BalancePolicy()
+        tracker = self.skew.get(name)
+        pg = self.graphs.get(name)
+        if tracker is None or pg is None:
+            return None
+        rep = tracker.report()
+        hint = elastic.rebalance_hint(rep, threshold=pol.threshold,
+                                      floor=pol.floor)
+        if hint is None:
+            return None
+        load = (tracker.seconds
+                if tracker.seconds is not None
+                and np.any(tracker.seconds > 0) else tracker.liters)
+        plan = plan_migration(pg, src=int(hint["migrate_from"]),
+                              budget=pol.max_verts_per_step, load=load)
+        if plan is None:
+            return None
+        host_gb = self._host_gb.get(name)
+        if host_gb is None:
+            host_gb = host_graph_block(pg)
+        try:
+            res = apply_migration(pg, plan, host_gb=host_gb)
+            problems = verify_host_block(res.block)
+        except BlockCorruptionFault as e:
+            problems = [str(e)]
+            res = None
+        if problems:
+            # rollback is free: nothing was installed, version v serves on
+            self.stats.migration_rollbacks += 1
+            br = self.breakers.get(name)
+            if br is None:
+                br = self.breakers[name] = CircuitBreaker(
+                    threshold=self.breaker_threshold,
+                    cooldown_s=self.breaker_cooldown_s, clock=self.clock)
+            br.record_failure()
+            return None
+        self.update_graph(name, res.pg)
+        self._host_gb[name] = res.block
+        self._gb[name] = device_block(res.block, self.device, binned=True)
+        # the accumulated load picture described the PRE-move layout; reset
+        # so the next decision reads post-move telemetry, not stale skew
+        self.skew[name] = SkewTracker(num_parts=pg.num_parts,
+                                      decay=tracker.decay)
+        self.stats.migrations += 1
+        if self.warm_start:
+            self.warm(name)
+        return res
 
     def landmark_telemetry(self, name: str) -> Optional[dict]:
         """The landmark tier's drift signal for one graph: per-version
@@ -480,6 +556,8 @@ class GraphQueryService:
                 raise RuntimeError(f"circuit open for graph "
                                    f"{batch.graph!r} ({br.opens} opens)")
             try:
+                _faults.fire("svc.query", graph=batch.graph,
+                             family=batch.family, attempt=attempt)
                 out = self._run_batch_once(batch)
             except Exception as e:
                 last = e
@@ -517,6 +595,8 @@ class GraphQueryService:
         self.stats.batches += 1
         self.stats.engine_supersteps += tele.supersteps
         self.stats.lane_fill.append(batch.fill)
+        # Gopher Scope: fold the run into the graph's live straggler picture
+        self.skew.setdefault(batch.graph, SkewTracker()).observe(tele)
         # fold this batch's per-pair wire observation into the graph's
         # traffic profile and its frontier histogram into the
         # changed-histogram EWMA (what the next tier plan is built from)

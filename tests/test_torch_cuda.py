@@ -634,6 +634,110 @@ def test_serving_on_the_card_matches_the_cpu(cuda_device):
     assert np.array_equal(lms[0], lms[1])
 
 
+def _ck_program(algo, pg):
+    from repro_torch.core import PageRankProgram
+    if algo == "cc":
+        return SemiringProgram("max_first", init_max_vertex)
+    if algo == "sssp":
+        return SemiringProgram("min_plus", make_sssp_init(
+            int(pg.part_of[0]), int(pg.local_of[0])))
+    return PageRankProgram(n_global=pg.n_global, num_iters=30)
+
+
+def _same_state(a, b, algo):
+    assert sorted(a) == sorted(b)
+    for k in a:
+        if algo == "pagerank":
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-5, atol=0)
+        else:
+            assert np.array_equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("algo", ["cc", "sssp", "pagerank"])
+def test_checkpointed_runs_on_the_card_match(cuda_device, tmp_path, algo):
+    """A checkpointed run on 'compact' on the card equals the card's
+    uncheckpointed run (PageRank allclose) and the CPU's checkpointed run,
+    with the CPU's telemetry; it launches K2 (CC, SSSP) or K1 (PageRank)
+    and K5, and a snapshot written from the card restores on the CPU and
+    resumes there to the same end."""
+    from repro_torch.training.checkpoint import Checkpointer
+    pg = _serving_graph()[1]
+    prog = _ck_program(algo, pg)
+    plain, _ = GopherEngine(pg, prog, exchange="compact",
+                            device=cuda_device).run()
+    _build.reset_launches()
+    s, t = GopherEngine(pg, prog, exchange="compact", device=cuda_device) \
+        .run(checkpointer=Checkpointer(str(tmp_path / "gpu")),
+             checkpoint_every=3)
+    launches = dict(_build.launches)
+    sweep = "semiring_spmv" if algo == "pagerank" \
+        else "semiring_spmv_frontier"
+    assert launches[sweep] > 0 and launches["outbox_pack"] == t.supersteps + 1
+    sc, tc = GopherEngine(pg, prog, exchange="compact", device="cpu").run(
+        checkpointer=Checkpointer(str(tmp_path / "cpu")), checkpoint_every=3)
+    _same_state(plain, s, algo)
+    _same_state(sc, s, algo)
+    for k in ("supersteps", "local_iters", "changed_hist", "count_hist",
+              "messages_sent", "wire_slots", "bytes_on_wire"):
+        assert np.array_equal(np.asarray(getattr(t, k)),
+                              np.asarray(getattr(tc, k))), k
+    # the card's snapshots, cut after 4 supersteps, resumed on the CPU
+    d = str(tmp_path / "cut")
+    GopherEngine(pg, prog, exchange="compact", device=cuda_device).run(
+        checkpointer=Checkpointer(d), checkpoint_every=2, superstep_budget=4)
+    sr, tr = GopherEngine(pg, prog, exchange="compact", device="cpu").run(
+        checkpointer=Checkpointer(d), checkpoint_every=2, resume=True)
+    _same_state(sc, sr, algo)
+    assert tr.supersteps == tc.supersteps
+
+
+def test_recovery_of_a_crash_on_the_card(cuda_device, tmp_path):
+    """A crash at superstep 5 of a checkpointed SSSP on the card, recovered
+    by ``run_with_recovery`` from step 4, ends bit-equal to the fused
+    route's run on the card."""
+    from repro_torch.resilience import faults, run_with_recovery
+    from repro_torch.training.checkpoint import Checkpointer
+    pg = _serving_graph()[1]
+    prog = _ck_program("sssp", pg)
+    ref, tref = GopherEngine(pg, prog, device=cuda_device).run()
+    plan = faults.FaultPlan(
+        [faults.FaultSpec("engine.superstep", "crash", at=5)])
+    eng = GopherEngine(pg, prog, exchange="megastep", device=cuda_device)
+    with faults.inject(plan):
+        s, t, rep = run_with_recovery(eng, Checkpointer(str(tmp_path)),
+                                      every=2)
+    assert rep.restarts == 1 and rep.resumed_steps == [4]
+    assert np.array_equal(s["x"], ref["x"])
+    assert t.supersteps == tref.supersteps
+
+
+def test_rebalance_migration_resumes_on_the_card(cuda_device, tmp_path):
+    """A migration after 2 supersteps of a checkpointed CC on the card
+    (``migrate_and_resume``, the engine rebuilt on the patched block on
+    the card) resumes to the CPU's migration-free result in global order."""
+    from repro_torch.resilience.balance import (migrate_and_resume,
+                                                plan_migration, to_global)
+    from repro_torch.training.checkpoint import Checkpointer
+    rows, cols = 6, 12
+    g = road_grid(rows, cols, drop_frac=0.0, seed=0, weighted=True)
+    strip = (np.arange(rows * cols) % cols) // 2
+    pg = partition_graph(g, np.asarray([0, 1, 2, 0, 3, 3],
+                                       np.int32)[strip], 4)
+    for algo in ("cc", "sssp"):
+        prog = _ck_program(algo, pg)
+        ref, _ = GopherEngine(pg, prog, exchange="dense", device="cpu").run()
+        eng = GopherEngine(pg, prog, exchange="compact", device=cuda_device)
+        ck = Checkpointer(str(tmp_path / algo))
+        eng.run(checkpointer=ck, checkpoint_every=1, superstep_budget=2)
+        eng2, res, at = migrate_and_resume(
+            eng, ck, plan_migration(pg, src=0, budget=12, dst=2))
+        assert at == 2 and eng2.device.type == "cuda"
+        s, _ = eng2.run(checkpointer=ck, checkpoint_every=1, resume=True)
+        for k in ref:
+            assert np.array_equal(to_global(s, res.pg)[k],
+                                  to_global(ref, pg)[k]), (algo, k)
+
+
 # (B, Sq, Sk, H, KV, dh, causal, window, q_offset). bf16 at dh 64, 80,
 # 128 and 256 runs the tensor-core kernel, the rest the SIMT one.
 K7_CUDA_CASES = [

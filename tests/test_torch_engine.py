@@ -6,6 +6,7 @@ atol=1e-7, the JAX package's own fused-vs-dense tolerance) with equal
 supersteps. The JAX runs are cached per module so each compiles once.
 """
 import dataclasses
+import tempfile
 
 import numpy as np
 import pytest
@@ -30,6 +31,7 @@ from repro_torch.core import (GopherEngine, PageRankProgram,  # noqa: E402
 from repro_torch.gofs.formats import partitioned_graph_from_fields  # noqa: E402
 from repro_torch.serving import (BatchedSemiringProgram,  # noqa: E402
                                  sssp_query_init)
+from repro_torch.training.checkpoint import Checkpointer  # noqa: E402
 
 GRAPHS = {
     "small": dict(rows=10, cols=11, drop_frac=0.06, seed=3, weighted=True),
@@ -164,10 +166,7 @@ UNSUPPORTED = {
         device="cpu").run(), None),
     "tracer": (lambda pg: GopherEngine(pg, _cc_program(), tracer=object(),
                                        device="cpu"), "ROADMAP A7"),
-    "checkpointer": (lambda pg: GopherEngine(
-        pg, _cc_program(), device="cpu").run(checkpointer=object(),
-                                             checkpoint_every=2),
-                     "ROADMAP A6"),
+    "checkpointer": (lambda pg: _checkpointed_run(pg), None),
     "extra": (lambda pg: GopherEngine(
         pg, SemiringProgram("max_first", resume=True), device="cpu").run(
         extra={"x0": np.where(pg.vmask, pg.global_id, -np.inf),
@@ -176,6 +175,12 @@ UNSUPPORTED = {
         pg, BatchedSemiringProgram("min_plus", 2), device="cpu").run_queries(
         extra={"qinit": sssp_query_init(pg, [0, 1])}), None),
 }
+
+
+def _checkpointed_run(pg):
+    with tempfile.TemporaryDirectory() as d:
+        return GopherEngine(pg, _cc_program(), device="cpu").run(
+            checkpointer=Checkpointer(d), checkpoint_every=2)
 
 
 @pytest.mark.parametrize("case", sorted(UNSUPPORTED))

@@ -53,8 +53,9 @@ def test_importing_the_port_loads_no_jax():
 
 def test_every_new_module_is_covered():
     """The modules of the staged route, of the tier plans, of LM serving
-    (dense and ssm), of the store and incremental analytics and of graph
-    serving are among the files checked above."""
+    (dense and ssm), of the store and incremental analytics, of graph
+    serving and of checkpointing and resilience are among the files
+    checked above."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("core/messages.py", "core/subgraph.py", "kernels/flat.py",
                 "kernels/outbox_compact.py", "core/tiers.py",
@@ -67,5 +68,8 @@ def test_every_new_module_is_covered():
                 "algorithms/incremental.py", "serving/batched.py",
                 "serving/planner.py", "serving/cache.py",
                 "serving/service.py", "resilience/degrade.py",
-                "resilience/faults.py"):
+                "resilience/faults.py", "training/checkpoint.py",
+                "obs/skew.py", "resilience/recovery.py",
+                "resilience/failover.py", "resilience/balance.py",
+                "launch/elastic.py", "launch/chaos.py"):
         assert f"src/repro_torch/{mod}" in names, mod

@@ -7,7 +7,7 @@ supersteps, summary counts), its dedupe of identical in-flight queries,
 deadline misses, the circuit breaker with ``_run_batch_once`` made to
 raise and a patched block that fails its audit, in both services,
 ``apply_delta`` with landmarks, ``warm``, and the
-refusals of what waits for ROADMAP A6, A7 and A8. The graphs are
+refusals of what waits for ROADMAP A7 and A8. The graphs are
 ``tests/test_serving.py``'s, in 4 partitions.
 """
 import dataclasses
@@ -165,8 +165,8 @@ def test_landmark_cache_matches_jax(graphs):
 
 def test_service_matches_jax_service(served):
     """Every response of the stream and the repeat: result, error, cached
-    flag and the query's own supersteps; the summary's counts and the
-    report's keys (less A7's skew keys)."""
+    flag and the query's own supersteps; the summary's counts, the
+    report's keys and the per-graph imbalance its skew trackers read."""
     jsvc, tsvc, jout, tout = served
     for jd, td in zip(jout, tout):
         assert sorted(td) == sorted(jd)
@@ -177,7 +177,8 @@ def test_service_matches_jax_service(served):
     for k in ("served", "cache_hits", "rejected", "batches", "mean_fill"):
         assert ts[k] == js[k], k
     assert ts["served"] == 8 and ts["cache_hits"] == 1 and ts["qps"] > 0
-    assert set(tsvc.stats()) == set(jsvc.stats()) - {"imbalance", "skew"}
+    assert set(tsvc.stats()) == set(jsvc.stats())
+    assert tsvc.stats()["imbalance"] == jsvc.stats()["imbalance"]
     assert tsvc.stats()["engine_supersteps"] == \
         jsvc.stats()["engine_supersteps"]
 
@@ -272,8 +273,9 @@ def test_apply_delta_with_landmarks(graphs):
 
 def test_warm_and_refusals(graphs):
     """``warm`` runs one batch per (family, bucket) on the engines real
-    batches use and leaves the stats alone; what waits for ROADMAP A6, A7
-    and A8 raises naming its item."""
+    batches use and leaves the stats alone; ``rebalance`` without a skew
+    picture does nothing; what waits for ROADMAP A7 and A8 raises naming
+    its item."""
     _, tpg = graphs["road"]
     svc = tsrv.GraphQueryService({"road": tpg}, device="cpu")
     assert svc.warm("road", families=("reach", "ppr"), qs=(1, 2)) == 4
@@ -281,8 +283,7 @@ def test_warm_and_refusals(graphs):
                                     ("ppr", "traversal") for q in (1, 2)]
     assert svc.stats.batches == 0 and svc.stats.served == 0
     assert all(isinstance(e, GopherEngine) for e in svc._engines.values())
-    with pytest.raises(NotImplementedError, match="A6"):
-        svc.rebalance("road")
+    assert svc.rebalance("road") is None and svc.skew == {}
     with pytest.raises(NotImplementedError, match="A7"):
         tsrv.GraphQueryService({"road": tpg}, metrics=object(),
                                device="cpu")

@@ -165,11 +165,31 @@ failure exits non-zero and prints no result:
       least once and cuts the imbalance 2x or more. One JSON line per run
       as in 4a, a ``checkpoint``, ``straggler``, ``rn_migration`` and
       ``chaos`` line and the phase's seconds;
+   i. observability (Gopher Scope) on 4a's weighted graph, after 4h: (1)
+      fused CC and SSSP, each once untraced with a ``MetricsRegistry`` and
+      once with ``Tracer(boundary_sync=True)``: the traced labels and
+      distances and every Telemetry field but ``part_seconds`` equal to
+      4a's and to the untraced run's, K3 launched once a superstep (no
+      K4), a ``superstep`` span a superstep, ``validate_chrome_trace``
+      clean; (2) the same for compact CC against 4b's, with K2 and K5
+      launched; one ``scope`` line with each run's total ms per span name,
+      its counters and launches, and its ``warm_s`` traced beside
+      untraced; (3) the fused CC under ``Tracer(profiler_dir=)``: the
+      written trace holds ``megastep_kernel`` once a superstep (up to three
+      traces, as the profiler has lost a window's first launches); (4)
+      the registry's ``engine_supersteps_total`` equal to 4a's CC and SSSP
+      supersteps, and 4g's service registry's ``serving_requests_total``
+      (hits and served) and ``serving_batches_total`` equal to its stats,
+      both snapshots through ``validate_metrics``; (5) ``python -m
+      repro_torch.launch.scope --device cuda --boundary-sync`` on its
+      40 x 40 grid writes its three files, each valid. One
+      ``observability`` line with the phase's seconds;
 5. kernel times at the paths' shapes: one ``{"kernels": [...]}`` line.
-   ``launches`` counts phase 4's timed runs but 4f's, 4g's and 4h's, which
-   stand beside it as ``incremental_launches``, ``serving_launches`` and
+   ``launches`` counts phase 4's timed runs but 4f's, 4g's, 4h's and 4i's,
+   which stand beside it as ``incremental_launches``, ``serving_launches``,
    ``checkpoint_launches`` (4h's every run, its uncheckpointed CC and the
-   chaos scenarios included).
+   chaos scenarios included) and ``observability_launches`` (4i's every
+   run in this process).
    K3 is also held at the main path's CC superstep 0 with each walk
    forced. Its ``bound_ms`` counts only the rows with an active
    in-neighbour, summed over the plain version's sweeps, over the lanes
@@ -964,11 +984,14 @@ def main_path(dev):
     delta = incremental_path(dev, g, ug, pg, upg, src, results,
                              incremental_launches)
     serving_launches = dict.fromkeys(_build.launches, 0)
-    serving_path(dev, g, ug, pg, upg, delta, serving_launches)
+    svc = serving_path(dev, g, ug, pg, upg, delta, serving_launches)
     checkpoint_launches = dict.fromkeys(_build.launches, 0)
     checkpoint_path(dev, pg, src, results, staged, checkpoint_launches)
+    observability_launches = dict.fromkeys(_build.launches, 0)
+    observability_path(dev, pg, src, results, staged, svc,
+                       observability_launches)
     return (pg, path_launches, incremental_launches, serving_launches,
-            checkpoint_launches, plain_k4)
+            checkpoint_launches, observability_launches, plain_k4)
 
 
 def drive(dev, runs: dict, path_launches: dict, n: int,
@@ -1425,6 +1448,7 @@ def breakdown(pg, upg, src):
         fused = eng.exchange == "megastep"
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        # the engine keeps what these build, so the loop below reuses it
         blocks = eng._gb_for_run() if fused else (eng._gb_for_staged(),)
         torch.cuda.synchronize()
         t_adj = time.perf_counter()
@@ -1437,7 +1461,7 @@ def breakdown(pg, upg, src):
             setattr(m, a, timed(kernel, events[a]))
         try:
             run = eng._run_megastep if fused else eng._run_batched
-            _, steps, _ = run(*blocks)
+            _, steps, _ = run(None)
             torch.cuda.synchronize()
         finally:
             for m, a, kernel in saved:
@@ -1825,13 +1849,15 @@ def sweep_times(dev, upg, gb) -> dict:
 def serving_path(dev, g, ug, pg, upg, delta, launches_4g):
     """Phase 4g: Gopher Serve at RN scale, each run checked (see the module
     docstring). ``delta`` is phase 4f's 1 % reopened-segment delta; the
-    timed runs' launch counts go into ``launches_4g``."""
+    timed runs' launch counts go into ``launches_4g``. Returns the service,
+    whose metrics registry phase 4i reads."""
     import torch
     from repro_torch import algorithms
     from repro_torch.core import (GopherEngine, TierPlan, device_block,
                                   host_graph_block)
     from repro_torch.gofs import bfs_grow_partition, partition_graph, road_grid
     from repro_torch.kernels import _build
+    from repro_torch.obs import MetricsRegistry
     from repro_torch.serving import (BatchedPersonalizedPageRank,
                                      BatchedSemiringProgram,
                                      GraphQueryService, LandmarkCache,
@@ -1957,7 +1983,8 @@ def serving_path(dev, g, ug, pg, upg, delta, launches_4g):
     sweep_ms = sweep_times(dev, upg, ugb)
 
     # (5): the service over both graphs, one mixed stream
-    svc = GraphQueryService({"rn": pg, "rn_unit": upg}, device=dev)
+    svc = GraphQueryService({"rn": pg, "rn_unit": upg},
+                            metrics=MetricsRegistry(), device=dev)
     stream = ([("bfs", "rn_unit", int(s)) for s in bfs_src]
               + [("bfs", "rn_unit", int(s)) for s in more_src]
               + [("reach", "rn_unit", (int(bfs_src[0]), int(bfs_src[1]))),
@@ -2063,6 +2090,7 @@ def serving_path(dev, g, ug, pg, upg, delta, launches_4g):
         "compact = megastep, tiered (rerun) = phased = dense, ppr = float64 "
         "reference, the service's answers, hits and rejection, landmark "
         "bounds and the refresh = a cold build — all agree")
+    return svc
 
 
 # ---------------- phase 4h: checkpointing and resilience ----------------
@@ -2319,6 +2347,176 @@ def checkpoint_path(dev, pg, src, fused, staged, launches_4h):
         "crashed SSSP recovered from its snapshot and after a bit-flipped "
         "one = 4a, recovered PageRank = 4b dense, the straggler's stalls "
         "in part_seconds exactly, the chaos scenarios — all agree")
+
+
+# ---------------- phase 4i: observability ----------------
+
+def span_ms(tracer) -> dict:
+    """The total ms of each span name of a traced run."""
+    out = {}
+    for s in tracer.spans:
+        out[s.name] = out.get(s.name, 0.0) + s.dur_ns / 1e6
+    return out
+
+
+def same_telemetry(t, want, what: str) -> None:
+    """Every Telemetry field of ``t`` equal to ``want``'s but
+    ``part_seconds`` (a traced run's host clock)."""
+    import dataclasses
+    for f in dataclasses.fields(want):
+        if f.name == "part_seconds":
+            continue
+        a, b = getattr(t, f.name), getattr(want, f.name)
+        if (a is None) != (b is None) or (a is not None and not np.array_equal(
+                np.asarray(a), np.asarray(b))):
+            fail(f"{what}: {f.name} differs from the untraced run's")
+
+
+def observability_path(dev, pg, src, fused, staged, svc, launches_4i):
+    """Phase 4i: the tracer, the traced stepped driver and the metrics
+    registry at RN scale, each run checked (see the module docstring).
+    ``fused`` and ``staged`` hold phases 4a's and 4b's results, ``svc`` is
+    phase 4g's service; every run's launch counts go into
+    ``launches_4i``."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.core import (GopherEngine, SemiringProgram,
+                                  init_max_vertex, make_sssp_init)
+    from repro_torch.kernels import _build
+    from repro_torch.obs import (MetricsRegistry, Tracer,
+                                 validate_chrome_trace, validate_metrics)
+    t_phase = time.perf_counter()
+    k2, k3, k5 = "semiring_spmv_frontier", "megastep_semiring", "outbox_pack"
+    loc = (int(pg.part_of[src]), int(pg.local_of[src]))
+    progs = {"cc": SemiringProgram("max_first", init_max_vertex),
+             "sssp": SemiringProgram("min_plus", make_sssp_init(*loc))}
+    reg = MetricsRegistry()
+
+    def timed(eng):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t = time.perf_counter()
+        out = eng.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = dict(_build.launches)
+        for k, c in launches.items():
+            launches_4i[k] += c
+        return out, secs, launches
+
+    # (1) and (4): fused CC and SSSP untraced with the registry, then
+    # traced with boundary_sync, against 4a; (2) compact CC against 4b
+    lines = {}
+    for name, algo, exchange, want, kernels in (
+            ("cc_fused", "cc", "auto", fused["cc"], [k3]),
+            ("sssp_fused", "sssp", "auto", fused["sssp"], [k3]),
+            ("cc_compact", "cc", "compact", staged["cc_compact"], [k2, k5])):
+        (_, t_plain), plain_s, _ = timed(GopherEngine(
+            pg, progs[algo], exchange=exchange, metrics=reg, device=dev))
+        tr = Tracer(boundary_sync=True)
+        (state, t), secs, launches = timed(GopherEngine(
+            pg, progs[algo], exchange=exchange, tracer=tr, device=dev))
+        x = _as_result(pg, algo, state["x"])
+        ref = want[0] if exchange == "auto" else _as_result(pg, algo,
+                                                           want[0]["x"])
+        if not np.array_equal(x, ref):
+            fail(f"{name}: traced results differ from the untraced run's")
+        same_telemetry(t, want[-1], name)
+        same_telemetry(t, t_plain, name)
+        for k in kernels:
+            if launches[k] == 0:
+                fail(f"{name}: kernel {k} was never launched")
+        if exchange == "auto" and (launches[k3] != t.supersteps
+                                   or launches["resident_megastep"]):
+            fail(f"{name}: K3 launched {launches[k3]} times in "
+                 f"{t.supersteps} supersteps")
+        names = [s.name for s in tr.spans]
+        if names.count("superstep") != t.supersteps or not tr.balanced:
+            fail(f"{name}: {names.count('superstep')} superstep spans in "
+                 f"{t.supersteps} supersteps")
+        validate_chrome_trace(tr.chrome_trace())
+        lines[name] = {"supersteps": t.supersteps, "warm_s": secs,
+                       "untraced_warm_s": plain_s, "counts": tr.counts,
+                       "launches": {k: c for k, c in launches.items() if c},
+                       "span_ms": span_ms(tr)}
+    log(json.dumps({"scope": lines}))
+
+    # (3): the fused CC under profiler_dir: K3's kernel once a superstep
+    # (the profiler has lost a window's first launches on this card, so
+    # the run is traced up to three times)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_4i_") as tmp:
+        tr = Tracer(profiler_dir=os.path.join(tmp, "profile"))
+        seen = []
+        for _ in range(3):
+            (state, t), prof_s, _ = timed(GopherEngine(
+                pg, progs["cc"], tracer=tr, device=dev))
+            with open(tr.profiles[-1]) as f:
+                events = json.load(f)["traceEvents"]
+            k3_events = [e for e in events if e.get("cat") == "kernel"
+                         and "megastep_kernel" in e.get("name", "")]
+            seen.append(len(k3_events))
+            if seen[-1] == t.supersteps:
+                break
+        if seen[-1] != t.supersteps:
+            fail(f"profiler_dir: megastep_kernel {seen} times in traces of "
+                 f"{t.supersteps} supersteps")
+        if not np.array_equal(_as_result(pg, "cc", state["x"]),
+                              fused["cc"][0]):
+            fail("cc_profiled: labels differ from phase 4a's")
+        k3_ms = sum(e["dur"] for e in k3_events) / 1e3
+        trace_bytes = os.path.getsize(tr.profiles[-1])
+
+        # (5): the scope CLI on the card
+        out = os.path.join(tmp, "scope")
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.scope", "--device",
+             "cuda", "--boundary-sync", "--out", out],
+            capture_output=True, text=True, timeout=300,
+            env={**os.environ, "PYTHONPATH": str(
+                Path(__file__).resolve().parent / "src")})
+        cli_s = time.perf_counter() - t0
+        if cli.returncode != 0:
+            fail(f"scope CLI: rc {cli.returncode}: {cli.stderr[-2000:]}")
+        with open(os.path.join(out, "scope_trace.json")) as f:
+            validate_chrome_trace(json.load(f))
+        with open(os.path.join(out, "scope_metrics.json")) as f:
+            validate_metrics(json.load(f))
+        with open(os.path.join(out, "scope_trace.jsonl")) as f:
+            cli_spans = sum(1 for _ in f)
+
+    # (4): the registries of the untraced engines and of 4g's service
+    snap = reg.snapshot()
+    validate_metrics(snap)
+    steps = (fused["cc"][-1].supersteps + fused["sssp"][-1].supersteps)
+    got = snap["counters"].get(
+        "engine_supersteps_total{backend=local,exchange=megastep}")
+    if got != steps:
+        fail(f"metrics: engine_supersteps_total {got}, the runs' {steps}")
+    ssnap = svc.metrics.snapshot()
+    validate_metrics(ssnap)
+    c = ssnap["counters"]
+    served = (c.get("serving_requests_total{result=hit}", 0)
+              + c.get("serving_requests_total{result=served}", 0))
+    batches = sum(v for k, v in c.items()
+                  if k.startswith("serving_batches_total"))
+    if served != svc.stats.served or batches != svc.stats.batches:
+        fail(f"metrics: serving_requests_total {served}, batches {batches}; "
+             f"the service's {svc.stats.served}, {svc.stats.batches}")
+    log(json.dumps({"observability": {
+        "profiled_cc": {"megastep_kernel_events": seen, "k3_ms": k3_ms,
+                        "warm_s": prof_s, "trace_bytes": trace_bytes},
+        "scope_cli": {"seconds": cli_s, "spans": cli_spans},
+        "engine_counters": {k: v for k, v in snap["counters"].items()
+                            if k.startswith("engine_supersteps")},
+        "serving_counters": {k: v for k, v in c.items()
+                             if k.startswith("serving_requests")},
+        "phase_4i_s": time.perf_counter() - t_phase}}))
+    log("observability checks: traced fused CC/SSSP = 4a with K3 once a "
+        "superstep, traced compact CC = 4b with K2 and K5, the profiler's "
+        "K3 events, the engine and service registries, the scope CLI — all "
+        "agree")
 
 
 # ---------------- phases 4d and 4e: LM serving at full width --------------
@@ -3324,7 +3522,7 @@ def main() -> None:
     check_k7(dev)
     k8_err = check_k8(dev)
     (pg, path_launches, incremental_launches, serving_launches,
-     checkpoint_launches, plain_k4) = main_path(dev)
+     checkpoint_launches, observability_launches, plain_k4) = main_path(dev)
     for arch, op, key, piece in LM_PATHS:
         lm_path(dev, path_launches, arch, op, key, piece)
     kernels = kernel_times(dev, pg, path_launches, plain_k4)
@@ -3334,6 +3532,7 @@ def main() -> None:
         row["incremental_launches"] = incremental_launches[row["name"]]
         row["serving_launches"] = serving_launches[row["name"]]
         row["checkpoint_launches"] = checkpoint_launches[row["name"]]
+        row["observability_launches"] = observability_launches[row["name"]]
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

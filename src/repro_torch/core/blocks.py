@@ -35,6 +35,7 @@ from repro_torch.core.tiers import (MAX_PHASES, PHASE_HIST_LEN,
                                     occupancy_from_ob_inv)
 from repro_torch.gofs.formats import (LANE_PAD, PAD, PartitionedGraph,
                                       _cumcount, grow_last_axis)
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.resilience import faults as _faults
 
 _GB_FIELDS = ["nbr", "wgt", "vmask", "out_degree", "global_id", "sg_id",
@@ -474,5 +475,11 @@ def patch_host_block(gb: dict, new_pg: PartitionedGraph,
         out["ib_hub"] = ib_hub
     elif new_pg.mailbox_cap != gb["ob_inv"].shape[1] // P:
         raise ValueError("mailbox cap changed without remote-edge events")
-    # the four blocks_*_total counters wait for ROADMAP A7 (observability)
+    reg = obs_metrics.default_registry()
+    reg.counter("blocks_patches_total").inc()
+    reg.counter("blocks_rows_rebinned_total").inc(len(touched_rows))
+    reg.counter("blocks_remote_slots_freed_total").inc(
+        len(rdel) if rdel else 0)
+    reg.counter("blocks_remote_slots_spliced_total").inc(
+        len(radd) if radd else 0)
     return out

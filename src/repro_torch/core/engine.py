@@ -75,12 +75,33 @@ loop stepped on the host, split at the network boundary, snapshotting
 are the recovery lines. Its fault sites (``resilience.faults``) fire on the
 host between launches.
 
-Everything else of the JAX engine raises ``NotImplementedError`` naming the
-ROADMAP item that brings it.
+Gopher Scope (``obs``). An ENABLED ``obs.trace.Tracer`` (``tracer=``, or
+the process default ``obs.set_tracer`` armed after the engine was built)
+makes every loop above the JAX package's traced stepped driver: the same
+loop, launching the same kernels, with the span tree
+
+    run → plan ×K, init, prime, phase ×K → superstep →
+          {sweep, pack, exchange, halt-vote}   (staged routes)
+          {megastep, halt-vote}                (fused route)
+
+the ``stage_builds``/``dispatches`` counters, the fault sites
+``engine.superstep`` and ``exchange.route`` and ``Telemetry.part_seconds``.
+A traced fused run never enters the resident mode (a trace wants a span a
+superstep, and K4 hides its rounds inside one launch), so it launches K3
+(or K1 for PageRank) once a superstep. A disabled tracer costs a no-op
+context a span and reads nothing more from the device. Every run, traced
+or not, folds its telemetry into a metrics registry (``metrics=``, or the
+process default) from values already on the host.
+
+Everything else of the JAX engine (the multi-device backend, static
+validation) raises ``NotImplementedError`` naming the ROADMAP item that
+brings it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import time
 from typing import Optional
 
@@ -93,7 +114,9 @@ from repro_torch.core.tiers import DEMOTE_STREAK, PhasedTierPlan, TierPlan
 from repro_torch.gofs.formats import PartitionedGraph
 from repro_torch.kernels import flat, ops
 from repro_torch.kernels import megastep as mega
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import skew as obs_skew
+from repro_torch.obs import trace as obs_trace
 from repro_torch.resilience import faults as _faults
 
 _EXCHANGES = ("auto", "compact", "dense", "tiered", "phased", "megastep")
@@ -159,12 +182,12 @@ class Telemetry:
     dense_retry_steps: int = 0                 # rounds routed dense after
                                                # an in-phase overflow
     # Gopher Balance: wall-clock seconds attributed per partition by the
-    # checkpointed loop — the TIME channel of the skew report. Injected
-    # straggler stalls land on their targeted partition; the rest of each
-    # superstep's time (the card's work included: the clock stops after
-    # the halt vote's host read) spreads evenly, since one process cannot
-    # see per-partition splits of a batched launch. None on the other
-    # loops, which keep no per-superstep host clock.
+    # checkpointed and traced loops — the TIME channel of the skew report.
+    # Injected straggler stalls land on their targeted partition; the rest
+    # of each superstep's time (the card's work included: the clock stops
+    # after the halt vote's host read) spreads evenly, since one process
+    # cannot see per-partition splits of a batched launch. None on the
+    # untraced loops, which keep no per-superstep host clock.
     part_seconds: Optional[np.ndarray] = None  # (P,) float64
 
     @staticmethod
@@ -207,6 +230,7 @@ class _Tally:
         self.whist[0] = wire0
         self.sent = torch.as_tensor(nsent0, device=device).to(torch.int64)
         self.pairs = self.chist = self.over = None
+        self.psec = None             # part_seconds, on a clocked loop
         self.phases = phases
         if pairs0 is not None:
             self.chist = torch.zeros(max_s + 1, dtype=torch.int32,
@@ -249,6 +273,17 @@ class _Tally:
             self.phist[step + 1] = phase
             self.dsteps += dstep
 
+    def charge(self, dt: float, eff: Optional[dict]) -> None:
+        """One clocked superstep of ``dt`` seconds into ``psec``: the
+        injected stalls ``eff`` reports (``faults.fire``'s effects) to their
+        partition, the rest spread evenly."""
+        P = len(self.psec)
+        stalls = [(p, s) for p, s in (eff or {}).get("stalls", [])
+                  if 0 <= p < P]
+        self.psec += max(dt - sum(s for _, s in stalls), 0.0) / P
+        for p, s in stalls:
+            self.psec[p] += s
+
     def telemetry(self, steps: int, exchange: str, num_parts: int, cap: int,
                   plan=None, num_queries: Optional[int] = None,
                   rounds: Optional[int] = None) -> Telemetry:
@@ -268,7 +303,8 @@ class _Tally:
             local_iters=self.liters.cpu().numpy(),
             changed_hist=self.hist[:steps].cpu().numpy(),
             messages_sent=int(self.sent),
-            wire_hist=whist, wire_slots=wire, exchange=exchange)
+            wire_hist=whist, wire_slots=wire, exchange=exchange,
+            part_seconds=self.psec)
         if self.qsteps is not None:
             t.query_supersteps = self.qsteps.cpu().numpy()
         if self.chist is not None:
@@ -353,10 +389,6 @@ class GopherEngine:
         if exchange == "megastep" and kind is None:
             raise ValueError(
                 "program is not megastep-eligible (megastep_kind is None)")
-        if tracer is not None or metrics is not None:
-            raise NotImplementedError(
-                "tracing and metrics are not ported yet: ROADMAP A7 "
-                "(observability)")
         if validate:
             raise NotImplementedError(
                 "static validation is not ported yet: ROADMAP A9 (sentinel)")
@@ -394,6 +426,26 @@ class GopherEngine:
                                      # service's pool) use one device copy
         self._mega_cm = None         # composed mailbox, built once per engine
         self._staged_gb = None       # block + flat adjacency, once per engine
+        # Gopher Scope: None defers to the process defaults at run time, so
+        # a tracer armed after the engine was built still applies
+        self._tracer = tracer
+        self._metrics = metrics
+
+    @property
+    def tracer(self) -> obs_trace.Tracer:
+        return (self._tracer if self._tracer is not None
+                else obs_trace.get_tracer())
+
+    @property
+    def metrics(self) -> obs_metrics.MetricsRegistry:
+        return (self._metrics if self._metrics is not None
+                else obs_metrics.default_registry())
+
+    @functools.cached_property
+    def _part_verts(self) -> tuple:
+        """Each partition's live vertex count: what the ``engine.superstep``
+        fault site spreads a straggler's stall over."""
+        return tuple(int(x) for x in np.asarray(self.pg.vmask, bool).sum(1))
 
     def _graph_block(self) -> dict:
         """The device block, built once per engine unless one was passed.
@@ -454,11 +506,17 @@ class GopherEngine:
         ``superstep_budget`` (checkpointed runs only) caps THIS call at that
         many supersteps and snapshots at the cut, so a supervisor (Gopher
         Balance's ``run_with_rebalance``) can interleave decisions between
-        segments of one logical run and resume exactly where it stopped."""
+        segments of one logical run and resume exactly where it stopped.
+
+        With an enabled tracer (see the module docstring) the run records
+        its span tree; a traced run does not take a checkpointer."""
         if self.num_queries is not None:
             raise ValueError("a query-batched program runs through "
                              "run_queries")
         if checkpointer is not None and checkpoint_every > 0:
+            if self.tracer.enabled:
+                raise ValueError("a traced run does not compose with "
+                                 "checkpointing")
             return self._run_checkpointed(checkpointer, checkpoint_every,
                                           resume, extra=extra,
                                           superstep_budget=superstep_budget)
@@ -484,12 +542,20 @@ class GopherEngine:
         return self._run(extra)
 
     def _run(self, extra: Optional[dict]):
-        if self.exchange == "megastep":
-            gb, cm = self._gb_for_run()
-            return self._finish(*self._run_megastep(self._layer(gb, extra),
-                                                    cm), None)
-        gb = self._layer(self._gb_for_staged(), extra)
-        return self._finish(*self._run_batched(gb), gb)
+        tr = self.tracer
+        with tr.profile_ctx(self.device):
+            with tr.span("run", exchange=self.exchange, backend=self.backend,
+                         queries=self.num_queries or 0) as rs:
+                if self.exchange == "megastep":
+                    state, steps, tally = self._run_megastep(extra, tr)
+                else:
+                    state, steps, tally = self._run_batched(extra, tr=tr)
+                if tr.enabled:
+                    rs.set(supersteps=steps,
+                           wire_slots=int(tally.whist[:steps + 1].sum()))
+        state, t = self._finish(state, steps, tally, extra)
+        self._record_run_metrics(t)
+        return state, t
 
     # the dtypes of the per-run extra entries (x0/frontier0 of a resume,
     # the query arrays of a batch)
@@ -511,7 +577,8 @@ class GopherEngine:
                                   device=self.device)
         return out
 
-    def _finish(self, state, steps: int, tally: "_Tally", gb):
+    def _finish(self, state, steps: int, tally: "_Tally",
+                extra: Optional[dict]):
         """Close out a run. On the tiered route a pair whose active slots
         exceeded its tier width had messages TRUNCATED, so the results
         cannot be trusted: the repair is a rerun on the dense route
@@ -519,10 +586,10 @@ class GopherEngine:
         overflowed pairs in ``self.tier_plan``, so the next run has the
         width this pair just showed it needs. A phased run never reruns —
         an overflowing superstep already routed dense — so it only
-        escalates the phases that spilled. The rerun starts from ``gb``,
-        the block the aborted attempt ran on (a resume's ``x0`` and
-        ``frontier0`` included). The fused route passes ``gb=None``: its
-        tally observes no overflow, so it never reaches the rerun."""
+        escalates the phases that spilled. The rerun layers the aborted
+        attempt's ``extra`` (a resume's ``x0`` and ``frontier0``) over the
+        block as the attempt did, and runs untraced inside a
+        ``dense-retry`` span."""
         P, cap, Q = self.pg.num_parts, self.pg.mailbox_cap, self.num_queries
         t = tally.telemetry(steps, self.exchange, P, cap, self.tier_plan, Q)
         old = self.tier_plan
@@ -535,7 +602,9 @@ class GopherEngine:
             t.escalations = self.tier_plan.escalations_from(old)
         elif t.spills and self.exchange == "tiered":
             self.tier_plan = old.escalate(t.pair_overflow > 0)
-            state, steps2, tally2 = self._run_batched(gb, mode="dense")
+            with self.tracer.span("dense-retry", spills=t.spills):
+                state, steps2, tally2 = self._run_batched(extra,
+                                                          mode="dense")
             t2 = tally2.telemetry(steps2, "dense", P, cap, num_queries=Q)
             t2.exchange = "tiered"
             t2.retried = True
@@ -552,23 +621,50 @@ class GopherEngine:
             t = t2
         return {k: v.cpu().numpy() for k, v in state.items()}, t
 
+    def _record_run_metrics(self, t: Telemetry) -> None:
+        """Gopher Scope: fold a finished run's telemetry into the metrics
+        registry, labeled {exchange, backend}. It reads only the host
+        values the run already brought back, so it runs after every run,
+        traced or not, at no device cost."""
+        m = self.metrics
+        lab = {"exchange": t.exchange or self.exchange,
+               "backend": self.backend}
+        m.counter("engine_runs_total", lab).inc()
+        m.counter("engine_supersteps_total", lab).inc(t.supersteps)
+        m.counter("engine_messages_sent_total", lab).inc(t.messages_sent)
+        m.counter("engine_wire_slots_total", lab).inc(t.wire_slots)
+        m.counter("engine_wire_bytes_total", lab).inc(t.bytes_on_wire)
+        m.counter("engine_spills_total", lab).inc(t.spills)
+        m.counter("engine_escalations_total", lab).inc(t.escalations)
+        if t.retried:
+            m.counter("engine_dense_retries_total", lab).inc()
+        m.counter("engine_dense_retry_steps_total",
+                  lab).inc(t.dense_retry_steps)
+        m.histogram("engine_run_supersteps", lab).observe(t.supersteps)
+        m.gauge("engine_partition_imbalance", lab).set(
+            obs_skew.imbalance_score(t.local_iters))
+
+    @contextlib.contextmanager
+    def _superstep(self, tr: obs_trace.Tracer, tally: "_Tally", step: int,
+                   clocked: bool = False):
+        """A superstep's host-side frame: its ``superstep`` span and, on a
+        clocked loop (the traced and checkpointed ones), the
+        ``engine.superstep`` fault site before the work and the clock that
+        ``tally.charge`` spreads into ``part_seconds`` after the halt
+        vote's read. Yields the span."""
+        clocked = clocked or tr.enabled
+        with tr.span("superstep", step=step) as ss:
+            if not clocked:
+                yield ss
+                return
+            t0 = time.perf_counter()
+            eff = _faults.fire("engine.superstep", step=step,
+                               backend=self.backend,
+                               part_verts=self._part_verts, num_devices=1)
+            yield ss
+            tally.charge(time.perf_counter() - t0, eff)
+
     # ---------------- the staged route ----------------
-
-    def make_superstep(self, gb: dict, phase: Optional[int] = None,
-                       mode: Optional[str] = None):
-        """One staged BSP superstep over all P partitions: ``sstep(state,
-        inbox, step) -> (state, inbox, changed (P,), liters (P,), nsent,
-        wire, extras)`` — the program's superstep, then the exchange of its
-        new state (see :meth:`make_exchange`)."""
-        prog = self.program
-        exchange = self.make_exchange(gb, phase=phase, mode=mode)
-
-        def sstep(state, inbox, step):
-            state, changed, liters = prog.superstep(state, inbox, gb, step)
-            inbox, nsent, wire, extras = exchange(state)
-            return state, inbox, changed, liters, nsent, wire, extras
-
-        return sstep
 
     def make_exchange(self, gb: dict, phase: Optional[int] = None,
                       mode: Optional[str] = None):
@@ -727,37 +823,18 @@ class GopherEngine:
 
         return pack, route
 
-    def _run_batched(self, gb: dict, mode: Optional[str] = None):
+    def _run_batched(self, extra: Optional[dict], mode: Optional[str] = None,
+                     tr: obs_trace.Tracer = obs_trace.NOOP):
         """The staged BSP loop: prime the inbox from the initial state, then
-        superstep + exchange until no partition changed. ``mode`` overrides
-        the engine's exchange (the tiered route's dense rerun)."""
-        mode = mode or self.exchange
-        if mode == "phased":
-            return self._run_phased(gb)
-        prog = self.program
-        P = self.pg.num_parts
-        max_s = self.max_supersteps
-        sstep = self.make_superstep(gb, mode=mode)
-        state = prog.init(gb)
-        inbox, nsent0, wire0, ex0 = self.make_exchange(gb, mode=mode)(state)
-        tally = _Tally(P, max_s, nsent0, wire0, ex0.get("pairs"), self.device,
-                       over0=ex0.get("over"), queries=self.num_queries)
-        step, done = 0, False
-        while not done and step < max_s:
-            state, inbox, changed, liters, nsent, wire, ex = sstep(
-                state, inbox, step)
-            nchanged, changed_q = _halt_vote(changed)
-            tally.fold(step, nchanged, liters, nsent, wire, ex.get("pairs"),
-                       over=ex.get("over"), changed_q=changed_q)
-            step += 1
-            done = int(nchanged) == 0    # the superstep's one host read
-        return state, step, tally
+        sweep (the program's superstep) + pack + route until no partition
+        changed. ``mode`` overrides the engine's exchange (the tiered
+        route's dense rerun); ``extra`` layers over the cached block as in
+        :meth:`run`.
 
-    def _run_phased(self, gb: dict):
-        """Gopher Phases: the staged BSP loop as K SEGMENTS, one per phase
-        of the PhasedTierPlan, each exchanging at its phase's tier table;
-        the (state, inbox, halt vote) carry flows straight across segment
-        boundaries. A segment ends when
+        On the phased route (Gopher Phases) the loop runs as K SEGMENTS,
+        one per phase of the PhasedTierPlan, each exchanging at its phase's
+        tier table; the (state, inbox, halt vote) carry flows straight
+        across segment boundaries. A segment ends when
 
           * the predicted boundary arrives: boundaries are in ROUND units
             (superstep s ships round s + 1), so the segment goes on while
@@ -769,47 +846,99 @@ class GopherEngine:
             superstep).
 
         The demotion streak's violation count is stacked with the halt
-        vote, so a superstep still reads the host once."""
+        vote, so a superstep still reads the host once. An enabled ``tr``
+        records the spans, counters, fault sites and ``part_seconds`` of
+        the module docstring, reading the superstep's counts for its span."""
+        mode = mode or self.exchange
+        phased = mode == "phased"
         prog = self.program
-        plan: PhasedTierPlan = self.tier_plan
-        phases = plan.phase_plans()
-        K = plan.num_phases
-        bounds = plan.boundaries
         P = self.pg.num_parts
         max_s = self.max_supersteps
-        ssteps = [self.make_superstep(gb, phase=k) for k in range(K)]
-        state = prog.init(gb)
-        inbox, nsent0, wire0, ex0 = self.make_exchange(gb, phase=0)(state)
-        tally = _Tally(P, max_s, nsent0, wire0, ex0["pairs"], self.device,
-                       over0=ex0["over"], phases=K, dstep0=ex0["dstep"],
-                       queries=self.num_queries)
-        zero = torch.zeros((), dtype=torch.int64, device=self.device)
+        K = self.tier_plan.num_phases if phased else 1
+        stages = []
+        for k in range(K):
+            # the plan span charges the block's and the stages' building
+            # to the phase it belongs to
+            with tr.span("plan", phase=k, exchange=mode,
+                         backend=self.backend):
+                if k == 0:
+                    gb = self._layer(self._gb_for_staged(), extra)
+                stages.append(self.make_exchange_stages(
+                    gb, phase=k if phased else None, mode=mode))
+        tr.count("stage_builds", K)
+
+        with tr.span("init"):
+            state = tr.sync(prog.init(gb))
+        with tr.span("prime") as sp:
+            pack, route = stages[0]
+            payload, nsent0, wire0, ex0 = pack(state)
+            inbox, rex0 = route(payload)
+            tr.sync(inbox)
+            wire0 = rex0.get("wire", wire0)
+            tally = _Tally(P, max_s, nsent0, wire0, ex0.get("pairs"),
+                           self.device, over0=ex0.get("over"),
+                           phases=K if phased else None,
+                           dstep0=rex0.get("dstep"), queries=self.num_queries)
+            if tr.enabled:
+                sp.set(wire=int(wire0), nsent=int(nsent0))
+        tr.count("dispatches", 3)
+        if tr.enabled:
+            tally.psec = np.zeros(P, np.float64)
+
         step, done = 0, False
         for k in range(K):
-            nlim = (torch.from_numpy(phases[k + 1].limits()).to(self.device)
-                    if k < K - 1 else None)
+            pack, route = stages[k]
+            last = k == K - 1
+            nlim = (None if last else torch.from_numpy(
+                self.tier_plan.phase_plans()[k + 1].limits()).to(self.device))
+            bound = -1 if last else int(self.tier_plan.boundaries[k])
             streak = 0
-            while (not done and step < max_s
-                   and (k == K - 1
-                        or (step + 1 < bounds[k]
-                            and streak < DEMOTE_STREAK))):
-                state, inbox, changed, liters, nsent, wire, ex = ssteps[k](
-                    state, inbox, step)
-                nchanged, changed_q = _halt_vote(changed)
-                viol = ((ex["pairs"] > nlim).sum() if nlim is not None
-                        else zero)
-                tally.fold(step, nchanged, liters, nsent, wire, ex["pairs"],
-                           over=ex["over"], phase=k, dstep=ex["dstep"],
-                           changed_q=changed_q)
-                step += 1
-                # the superstep's one host read: halt vote and streak
-                nch, nviol = torch.stack([nchanged.to(torch.int64),
-                                          viol.to(torch.int64)]).tolist()
-                done = nch == 0
-                # a dense-retried superstep's counts are real demand, so
-                # they count like any other round
-                streak = streak + 1 if nviol == 0 else 0
-            tally.seg_end[k] = step
+            with tr.span("phase", index=k, boundary=bound):
+                while (not done and step < max_s
+                       and (last or (step + 1 < bound
+                                     and streak < DEMOTE_STREAK))):
+                    with self._superstep(tr, tally, step) as ss:
+                        with tr.span("sweep"):
+                            state, changed, liters = prog.superstep(
+                                state, inbox, gb, step)
+                            tr.sync(changed)
+                        with tr.span("pack"):
+                            payload, nsent, wire, ex = pack(state)
+                            tr.sync(payload)
+                        if tr.enabled:
+                            _faults.fire("exchange.route", step=step + 1,
+                                         backend=self.backend)
+                        with tr.span("exchange"):
+                            inbox, rex = route(payload)
+                            tr.sync(inbox)
+                        with tr.span("halt-vote"):
+                            wire = rex.get("wire", wire)
+                            nchanged, changed_q = _halt_vote(changed)
+                            tally.fold(step, nchanged, liters, nsent, wire,
+                                       ex.get("pairs"), over=ex.get("over"),
+                                       phase=k if phased else None,
+                                       dstep=rex.get("dstep"),
+                                       changed_q=changed_q)
+                            # the superstep's one host read: the halt vote,
+                            # with the demotion streak's violations
+                            if nlim is None:
+                                nch, nviol = int(nchanged), 0
+                            else:
+                                viol = (ex["pairs"] > nlim).sum()
+                                nch, nviol = torch.stack(
+                                    [nchanged.to(torch.int64),
+                                     viol.to(torch.int64)]).tolist()
+                            if tr.enabled:
+                                ss.set(changed=nch, wire=int(wire),
+                                       nsent=int(nsent))
+                        tr.count("dispatches", 3)
+                    step += 1
+                    done = nch == 0
+                    # a dense-retried superstep's counts are real demand,
+                    # so they count like any other round
+                    streak = streak + 1 if nviol == 0 else 0
+            if phased:
+                tally.seg_end[k] = step
         return state, step, tally
 
     # ---------------- the checkpointed route ----------------
@@ -856,10 +985,6 @@ class GopherEngine:
         max_s = self.max_supersteps
         pack, route = self.make_exchange_stages(gb)
         compact = self.exchange == "compact"
-        # Gopher Balance's time channel
-        psec = np.zeros(P, np.float64)
-        part_verts = tuple(int(x) for x in
-                           np.asarray(self.pg.vmask, bool).sum(1))
 
         good = ck.latest_good_step() if resume else None
         if good is not None:
@@ -882,31 +1007,23 @@ class GopherEngine:
             step = 0
             primed = True
 
+        tally.psec = np.zeros(P, np.float64)   # Gopher Balance's time channel
         start = step
         budget = superstep_budget
         done = False
         while not done and step < max_s and (budget is None
                                              or step - start < budget):
-            t0 = time.perf_counter()
-            eff = _faults.fire("engine.superstep", step=step,
-                               backend=self.backend, part_verts=part_verts,
-                               num_devices=1)
-            state, changed, liters = prog.superstep(state, inbox, gb, step)
-            payload, nsent, wire, ex = pack(state)
-            _faults.fire("exchange.route", step=step + 1,
-                         backend=self.backend)
-            inbox, rex = route(payload)
-            nchanged, _ = _halt_vote(changed)
-            tally.fold(step, nchanged, liters, nsent, rex.get("wire", wire),
-                       ex.get("pairs"))
-            nch = int(nchanged)              # the superstep's one host read
-            dt = time.perf_counter() - t0
-            stalls = (eff or {}).get("stalls", [])
-            inj = sum(s for p, s in stalls if 0 <= p < P)
-            psec += max(dt - inj, 0.0) / P
-            for p, s in stalls:
-                if 0 <= p < P:
-                    psec[p] += s
+            with self._superstep(obs_trace.NOOP, tally, step, clocked=True):
+                state, changed, liters = prog.superstep(state, inbox, gb,
+                                                        step)
+                payload, nsent, wire, ex = pack(state)
+                _faults.fire("exchange.route", step=step + 1,
+                             backend=self.backend)
+                inbox, rex = route(payload)
+                nchanged, _ = _halt_vote(changed)
+                tally.fold(step, nchanged, liters, nsent,
+                           rex.get("wire", wire), ex.get("pairs"))
+                nch = int(nchanged)          # the superstep's one host read
             step += 1
             done = nch == 0
             cut = budget is not None and step - start >= budget
@@ -918,133 +1035,161 @@ class GopherEngine:
         rounds = step - start + (1 if primed else 0)
         t = tally.telemetry(step, self.exchange, P, self.pg.mailbox_cap,
                             rounds=rounds)
-        t.part_seconds = psec
+        self._record_run_metrics(t)
         return {k: v.cpu().numpy() for k, v in state.items()}, t
 
     # ---------------- the fused route ----------------
 
-    def _run_megastep(self, gb: dict, cm: dict):
+    def _run_megastep(self, extra: Optional[dict],
+                      tr: obs_trace.Tracer = obs_trace.NOOP):
         """The BSP loop with the whole superstep fused into one call of
-        ``kernels.megastep``. Delivery happens at the TOP of each superstep
-        from the previous round's send set, so the initial state's messages
-        need no separate prime. Telemetry mirrors the JAX fused route:
+        ``kernels.megastep`` (K3; K1 for PageRank; plain torch ops for a
+        query batch). Delivery happens at the TOP of each superstep from
+        the previous round's send set, so the initial state's messages need
+        no separate prime. Telemetry mirrors the JAX fused route:
         ``pairs``/``count_hist`` are the logical frontier observation and
         ``wire_*`` are zero — nothing ships through buffers.
 
         With a PhasedTierPlan whose band suffix fits the resident gate
-        (scalar semiring programs), the rest of the run is in RESIDENT mode
-        from superstep ``enter`` on: relaxation rounds of one delivery and
-        one sweep each, which reach the same bitwise fixpoint. On a CUDA
-        tensor they are ONE launch of K4, whose telemetry is totals only
-        (no per-round histogram entries), as on the TPU; on a CPU tensor
-        every round is folded (see the module docstring)."""
+        (scalar semiring programs), the rest of an untraced run is in
+        RESIDENT mode from superstep ``enter`` on: relaxation rounds of one
+        delivery and one sweep each, which reach the same bitwise fixpoint.
+        On a CUDA tensor they are ONE launch of K4, whose telemetry is
+        totals only (no per-round histogram entries), as on the TPU; on a
+        CPU tensor every round is folded (see the module docstring). A
+        traced run stays on K3 to the end."""
         prog = self.program
-        P, v_max = cm["num_parts"], cm["v_max"]
+        kind = prog.megastep_kind
         max_s = self.max_supersteps
-        state0 = prog.init(gb)
-
-        if prog.megastep_kind == "pagerank":
-            r = state0["r"].reshape(-1)
-            deg = gb["out_degree"].to(torch.float32).reshape(-1)
-            tele = (prog.teleport_fn(gb).reshape(-1)
-                    if prog.teleport_fn is not None else 1.0 / prog.n_global)
-            pairs0, nsent0 = mega.round_stats(None, cm)
-            tally = _Tally(P, max_s, nsent0, 0, pairs0, self.device)
-            ones = torch.ones(P, dtype=torch.int32, device=self.device)
-            delta = torch.tensor(float("inf"), device=self.device)
-            step, changed = 0, True
-            while changed and step < max_s:
-                r, delta, changed = mega.megastep_pagerank(
-                    r, cm, deg, tele, prog.n_global, prog.damping,
-                    prog.num_iters, step)
-                # PageRank sends unconditionally: every round's observation
-                # is the full slot occupancy, the final round included
-                pairs, nsent = mega.round_stats(None, cm)
-                tally.fold(step, P if changed else 0, ones, nsent, 0, pairs)
-                step += 1
-            state = {"r": r.reshape(P, v_max), "delta": delta.expand(P)}
-            return state, step, tally
-
-        semiring = prog.semiring
-        if prog.megastep_kind == "batched_semiring":
-            return self._run_megastep_batched(state0, cm)
-        x = state0["x"].reshape(-1).contiguous()
-        ch = state0["changed_v"].reshape(-1).contiguous()
-        fr = state0["frontier"].reshape(-1).contiguous()
-        pairs0, nsent0 = mega.round_stats(ch, cm)
-        tally = _Tally(P, max_s, nsent0, 0, pairs0, self.device)
-
-        def fold(step, ch2, li):
-            pairs, nsent = mega.round_stats(ch2, cm)
-            nchanged = ch2.reshape(P, v_max).any(dim=1).sum()
-            tally.fold(step, nchanged, li, nsent, 0, pairs)
-            return int(nchanged) == 0    # the superstep's one host read
-
-        # the resident gate: the earliest superstep from which every
-        # remaining phase band's predicted round geometry fits (None
-        # without a PhasedTierPlan, or when no suffix fits)
-        enter = None
-        if isinstance(self.tier_plan, PhasedTierPlan):
-            rb = [p.schedule(1).round_bytes(None)
-                  for p in self.tier_plan.phase_plans()]
-            enter = mega.resident_enter_round(rb, self.tier_plan.boundaries)
-        bsp_end = max_s if enter is None else min(enter, max_s)
-        step, done = 0, False
-        while not done and step < bsp_end:
-            x, ch, fr, li = mega.megastep_semiring(
-                x, ch, fr, cm, semiring, unroll=prog.fixpoint_unroll)
-            done = fold(step, ch, li)
-            step += 1
-        if not done and step < max_s:
-            if x.is_cuda:
-                # one K4 launch for the rest of the run; telemetry is
-                # totals for these rounds
-                x, ch, fr, it, li = mega.resident_megastep(
-                    x, ch, fr, cm, semiring, max_s - step)
-                pairs, nsent = mega.round_stats(ch, cm)
-                tally.liters += li
-                tally.sent += nsent
-                tally.pairs += pairs
-                # an entered resident stretch is at least one superstep,
-                # as the folded loop's first round is
-                step += max(int(it), 1)
-            else:
-                while not done and step < max_s:
-                    x, ch, fr, ap = mega.resident_step_semiring(
-                        x, ch, fr, cm, semiring)
-                    done = fold(step, ch, ap.int())
-                    step += 1
-        state = {"x": x.reshape(P, v_max), "changed_v": ch.reshape(P, v_max),
-                 "frontier": fr.reshape(P, v_max)}
-        return state, step, tally
-
-    def _run_megastep_batched(self, state0: dict, cm: dict):
-        """The fused route of a query batch: one
-        ``kernels.megastep.megastep_semiring_batched`` a superstep over flat
-        (P·v_max, Q) state, plain torch ops. The halt vote is any lane
-        anywhere; each lane's last changing superstep is its
-        ``query_supersteps`` entry."""
-        prog = self.program
+        with tr.span("plan", phase=0, exchange="megastep",
+                     backend=self.backend):
+            gb, cm = self._gb_for_run()
+            gb = self._layer(gb, extra)
+        tr.count("stage_builds", 1)
         P, v_max, Q = cm["num_parts"], cm["v_max"], self.num_queries
-        max_s = self.max_supersteps
-        x, ch, fr = (state0[k].reshape(-1, Q).contiguous()
-                     for k in ("x", "changed_v", "frontier"))
-        pairs0, nsent0 = mega.round_stats(ch, cm)
-        tally = _Tally(P, max_s, nsent0, 0, pairs0, self.device, queries=Q)
-        step, done = 0, False
-        while not done and step < max_s:
-            x, ch, fr, li = mega.megastep_semiring_batched(
-                x, ch, fr, cm, prog.semiring, unroll=prog.fixpoint_unroll)
-            pairs, nsent = mega.round_stats(ch, cm)
-            nchanged, changed_q = _halt_vote(
-                ch.reshape(P, v_max, Q).any(dim=1))
-            tally.fold(step, nchanged, li, nsent, 0, pairs,
-                       changed_q=changed_q)
-            step += 1
-            done = int(nchanged) == 0    # the superstep's one host read
-        state = {"x": x.reshape(P, v_max, Q),
-                 "changed_v": ch.reshape(P, v_max, Q),
-                 "frontier": fr.reshape(P, v_max, Q)}
+        tail = () if Q is None else (Q,)
+
+        with tr.span("init"):
+            state0 = prog.init(gb)
+            if kind == "pagerank":
+                r = state0["r"].reshape(-1)
+                deg = gb["out_degree"].to(torch.float32).reshape(-1)
+                telep = (prog.teleport_fn(gb).reshape(-1)
+                         if prog.teleport_fn is not None
+                         else 1.0 / prog.n_global)
+                ones = torch.ones(P, dtype=torch.int32, device=self.device)
+                delta = torch.tensor(float("inf"), device=self.device)
+                pairs0, nsent0 = mega.round_stats(None, cm)
+            else:
+                x, ch, fr = (state0[k].reshape((-1,) + tail).contiguous()
+                             for k in ("x", "changed_v", "frontier"))
+                pairs0, nsent0 = mega.round_stats(ch, cm)
+            tally = _Tally(P, max_s, nsent0, 0, pairs0, self.device,
+                           queries=Q)
+            tr.sync(pairs0)
+        with tr.span("prime") as sp:
+            # no routed prime on the fused route: round 0's sends are
+            # delivered by the first superstep, so the span records only
+            # the logical observation
+            if tr.enabled:
+                sp.set(wire=0, nsent=int(nsent0))
+        tr.count("dispatches", 2)
+        if tr.enabled:
+            tally.psec = np.zeros(P, np.float64)
+
+        def loop(step: int, stop: int, launch, vote):
+            """Supersteps from ``step`` until the halt vote or ``stop``:
+            ``launch(step)`` runs one (returning its (P,) local iterations),
+            ``vote()`` observes its round: (#partitions changed, the (Q,)
+            lanes changed or None, pairs, nsent)."""
+            done = False
+            while not done and step < stop:
+                with self._superstep(tr, tally, step) as ss:
+                    with tr.span("megastep"):
+                        li = tr.sync(launch(step))
+                    with tr.span("halt-vote"):
+                        nchanged, changed_q, pairs, nsent = vote()
+                        tally.fold(step, nchanged, li, nsent, 0, pairs,
+                                   changed_q=changed_q)
+                        nch = int(nchanged)  # the superstep's one host read
+                        if tr.enabled:
+                            ss.set(changed=nch, wire=0, nsent=int(nsent))
+                    tr.count("dispatches", 1)
+                step += 1
+                done = nch == 0
+            return step, done
+
+        with tr.span("phase", index=0, boundary=-1):
+            if kind == "pagerank":
+                changed = True
+
+                def launch(step):
+                    nonlocal r, delta, changed
+                    r, delta, changed = mega.megastep_pagerank(
+                        r, cm, deg, telep, prog.n_global, prog.damping,
+                        prog.num_iters, step)
+                    return ones
+
+                def vote():
+                    # PageRank sends unconditionally: every round's
+                    # observation is the full slot occupancy, the final
+                    # round's included
+                    return ((P if changed else 0, None)
+                            + mega.round_stats(None, cm))
+
+                step, _ = loop(0, max_s, launch, vote)
+                return ({"r": r.reshape(P, v_max),
+                         "delta": delta.expand(P)}, step, tally)
+
+            mk = (mega.megastep_semiring if Q is None
+                  else mega.megastep_semiring_batched)
+
+            def launch(step):
+                nonlocal x, ch, fr
+                x, ch, fr, li = mk(x, ch, fr, cm, prog.semiring,
+                                   unroll=prog.fixpoint_unroll)
+                return li
+
+            def vote():
+                nchanged, changed_q = _halt_vote(
+                    ch.reshape((P, v_max) + tail).any(dim=1))
+                return (nchanged, changed_q) + mega.round_stats(ch, cm)
+
+            # the resident gate: the earliest superstep from which every
+            # remaining phase band's predicted round geometry fits (None
+            # without a PhasedTierPlan, for a query batch, on a traced run,
+            # or when no suffix fits)
+            enter = None
+            if (isinstance(self.tier_plan, PhasedTierPlan) and Q is None
+                    and not tr.enabled):
+                rb = [p.schedule(1).round_bytes(None)
+                      for p in self.tier_plan.phase_plans()]
+                enter = mega.resident_enter_round(rb,
+                                                  self.tier_plan.boundaries)
+            step, done = loop(0, max_s if enter is None
+                              else min(enter, max_s), launch, vote)
+            if not done and step < max_s:
+                if x.is_cuda:
+                    # one K4 launch for the rest of the run; telemetry is
+                    # totals for these rounds
+                    x, ch, fr, it, li = mega.resident_megastep(
+                        x, ch, fr, cm, prog.semiring, max_s - step)
+                    pairs, nsent = mega.round_stats(ch, cm)
+                    tally.liters += li
+                    tally.sent += nsent
+                    tally.pairs += pairs
+                    # an entered resident stretch is at least one
+                    # superstep, as the folded loop's first round is
+                    step += max(int(it), 1)
+                else:
+                    def launch(step):
+                        nonlocal x, ch, fr
+                        x, ch, fr, ap = mega.resident_step_semiring(
+                            x, ch, fr, cm, prog.semiring)
+                        return ap.int()
+                    step, _ = loop(step, max_s, launch, vote)
+        state = {k: v.reshape((P, v_max) + tail) for k, v in
+                 zip(("x", "changed_v", "frontier"), (x, ch, fr))}
         return state, step, tally
 
 

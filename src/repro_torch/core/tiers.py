@@ -1,8 +1,8 @@
 """Gopher Mesh and Gopher Phases: capacity-tiered exchange planning.
 
 The port's copy of the JAX package's ``core/tiers.py``, numpy only, with
-the same arithmetic (the JAX package's six metrics-registry calls are left
-out until the port has a registry):
+the same arithmetic and the same metrics (plan builds by kind, profile
+updates and their drift, in the default registry):
 
   * every partition pair carries a per-pair **traffic profile** — an EWMA of
     the packed slot counts the compact/tiered exchange already computes
@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from repro_torch.gofs.formats import PAD
+from repro_torch.obs import metrics as obs_metrics
 
 # tier codes, ordered so escalation is "+1 and clamp"
 EXCLUDED = 0    # zero structural occupancy: the pair can never carry a slot
@@ -139,6 +140,7 @@ class TierPlan:
         t[ew > warm_cap] = HOT
         t[occupancy <= 1] = COLD
         t[occupancy <= 0] = EXCLUDED
+        _plan_built("static")
         return TierPlan(num_parts=P, cap=int(cap), warm_cap=int(warm_cap),
                         tier_bytes=t.tobytes())
 
@@ -325,6 +327,7 @@ class PhasedTierPlan:
             plans.append(TierPlan.build(ek, occupancy, cap,
                                         warm_div=warm_div))
         ref = plans[0]
+        _plan_built("phased")
         return PhasedTierPlan(
             num_parts=ref.num_parts, cap=ref.cap, warm_cap=ref.warm_cap,
             phase_tier_bytes=tuple(p.tier_bytes for p in plans),
@@ -400,6 +403,7 @@ class PhasedTierPlan:
             plans.append(TierPlan.build(ew * (mean_k / mean0), occ, cap,
                                         warm_div=warm_div))
         ref = plans[0]
+        _plan_built("resume")
         return PhasedTierPlan(
             num_parts=ref.num_parts, cap=ref.cap, warm_cap=ref.warm_cap,
             phase_tier_bytes=tuple(p.tier_bytes for p in plans),
@@ -688,6 +692,7 @@ def update_profile(host_gb: dict, pair_slots: np.ndarray, rounds: int,
     host_gb["wire_ewma"] = out
     if host_gb.get("announce_ewma") is not None:
         host_gb["announce_ewma"] = np.zeros_like(out)
+    _profile_updated("wire", out, old)
     return out
 
 
@@ -717,6 +722,7 @@ def update_changed_profile(host_gb: dict, count_hist,
     old = np.asarray(ch, np.float64)
     out = (decay * old + (1.0 - decay) * obs).astype(np.float32)
     host_gb["changed_ewma"] = out
+    _profile_updated("changed", out, old)
     return out
 
 
@@ -757,4 +763,21 @@ def update_phase_profile(host_gb: dict, phase_pair_slots, phase_hist,
         out[k] = (decay * old[k]
                   + (1.0 - decay) * obs[k] / int(rounds_k[k]))
     host_gb["phase_pair_ewma"] = out.astype(np.float32)
+    _profile_updated("phase_pair", out, old)
     return host_gb["phase_pair_ewma"]
+
+
+def _plan_built(kind: str) -> None:
+    obs_metrics.default_registry().counter(
+        "tiers_plans_built_total", labels={"kind": kind}).inc()
+
+
+def _profile_updated(profile: str, out: np.ndarray, old: np.ndarray) -> None:
+    """Count one profile fold and gauge its drift, |out − old|₁ over
+    max(|old|₁, 1): how far the observation moved the profile, the signal
+    that a plan rebuild is due."""
+    reg = obs_metrics.default_registry()
+    reg.counter("tiers_profile_updates_total",
+                labels={"profile": profile}).inc()
+    reg.gauge("tiers_profile_drift", labels={"profile": profile}).set(
+        float(np.abs(out - old).sum()) / max(float(np.abs(old).sum()), 1.0))

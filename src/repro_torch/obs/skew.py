@@ -1,8 +1,7 @@
 """Gopher Scope: partition skew & straggler analytics.
 
 The port's copy of the JAX package's ``obs/skew.py`` (numpy only, the same
-arithmetic). The tracer and the metrics registry of ``obs/`` are not
-ported yet (ROADMAP A7).
+arithmetic).
 
 GoFFish's central empirical claim is that time-to-completion is gated by
 the SLOWEST sub-graph per superstep (paper Fig. 5; the partitioning-

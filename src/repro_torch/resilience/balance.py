@@ -3,8 +3,9 @@
 The port of the JAX package's ``resilience/balance.py``: the same plans,
 the same synthetic delta (host numpy, field for field the JAX package's
 ``MigrationResult``), the same audit and the same snapshot re-homing, on
-the port's engine, checkpointer and block patch. The JAX package's
-``rebalance_migrations_total`` counter waits for ROADMAP A7.
+the port's engine, checkpointer and block patch; each migration ticks
+``rebalance_migrations_total{backend}`` in the engine's metrics
+registry.
 
 GoFFish's documented weakness is partition skew: the superstep barrier makes
 makespan ∝ the SLOWEST partition while resources ∝ the mean, so one
@@ -416,7 +417,7 @@ def migrate_and_resume(engine, checkpointer, plan: MigrationPlan,
         max_supersteps=engine.max_supersteps,
         gb=device_block(res.block, engine.device),
         exchange=engine.exchange_requested, tier_plan=tier_plan,
-        device=engine.device)
+        tracer=engine._tracer, metrics=engine._metrics, device=engine.device)
 
     # re-home the snapshot: restore → remap state → re-home or recompute the
     # inbox (see below) → re-commit at the same step
@@ -456,6 +457,8 @@ def migrate_and_resume(engine, checkpointer, plan: MigrationPlan,
         st = {k: torch.from_numpy(v).to(ne.device) for k, v in state.items()}
         inbox = route(pack(st)[0])[0].cpu().numpy()
     ck.save({"state": state, "inbox": inbox}, int(step))
+    ne.metrics.counter("rebalance_migrations_total",
+                       labels={"backend": ne.backend}).inc()
     return ne, res, int(step)
 
 

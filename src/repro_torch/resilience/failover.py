@@ -9,8 +9,10 @@ needs the multi-device backend: on the port's local engine a
 ``DeviceLossFault`` raises ``NotImplementedError`` naming ROADMAP A8, and
 so does :func:`shrink_parts_mesh`. A plain crash restarts the engine in
 place through :func:`repro_torch.resilience.recovery.run_with_recovery`;
-its ``RecoveryExhausted`` carries that loop's ``RecoveryReport``.
-The JAX package's ``failover_events_total`` counter waits for ROADMAP A7.
+its ``RecoveryExhausted`` carries that loop's ``RecoveryReport``, and its
+restarts tick ``recovery_restarts_total``. The JAX package's
+``failover_events_total`` counter sits on the device-loss branch, so it
+comes with that branch (ROADMAP A8).
 """
 from __future__ import annotations
 

@@ -5,9 +5,10 @@ The port of the JAX package's ``resilience/faults.py`` (numpy only). A
 NAMED SITES — host-side hook points the engine's checkpointed loop, the
 block patcher, and the serving loop pass through:
 
-    engine.superstep    once per superstep of the checkpointed BSP loop,
-                        before the sweep
-    exchange.route      once per mailbox routing round, before the route
+    engine.superstep    once per superstep of the checkpointed BSP loop and
+                        of a traced run, before the sweep
+    exchange.route      once per mailbox routing round of those loops,
+                        before the route
     blocks.patch        on entry to core.blocks.patch_host_block
     svc.apply_delta     on entry of a GraphQueryService delta-apply attempt
     svc.query           on entry of a GraphQueryService batch run attempt

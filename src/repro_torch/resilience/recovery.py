@@ -10,9 +10,8 @@ passes checksum verification (``Checkpointer.latest_good_step`` — a
 corrupt latest snapshot falls back one further) and replays forward.
 
 Device loss is NOT handled here — that is a mesh change, not a replay; see
-:mod:`repro_torch.resilience.failover`. The JAX package's
-``recovery_restarts_total`` counter waits for the metrics registry
-(ROADMAP A7).
+:mod:`repro_torch.resilience.failover`. Each restart ticks
+``recovery_restarts_total{backend}`` in the engine's metrics registry.
 """
 from __future__ import annotations
 
@@ -84,4 +83,7 @@ def run_with_recovery(engine, checkpointer, every: int = 1,
                 report.faults.append(dict(site=e.site, kind=e.kind,
                                           visit=e.visit))
             report.resumed_steps.append(checkpointer.latest_good_step())
+            engine.metrics.counter(
+                "recovery_restarts_total",
+                labels={"backend": engine.backend}).inc()
     raise RecoveryExhausted(report, last)

@@ -27,9 +27,11 @@ telemetry feeds the graph's ``SkewTracker`` (``svc.skew``, the
 ``imbalance``/``skew`` keys of ``stats()``), which ``rebalance`` reads to
 migrate sub-graphs off a straggler partition (Gopher Balance).
 
-What the port leaves out, each with the ROADMAP item that brings it: the
-metrics registry (A7: ``metrics=`` raises), and ``backend='shard_map'``
-or a ``mesh`` (A8, which raise). Engines run on ``device`` (the card
+The service feeds the ``serving_*`` counters, histograms and gauges of
+the JAX package's service into its metrics registry (``metrics=``, or the
+process default); its pooled engines feed the default registry, as the
+JAX package's do. What the port leaves out: ``backend='shard_map'`` or a
+``mesh`` (ROADMAP A8, which raise). Engines run on ``device`` (the card
 unless the caller passes ``device='cpu'``).
 """
 from __future__ import annotations
@@ -47,6 +49,7 @@ from repro_torch.core import (GopherEngine, device_block, host_graph_block,
                               verify_host_block)
 from repro_torch.gofs.formats import PartitionedGraph
 from repro_torch.gofs.temporal import DeltaValidationError
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.skew import SkewTracker
 from repro_torch.resilience import faults as _faults
 from repro_torch.resilience.degrade import CircuitBreaker, backoff_delays
@@ -189,10 +192,6 @@ class GraphQueryService:
             raise NotImplementedError(
                 "only the 'local' backend is ported (ROADMAP A8: the "
                 "multi-device backend)")
-        if metrics is not None:
-            raise NotImplementedError(
-                "the metrics registry is not ported yet: ROADMAP A7 "
-                "(observability)")
         self.device = resolve_device(device)
         self.graphs = dict(graphs)
         self.backend = backend
@@ -217,6 +216,7 @@ class GraphQueryService:
         self.cache = ResultCache(cache_capacity)
         self.stats = ServiceStats()
         self.stats._service = self
+        self._metrics = metrics
         self.landmark_caches: Dict[str, LandmarkCache] = {}
         # per-graph live straggler picture, fed by every batch run
         self.skew: Dict[str, SkewTracker] = {}
@@ -228,6 +228,11 @@ class GraphQueryService:
         if warm_start:
             for name in self.graphs:
                 self.warm(name)
+
+    @property
+    def metrics(self) -> obs_metrics.MetricsRegistry:
+        return (self._metrics if self._metrics is not None
+                else obs_metrics.default_registry())
 
     # ---------------- graph lifecycle (temporal serving) ----------------
     def _cache_key(self, q: pl.Query) -> tuple:
@@ -296,24 +301,36 @@ class GraphQueryService:
                                              rebuild_landmarks, t0)
             except DeltaValidationError:
                 self.stats.delta_failures += 1
+                self.metrics.counter(
+                    "serving_delta_failures_total",
+                    labels={"graph": name, "kind": "invalid"}).inc()
                 raise
             except BlockCorruptionFault as e:
                 last = e
                 self.stats.delta_retries += 1
                 self._host_gb.pop(name, None)
                 self._gb.pop(name, None)
+                self.metrics.counter("serving_delta_retries_total",
+                                     labels={"graph": name}).inc()
             except Exception as e:  # serving-loop boundary: degrade, not leak
                 last = e
                 self.stats.delta_retries += 1
+                self.metrics.counter("serving_delta_retries_total",
+                                     labels={"graph": name}).inc()
             else:
                 if attempt or name in self._stale_graphs:
                     self._stale_graphs.discard(name)
                     self.stats.recoveries += 1
+                    self.metrics.counter(
+                        "serving_recoveries_total",
+                        labels={"graph": name, "site": "apply_delta"}).inc()
                 return res
             if attempt < self.max_retries:
                 time.sleep(delays[attempt])
         self._stale_graphs.add(name)
         self.stats.delta_failures += 1
+        self.metrics.counter("serving_delta_failures_total",
+                             labels={"graph": name, "kind": "exhausted"}).inc()
         raise last
 
     def _apply_delta_once(self, name: str, delta, directed: bool,
@@ -342,13 +359,24 @@ class GraphQueryService:
                     strategy=old_lc.strategy, gb=self._gb[name],
                     device=self.device)
                 self.stats.landmark_rebootstraps += 1
+                self.metrics.counter("serving_landmark_rebootstraps_total",
+                                     labels={"graph": name}).inc()
             else:
                 self.landmark_caches[name] = old_lc.refresh(
                     res.pg, res, delta, directed=directed, gb=self._gb[name],
                     profile_block=res.block, device=self.device)
         if self.warm_start:
             self.warm(name)
-        self.stats.delta_apply_s.append(time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        self.stats.delta_apply_s.append(dt)
+        reg = self.metrics
+        reg.counter("serving_deltas_applied_total",
+                    labels={"graph": name}).inc()
+        reg.histogram("serving_delta_apply_seconds").observe(dt)
+        lc = self.landmark_caches.get(name)
+        if lc is not None:
+            reg.gauge("serving_landmark_stale_frac",
+                      labels={"graph": name}).set(lc.stale_frac_ewma)
         return res
 
     def rebalance(self, name: str, policy=None):
@@ -409,6 +437,8 @@ class GraphQueryService:
                     threshold=self.breaker_threshold,
                     cooldown_s=self.breaker_cooldown_s, clock=self.clock)
             br.record_failure()
+            self.metrics.counter("serving_migration_rollbacks_total",
+                                 labels={"graph": name}).inc()
             return None
         self.update_graph(name, res.pg)
         self._host_gb[name] = res.block
@@ -418,6 +448,9 @@ class GraphQueryService:
         self.skew[name] = SkewTracker(num_parts=pg.num_parts,
                                       decay=tracker.decay)
         self.stats.migrations += 1
+        self.metrics.counter(
+            "serving_migrations_total",
+            labels={"graph": name, "signal": hint.get("signal", "")}).inc()
         if self.warm_start:
             self.warm(name)
         return res
@@ -468,6 +501,7 @@ class GraphQueryService:
             if (self.deadline_s is not None
                     and t0 - r.t_submit > self.deadline_s):
                 self.stats.deadline_misses += 1
+                self.metrics.counter("serving_deadline_misses_total").inc()
                 responses[r.ticket] = Response(
                     ticket=r.ticket, query=r.query, result=None,
                     error="deadline exceeded",
@@ -502,6 +536,8 @@ class GraphQueryService:
                 results, qsteps = self._run_batch(batch)
             except Exception as e:
                 self.stats.degraded_batches += 1
+                self.metrics.counter("serving_degraded_batches_total",
+                                     labels={"graph": batch.graph}).inc()
                 err = f"degraded: {e}"
                 for q in batch.queries:
                     for r in by_key[self._cache_key(q)]:
@@ -524,8 +560,12 @@ class GraphQueryService:
         # 4. aggregate telemetry
         done = [resp for resp in responses.values() if resp.error is None]
         if self._stale_graphs:
-            self.stats.stale_served += sum(
-                1 for resp in done if resp.query.graph in self._stale_graphs)
+            stale = sum(1 for resp in done
+                        if resp.query.graph in self._stale_graphs)
+            if stale:
+                self.stats.stale_served += stale
+                self.metrics.counter(
+                    "serving_stale_served_total").inc(stale)
         if self.deadline_s is not None:
             # delivered-but-late responses count as misses too (the client
             # got an answer; the SLO did not)
@@ -534,6 +574,19 @@ class GraphQueryService:
         self.stats.served += len(done)
         self.stats.latencies_s.extend(resp.latency_s for resp in done)
         self.stats.busy_seconds += time.perf_counter() - t0
+        reg = self.metrics
+        hits = sum(1 for resp in done if resp.cached)
+        reg.counter("serving_requests_total",
+                    labels={"result": "hit"}).inc(hits)
+        reg.counter("serving_requests_total",
+                    labels={"result": "served"}).inc(len(done) - hits)
+        reg.counter("serving_requests_total",
+                    labels={"result": "rejected"}).inc(
+                        len(responses) - len(done))
+        lat = reg.histogram("serving_latency_seconds")
+        for resp in done:
+            lat.observe(resp.latency_s)
+        reg.gauge("serving_cache_hit_rate").set(self.stats.cache_hit_rate())
         return responses
 
     # ---------------- batch execution ----------------
@@ -565,11 +618,18 @@ class GraphQueryService:
                 br.record_failure()
                 if br.opens > opens:
                     self.stats.breaker_opens += 1
+                    self.metrics.counter("serving_breaker_opens_total",
+                                         labels={"graph": batch.graph}).inc()
                 self.stats.query_retries += 1
+                self.metrics.counter("serving_query_retries_total",
+                                     labels={"graph": batch.graph}).inc()
             else:
                 br.record_ok()
                 if attempt:
                     self.stats.recoveries += 1
+                    self.metrics.counter(
+                        "serving_recoveries_total",
+                        labels={"graph": batch.graph, "site": "query"}).inc()
                 return out
             if attempt < self.max_retries:
                 time.sleep(delays[attempt])
@@ -596,7 +656,15 @@ class GraphQueryService:
         self.stats.engine_supersteps += tele.supersteps
         self.stats.lane_fill.append(batch.fill)
         # Gopher Scope: fold the run into the graph's live straggler picture
-        self.skew.setdefault(batch.graph, SkewTracker()).observe(tele)
+        tracker = self.skew.setdefault(batch.graph, SkewTracker())
+        tracker.observe(tele)
+        reg = self.metrics
+        reg.counter("serving_batches_total",
+                    labels={"graph": batch.graph,
+                            "family": batch.family}).inc()
+        reg.histogram("serving_batch_supersteps").observe(tele.supersteps)
+        reg.gauge("serving_partition_imbalance",
+                  labels={"graph": batch.graph}).set(tracker.imbalance())
         # fold this batch's per-pair wire observation into the graph's
         # traffic profile and its frontier histogram into the
         # changed-histogram EWMA (what the next tier plan is built from)
@@ -661,6 +729,8 @@ class GraphQueryService:
                 extra, _ = self._query_arrays(pg, family, [(0,)] * Q)
                 self._engine(name, family, Q).run_queries(extra=extra)
                 done += 1
+        self.metrics.counter("serving_warm_compiles_total",
+                             labels={"graph": name}).inc(done)
         return done
 
     # ---------------- landmark tier (approximate SSSP, zero supersteps) ----

@@ -8,13 +8,16 @@ This file imports no JAX, so it runs on a machine that has none:
 Min/max results are bit-equal; plus_times is allclose (rtol=1e-6,
 atol=1e-7) because the kernel sums lanes in another order.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import algorithms
 from repro_torch.core import (GopherEngine, PhasedTierPlan, SemiringProgram,
-                              graph_block, init_max_vertex, make_sssp_init)
+                              Telemetry, graph_block, init_max_vertex,
+                              make_sssp_init)
 from repro_torch.gofs import (bfs_grow_partition, partition_graph,
                               powerlaw_social, road_grid)
 from repro_torch.gofs.formats import PAD
@@ -736,6 +739,94 @@ def test_rebalance_migration_resumes_on_the_card(cuda_device, tmp_path):
         for k in ref:
             assert np.array_equal(to_global(s, res.pg)[k],
                                   to_global(ref, pg)[k]), (algo, k)
+
+
+_TELEMETRY = ("supersteps", "local_iters", "changed_hist", "count_hist",
+              "messages_sent", "wire_hist", "wire_slots", "pair_slots")
+
+
+@pytest.mark.parametrize("exchange", ["megastep", "compact"])
+def test_traced_runs_on_the_card_match(cuda_device, exchange):
+    """A traced CC with ``boundary_sync`` on the card equals the card's
+    untraced run (state and every Telemetry field but part_seconds) and
+    the CPU's traced run (state and telemetry); it launches K3 once a
+    superstep on the fused route and K2 and K5 on the compact one, and
+    every span lies inside its parent."""
+    from repro_torch.obs import Tracer, validate_chrome_trace
+    pg = _serving_graph()[1]
+    prog = _ck_program("cc", pg)
+    s0, t0 = GopherEngine(pg, prog, exchange=exchange,
+                          device=cuda_device).run()
+    tr = Tracer(boundary_sync=True)
+    _build.reset_launches()
+    s, t = GopherEngine(pg, prog, exchange=exchange, tracer=tr,
+                        device=cuda_device).run()
+    launches = dict(_build.launches)
+    ctr = Tracer()
+    sc, tc = GopherEngine(pg, prog, exchange=exchange, tracer=ctr,
+                          device="cpu").run()
+    _same_state(s0, s, "cc")
+    _same_state(sc, s, "cc")
+    for f in Telemetry.__dataclass_fields__:
+        if f != "part_seconds":
+            a, b = getattr(t0, f), getattr(t, f)
+            assert (a is None and b is None) or np.array_equal(
+                np.asarray(a), np.asarray(b)), f
+    for f in _TELEMETRY:
+        assert np.array_equal(np.asarray(getattr(tc, f)),
+                              np.asarray(getattr(t, f))), f
+    if exchange == "megastep":
+        assert launches["megastep_semiring"] == t.supersteps
+        assert launches["resident_megastep"] == 0
+    else:
+        assert launches["semiring_spmv_frontier"] > 0
+        assert launches["outbox_pack"] == t.supersteps + 1
+    assert t.part_seconds.shape == (pg.num_parts,)
+    assert tr.counts == ctr.counts and tr.balanced
+    validate_chrome_trace(tr.chrome_trace())
+    spans = sorted(tr.spans, key=lambda x: (x.t0_ns, -x.dur_ns))
+    stack = []
+    for sp in spans:
+        while stack and stack[-1].depth >= sp.depth:
+            stack.pop()
+        if stack:
+            parent = stack[-1]
+            assert parent.depth == sp.depth - 1
+            assert parent.t0_ns <= sp.t0_ns
+            assert sp.t0_ns + sp.dur_ns <= parent.t0_ns + parent.dur_ns
+        stack.append(sp)
+
+
+def test_traced_profiler_dir_and_metrics_on_the_card(cuda_device, tmp_path):
+    """A traced fused CC under ``profiler_dir`` writes a trace holding
+    K3's kernel once a superstep (the profiler has been seen to lose a
+    window's first launches, so a run is traced up to three times); an
+    untraced run with ``metrics=`` launches K3 as often as one without and
+    feeds the run's supersteps."""
+    from repro_torch.obs import MetricsRegistry, Tracer
+    pg = _serving_graph()[1]
+    prog = _ck_program("cc", pg)
+    tr = Tracer(profiler_dir=str(tmp_path))
+    seen = []
+    for _ in range(3):
+        _, t = GopherEngine(pg, prog, tracer=tr, device=cuda_device).run()
+        with open(tr.profiles[-1]) as f:
+            events = json.load(f)["traceEvents"]
+        seen.append(sum(1 for e in events if e.get("cat") == "kernel"
+                        and "megastep_kernel" in e.get("name", "")))
+        if seen[-1] == t.supersteps:
+            break
+    assert seen[-1] == t.supersteps, (seen, t.supersteps)
+    _build.reset_launches()
+    GopherEngine(pg, prog, device=cuda_device).run()
+    plain = dict(_build.launches)
+    reg = MetricsRegistry()
+    _build.reset_launches()
+    _, t = GopherEngine(pg, prog, metrics=reg, device=cuda_device).run()
+    assert dict(_build.launches) == plain
+    assert reg.snapshot()["counters"][
+        "engine_supersteps_total{backend=local,exchange=megastep}"] \
+        == t.supersteps
 
 
 # (B, Sq, Sk, H, KV, dh, causal, window, q_offset). bf16 at dh 64, 80,

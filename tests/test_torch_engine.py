@@ -29,6 +29,7 @@ from repro_torch.core import (GopherEngine, PageRankProgram,  # noqa: E402
                               PhasedTierPlan, SemiringProgram,
                               init_max_vertex)
 from repro_torch.gofs.formats import partitioned_graph_from_fields  # noqa: E402
+from repro_torch.obs import Tracer  # noqa: E402
 from repro_torch.serving import (BatchedSemiringProgram,  # noqa: E402
                                  sssp_query_init)
 from repro_torch.training.checkpoint import Checkpointer  # noqa: E402
@@ -164,8 +165,8 @@ UNSUPPORTED = {
     "tier_plan": (lambda pg: GopherEngine(
         pg, _cc_program(), tier_plan=PhasedTierPlan.from_graph(pg),
         device="cpu").run(), None),
-    "tracer": (lambda pg: GopherEngine(pg, _cc_program(), tracer=object(),
-                                       device="cpu"), "ROADMAP A7"),
+    "tracer": (lambda pg: GopherEngine(pg, _cc_program(), tracer=Tracer(),
+                                       device="cpu").run(), None),
     "checkpointer": (lambda pg: _checkpointed_run(pg), None),
     "extra": (lambda pg: GopherEngine(
         pg, SemiringProgram("max_first", resume=True), device="cpu").run(

@@ -54,8 +54,8 @@ def test_importing_the_port_loads_no_jax():
 def test_every_new_module_is_covered():
     """The modules of the staged route, of the tier plans, of LM serving
     (dense and ssm), of the store and incremental analytics, of graph
-    serving and of checkpointing and resilience are among the files
-    checked above."""
+    serving, of checkpointing and resilience and of observability are
+    among the files checked above."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("core/messages.py", "core/subgraph.py", "kernels/flat.py",
                 "kernels/outbox_compact.py", "core/tiers.py",
@@ -71,5 +71,6 @@ def test_every_new_module_is_covered():
                 "resilience/faults.py", "training/checkpoint.py",
                 "obs/skew.py", "resilience/recovery.py",
                 "resilience/failover.py", "resilience/balance.py",
-                "launch/elastic.py", "launch/chaos.py"):
+                "launch/elastic.py", "launch/chaos.py", "obs/trace.py",
+                "obs/metrics.py", "launch/scope.py"):
         assert f"src/repro_torch/{mod}" in names, mod

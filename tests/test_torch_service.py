@@ -6,8 +6,8 @@ the JAX service on the same stream (results, errors, cached flags,
 supersteps, summary counts), its dedupe of identical in-flight queries,
 deadline misses, the circuit breaker with ``_run_batch_once`` made to
 raise and a patched block that fails its audit, in both services,
-``apply_delta`` with landmarks, ``warm``, and the
-refusals of what waits for ROADMAP A7 and A8. The graphs are
+``apply_delta`` with landmarks, ``warm`` with its ``metrics=`` feed, and
+the refusals of what waits for ROADMAP A8. The graphs are
 ``tests/test_serving.py``'s, in 4 partitions.
 """
 import dataclasses
@@ -30,6 +30,7 @@ import repro_torch.serving as tsrv  # noqa: E402
 from repro_torch.core import GopherEngine  # noqa: E402
 from repro_torch.gofs import EdgeDelta, apply_delta  # noqa: E402
 from repro_torch.gofs.formats import partitioned_graph_from_fields  # noqa: E402
+from repro_torch.obs import MetricsRegistry, default_registry  # noqa: E402
 from repro_torch.serving import planner as tplanner  # noqa: E402
 
 # one stream: SSSP, BFS and multi-seed reachability, PPR, a repeat (a
@@ -273,20 +274,23 @@ def test_apply_delta_with_landmarks(graphs):
 
 def test_warm_and_refusals(graphs):
     """``warm`` runs one batch per (family, bucket) on the engines real
-    batches use and leaves the stats alone; ``rebalance`` without a skew
-    picture does nothing; what waits for ROADMAP A7 and A8 raises naming
-    its item."""
+    batches use, leaves the stats alone and counts the batches in the
+    service's ``metrics=`` registry; ``rebalance`` without a skew picture
+    does nothing; what waits for ROADMAP A8 raises naming it."""
     _, tpg = graphs["road"]
-    svc = tsrv.GraphQueryService({"road": tpg}, device="cpu")
+    reg = MetricsRegistry()
+    svc = tsrv.GraphQueryService({"road": tpg}, metrics=reg, device="cpu")
+    assert svc.metrics is reg
     assert svc.warm("road", families=("reach", "ppr"), qs=(1, 2)) == 4
+    assert reg.snapshot()["counters"] == {
+        "serving_warm_compiles_total{graph=road}": 4}
     assert sorted(svc._engines) == [("road", f, q) for f in
                                     ("ppr", "traversal") for q in (1, 2)]
     assert svc.stats.batches == 0 and svc.stats.served == 0
     assert all(isinstance(e, GopherEngine) for e in svc._engines.values())
     assert svc.rebalance("road") is None and svc.skew == {}
-    with pytest.raises(NotImplementedError, match="A7"):
-        tsrv.GraphQueryService({"road": tpg}, metrics=object(),
-                               device="cpu")
+    assert tsrv.GraphQueryService({"road": tpg}, device="cpu").metrics \
+        is default_registry()
     for kw in ({"backend": "shard_map"}, {"mesh": object()}):
         with pytest.raises(NotImplementedError, match="A8"):
             tsrv.GraphQueryService({"road": tpg}, device="cpu", **kw)

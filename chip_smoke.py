@@ -184,12 +184,32 @@ failure exits non-zero and prints no result:
       repro_torch.launch.scope --device cuda --boundary-sync`` on its
       40 x 40 grid writes its three files, each valid. One
       ``observability`` line with the phase's seconds;
+   j. the multi-device backend on 4a's weighted graph, after 4i: a world
+      of ONE NCCL rank (``init_process_group("nccl", device_id=)`` over a
+      ``file://`` rendezvous, ``launch.mesh.make_mesh``; the card's
+      machine has one card, so no collective crosses cards: the
+      multi-rank path is checked on the CPU over gloo), each run once on
+      'local' and once on ``backend='shard_map'``, timed in turns: CC and
+      SSSP on 'dense', 'compact', 'tiered' (``TierPlan.from_graph``),
+      'phased' (4c's taught plan) and 'auto' (which resolves to 'dense' on
+      one rank), 30-iteration PageRank on 'dense' and a checkpointed
+      compact CC (``checkpoint_every=2``), each twice on both in turns
+      (local, mesh, mesh, local). The first mesh run is bit-equal to the
+      first 'local' run and to 4b's or 4c's (PageRank within rtol 1e-5,
+      atol 0), with equal supersteps, local_iters and wire; every run
+      launches K2, K5 and K1 as often as the first 'local' run (and as
+      4c's tiered and phased runs). One ``mesh`` line a run, the two
+      ``warm_s`` beside the two local runs' ``local_warm_s``, and a
+      ``mesh_phase`` line (NCCL's init, the phase's seconds); the first
+      mesh runs' launches are ``mesh_launches``. A failed NCCL init or
+      collective fails the phase;
 5. kernel times at the paths' shapes: one ``{"kernels": [...]}`` line.
-   ``launches`` counts phase 4's timed runs but 4f's, 4g's, 4h's and 4i's,
-   which stand beside it as ``incremental_launches``, ``serving_launches``,
-   ``checkpoint_launches`` (4h's every run, its uncheckpointed CC and the
-   chaos scenarios included) and ``observability_launches`` (4i's every
-   run in this process).
+   ``launches`` counts phase 4's timed runs but 4f's, 4g's, 4h's, 4i's and
+   4j's, which stand beside it as ``incremental_launches``,
+   ``serving_launches``, ``checkpoint_launches`` (4h's every run, its
+   uncheckpointed CC and the chaos scenarios included),
+   ``observability_launches`` (4i's every run in this process) and
+   ``mesh_launches`` (4j's mesh runs).
    K3 is also held at the main path's CC superstep 0 with each walk
    forced. Its ``bound_ms`` counts only the rows with an active
    in-neighbour, summed over the plain version's sweeps, over the lanes
@@ -978,7 +998,8 @@ def main_path(dev):
              "pagerank": rr}
     staged = staged_path(dev, g, ug, pg, upg, src, results, path_launches,
                          truth)
-    plain_k4 = tier_path(dev, pg, src, results, staged, path_launches, truth)
+    plain_k4, tiers_4c, counts_4c, taught = tier_path(
+        dev, pg, src, results, staged, path_launches, truth)
     breakdown(pg, upg, src)
     incremental_launches = dict.fromkeys(_build.launches, 0)
     delta = incremental_path(dev, g, ug, pg, upg, src, results,
@@ -990,8 +1011,12 @@ def main_path(dev):
     observability_launches = dict.fromkeys(_build.launches, 0)
     observability_path(dev, pg, src, results, staged, svc,
                        observability_launches)
+    mesh_launches = dict.fromkeys(_build.launches, 0)
+    mesh_path(dev, pg, src, {**staged, **tiers_4c}, counts_4c, taught,
+              mesh_launches)
     return (pg, path_launches, incremental_launches, serving_launches,
-            checkpoint_launches, observability_launches, plain_k4)
+            checkpoint_launches, observability_launches, mesh_launches,
+            plain_k4)
 
 
 def drive(dev, runs: dict, path_launches: dict, n: int,
@@ -1384,7 +1409,7 @@ def tier_path(dev, pg, src, fused, staged, path_launches, truth):
         f"tiered and phased = dense; forced spill repaired; phased "
         f"pagerank max abs diff {np.abs(state['r'] - dstate['r']).max():.3e}"
         f" — all agree")
-    return plain
+    return plain, res, counts, taught
 
 
 def breakdown(pg, upg, src):
@@ -2519,6 +2544,149 @@ def observability_path(dev, pg, src, fused, staged, svc, launches_4i):
         "agree")
 
 
+# ---------------- phase 4j: the multi-device backend, one NCCL rank --------
+
+def mesh_path(dev, pg, src, earlier, counts_4c, taught, launches_4j):
+    """Phase 4j: ``backend='shard_map'`` on a world of one NCCL rank, each
+    run checked (see the module docstring). ``earlier`` holds phase 4b's
+    and 4c's results by run name, ``counts_4c`` 4c's launch counts by run
+    name, ``taught`` 4c's phased plan; the mesh runs' launch counts go
+    into ``launches_4j``. The process group is this phase's own: made
+    here (a ``file://`` rendezvous in a temporary directory) and
+    destroyed at its end; a failed NCCL init or collective fails the
+    phase."""
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import (GopherEngine, PageRankProgram,
+                                  SemiringProgram, TierPlan, init_max_vertex,
+                                  make_sssp_init)
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training.checkpoint import Checkpointer
+    t_phase = time.perf_counter()
+    k1, k2, k5 = "semiring_spmv", "semiring_spmv_frontier", "outbox_pack"
+    loc = (int(pg.part_of[src]), int(pg.local_of[src]))
+    progs = {"cc": SemiringProgram("max_first", init_max_vertex),
+             "sssp": SemiringProgram("min_plus", make_sssp_init(*loc)),
+             "pagerank": PageRankProgram(n_global=pg.n_global, num_iters=30)}
+    base = TierPlan.from_graph(pg)
+    # (name, program, exchange on the mesh, on 'local', its plan, the
+    # earlier run it is held to, the kernels it must launch)
+    cases = []
+    for a in ("cc", "sssp"):
+        cases += [(f"{a}_dense", a, "dense", "dense", None, f"{a}_dense",
+                   [k2]),
+                  (f"{a}_compact", a, "compact", "compact", None,
+                   f"{a}_compact", [k2, k5]),
+                  (f"{a}_tiered", a, "tiered", "tiered", base, f"{a}_tiered",
+                   [k2, k5]),
+                  (f"{a}_phased", a, "phased", "phased", taught,
+                   f"{a}_phased", [k2, k5]),
+                  (f"{a}_auto", a, "auto", "dense", None, f"{a}_dense",
+                   [k2])]
+    cases += [("pagerank_dense", "pagerank", "dense", "dense", None,
+               "pagerank_dense", [k1]),
+              ("cc_checkpointed", "cc", "compact", "compact", None,
+               "cc_compact", [k2, k5])]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_4j_") as tmp:
+        t0 = time.perf_counter()
+        dist.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(tmp, 'rdv')}",
+            rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = make_mesh((1,), ("parts",), device="cuda")
+            probe = torch.ones(1, device=dev)
+            dist.all_reduce(probe)      # NCCL's communicator, built once
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            if float(probe) != 1.0:
+                fail(f"mesh: a one-rank all_reduce gave {float(probe)}")
+            lines = {}
+            for name, algo, ex, lex, plan, ref, kernels in cases:
+                runs = {"local": [], "shard_map": []}
+                # in turns (local, mesh, mesh, local): the host's drift
+                # falls on both alike
+                for i, backend in enumerate(("local", "shard_map",
+                                             "shard_map", "local")):
+                    eng = GopherEngine(
+                        pg, progs[algo], backend=backend,
+                        mesh=mesh if backend == "shard_map" else None,
+                        exchange=ex if backend == "shard_map" else lex,
+                        tier_plan=plan, device=dev,
+                        **({"max_supersteps": 64} if algo == "pagerank"
+                           else {}))
+                    kw = ({"checkpointer": Checkpointer(os.path.join(
+                        tmp, f"{name}_{i}")), "checkpoint_every": 2}
+                        if name == "cc_checkpointed" else {})
+                    torch.cuda.synchronize()
+                    _build.reset_launches()
+                    t = time.perf_counter()
+                    state, tele = eng.run(**kw)
+                    torch.cuda.synchronize()
+                    runs[backend].append((state, tele,
+                                          time.perf_counter() - t,
+                                          dict(_build.launches)))
+                # the checks hold each backend's first run; the launches
+                # of the first mesh run count as the phase's
+                (sl, tl, _, ll), (sm, tm, _, lm) = (
+                    runs["local"][0], runs["shard_map"][0])
+                for k, c in lm.items():
+                    launches_4j[k] += c
+                for k in kernels:
+                    if lm[k] == 0:
+                        fail(f"mesh {name}: kernel {k} was never launched")
+                if any(r[3] != ll for r in runs["local"] + runs["shard_map"]):
+                    fail(f"mesh {name}: launches {lm}, 'local' {ll}")
+                want = earlier[ref][0]
+                key = "r" if algo == "pagerank" else "x"
+                if algo == "pagerank":
+                    diff = float(np.abs(sm[key] - want[key]).max())
+                    if not np.allclose(sm[key], want[key], rtol=1e-5,
+                                       atol=0.0) or not np.allclose(
+                            sm[key], sl[key], rtol=1e-5, atol=0.0):
+                        fail(f"mesh {name}: max abs diff {diff} from 4b")
+                elif not (np.array_equal(sm[key], want[key])
+                          and np.array_equal(sm[key], sl[key])):
+                    fail(f"mesh {name}: results differ from 'local' and "
+                         f"from phase 4b/4c's {ref}")
+                wt = earlier[ref][1]
+                for f in ("supersteps", "local_iters", "wire_slots",
+                          "wire_hist"):
+                    a, b, c = (getattr(x, f) for x in (tm, tl, wt))
+                    if not (np.array_equal(a, b) and (
+                            name == "cc_checkpointed"
+                            or np.array_equal(a, c))):
+                        fail(f"mesh {name}: {f} differs from 'local' or "
+                             f"from phase 4b/4c's {ref}")
+                if ref in counts_4c and name != "cc_checkpointed" and any(
+                        lm[k] != counts_4c[ref][k] for k in (k1, k2, k5)):
+                    fail(f"mesh {name}: launches {lm}, 4c's {ref} "
+                         f"{counts_4c[ref]}")
+                if name.endswith("_auto") and tm.exchange != "dense":
+                    fail(f"mesh {name}: 'auto' resolved to {tm.exchange}")
+                lines[name] = {
+                    "exchange": tm.exchange, "supersteps": tm.supersteps,
+                    "local_iters_sum": int(tm.local_iters.sum()),
+                    "wire_slots": tm.wire_slots,
+                    "warm_s": [r[2] for r in runs["shard_map"]],
+                    "local_warm_s": [r[2] for r in runs["local"]],
+                    "launches": {k: c for k, c in lm.items() if c}}
+                log(json.dumps({"mesh": name, "devices": 1,
+                                "backend": "shard_map/nccl", **lines[name]}))
+        finally:
+            dist.destroy_process_group()
+    log(json.dumps({"mesh_phase": {"nccl_init_s": init_s,
+                                   "phase_4j_s": time.perf_counter()
+                                   - t_phase}}))
+    log("mesh path checks: one NCCL rank = 'local' = 4b/4c on dense, "
+        "compact, tiered, phased and auto (dense) CC/SSSP, 30-iteration "
+        "PageRank and a checkpointed compact CC, with equal supersteps, "
+        "local_iters, wire and launches — all agree")
+
+
 # ---------------- phases 4d and 4e: LM serving at full width --------------
 
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
@@ -3522,7 +3690,8 @@ def main() -> None:
     check_k7(dev)
     k8_err = check_k8(dev)
     (pg, path_launches, incremental_launches, serving_launches,
-     checkpoint_launches, observability_launches, plain_k4) = main_path(dev)
+     checkpoint_launches, observability_launches, mesh_launches,
+     plain_k4) = main_path(dev)
     for arch, op, key, piece in LM_PATHS:
         lm_path(dev, path_launches, arch, op, key, piece)
     kernels = kernel_times(dev, pg, path_launches, plain_k4)
@@ -3533,6 +3702,7 @@ def main() -> None:
         row["serving_launches"] = serving_launches[row["name"]]
         row["checkpoint_launches"] = checkpoint_launches[row["name"]]
         row["observability_launches"] = observability_launches[row["name"]]
+        row["mesh_launches"] = mesh_launches[row["name"]]
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

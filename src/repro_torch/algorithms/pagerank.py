@@ -65,7 +65,8 @@ def _local_pagerank(gb: dict, num_iters: int = 30,
     """Phase 1: PageRank of each sub-graph in isolation (local edges only,
     per-sub-graph normalization). Pure local fixpoint — zero messages.
     ``gb`` is a staged engine's block: the pull reads its flat adjacency
-    ``gb["adj"]``, the one phase 3 sweeps."""
+    ``gb["adj"]``, the one phase 3 sweeps. Returns the block's (P, v_max)
+    tensor (a mesh rank's rows on ``shard_map``)."""
     nbr, ones = gb["adj"]["nbr"], flat.unit_weights(gb["adj"])
     vmask = gb["vmask"]
     P, v_max = vmask.shape
@@ -92,7 +93,7 @@ def _local_pagerank(gb: dict, num_iters: int = 30,
         pull = ops.semiring_spmv(contrib, nbr, ones, "plus_times")
         r = torch.where(vm, n_b.new_tensor(1.0 - damping) / n_b
                         + damping * pull, 0.0)
-    return r.reshape(P, v_max).cpu().numpy()
+    return r.reshape(P, v_max)
 
 
 def blockrank(pg: PartitionedGraph, damping: float = 0.85, tol: float = 1e-7,
@@ -106,9 +107,11 @@ def blockrank(pg: PartitionedGraph, damping: float = 0.85, tol: float = 1e-7,
                            damping=damping, tol=tol)
     eng = GopherEngine(pg, prog, backend=backend, mesh=mesh,
                        max_supersteps=max(max_iters + 1, 64), device=device)
-    # phase 1: local per-block PageRank
-    local_r = _local_pagerank(eng._gb_for_staged(), num_iters=local_iters,
-                              damping=damping)
+    # phase 1: local per-block PageRank (each mesh rank its own rows, then
+    # every rank all of them)
+    local_r = eng._ranks.gather(_local_pagerank(
+        eng._gb_for_staged(), num_iters=local_iters,
+        damping=damping)).cpu().numpy()
     # phase 2: meta-graph PageRank (host-side; the meta graph is tiny)
     num_meta, meta_adj, meta_of = meta_graph(pg)
     br = np.full(num_meta, 1.0 / max(num_meta, 1))

@@ -205,13 +205,18 @@ def _decode_feeds(host_gb: dict):
     return dec(host_gb["ib_lo"]), dec(host_gb["ib_hub"])
 
 
-def device_block(host_gb: dict, device, binned: bool = False) -> dict:
+def device_block(host_gb: dict, device, binned: bool = False,
+                 rows: slice = slice(None)) -> dict:
     """Upload a host block to ``device`` as torch tensors, decoding the feed
     maps to runtime flat indices (see _SLOT_STRIDE). Host-only metadata
     (_HOST_ONLY) stays behind, and so does the binned adjacency (_BINNED)
     unless ``binned``: only query-batched programs (``serving``) read it,
     so a scalar run's device memory holds none of it. The serving layer
-    uploads one such block a graph, which all its pooled engines share."""
+    uploads one such block a graph, which all its pooled engines share.
+
+    ``rows`` uploads only those partitions: a ``shard_map`` rank's
+    [r·v, (r+1)·v). Every uploaded entry has the leading P axis, and
+    ``part_index`` keeps the global partition ids."""
     device = torch.device(device)
     ib_lo, ib_hub = _decode_feeds(host_gb)
     out = {}
@@ -222,17 +227,20 @@ def device_block(host_gb: dict, device, binned: bool = False) -> dict:
             v = ib_lo
         elif k == "ib_hub":
             v = ib_hub
-        out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+        out[k] = torch.from_numpy(np.ascontiguousarray(v[rows])).to(device)
     return out
 
 
-def graph_block(pg: PartitionedGraph, device, binned: bool = False) -> dict:
-    """The device-side dict of per-partition tensors (leading axis P),
-    built without the binned adjacency unless ``binned`` (what a
-    query-batched program reads)."""
+def graph_block(pg: PartitionedGraph, device, binned: bool = False,
+                rows: slice = slice(None)) -> dict:
+    """The device-side dict of per-partition tensors (leading axis P, or
+    the partitions ``rows`` of a ``shard_map`` rank), built without the
+    binned adjacency unless ``binned`` (what a query-batched program
+    reads)."""
     if binned:
-        return device_block(host_graph_block(pg), device, binned=True)
-    return device_block(_engine_host_block(pg), device)
+        return device_block(host_graph_block(pg), device, binned=True,
+                            rows=rows)
+    return device_block(_engine_host_block(pg), device, rows=rows)
 
 
 def verify_host_block(host_gb: dict) -> list:

@@ -1,17 +1,23 @@
-"""Gopher: the sub-graph centric BSP execution engine, on one device.
+"""Gopher: the sub-graph centric BSP execution engine.
 
-The port of the JAX package's ``core/engine.py`` for the ``local`` backend:
+The port of the JAX package's ``core/engine.py``, with its two backends:
 
   paper                               here
   -----                               ----
-  worker per machine                  one partition of the (P, v_max)
-                                      state; all P run as one batch
+  worker per machine                  'local': one partition of the
+                                      (P, v_max) state, all P run as one
+                                      batch on one device; 'shard_map': a
+                                      process a rank, v = P / D partitions
+                                      each, over ``torch.distributed``
   thread pool over sub-graphs         the local-fixpoint sweep over the
-                                      flat (P·v_max,) state
+                                      flat (v·v_max,) state of a batch
   message flush at the barrier        the mailbox exchange between
-                                      supersteps
+                                      supersteps: a transpose on 'local',
+                                      collectives over the mesh on
+                                      'shard_map'
   manager sync/resume/terminate       one host read of the halt vote per
-                                      superstep
+                                      superstep (an all_reduce first on
+                                      'shard_map')
 
 Five wire disciplines (``exchange=``):
   'megastep'  the whole superstep — mailbox delivery, inbox combine, masked
@@ -93,9 +99,25 @@ context a span and reads nothing more from the device. Every run, traced
 or not, folds its telemetry into a metrics registry (``metrics=``, or the
 process default) from values already on the host.
 
-Everything else of the JAX engine (the multi-device backend, static
-validation) raises ``NotImplementedError`` naming the ROADMAP item that
-brings it.
+The ``shard_map`` backend (SPMD, the paper's deployment: a worker a
+machine) runs the staged routes — 'dense', 'compact', 'tiered', 'phased';
+'auto' is 'dense' at D = 1 and 'tiered' above — with a
+``torch.distributed`` ``DeviceMesh`` of one axis (``launch.mesh``). The
+caller initialises the process group (gloo on the CPU, NCCL on the card,
+where a rank owns one card); every rank builds the same engine from the
+same host graph, uploads its rows [r·v, (r+1)·v) of the block and
+launches the same kernels on them. The mailbox routes by
+``messages.route_shard_map`` (one ``all_to_all_single``) or
+``messages.route_tiered`` over the group; a superstep's counters and halt
+vote are one all_reduce before its one host read; the phased route
+all-reduces its overflow flag and reads it, so every rank routes the same
+way; PageRank's global sums are all_reduces (``core.programs``). At the
+end every rank all-gathers the state and the per-partition telemetry and
+returns what the JAX package's single controller returns: the full (P, ...)
+state and the same Telemetry. Checkpointed runs snapshot the gathered
+arrays from rank 0 (``training.checkpoint``) and restore each rank's rows.
+
+Static validation raises ``NotImplementedError`` naming ROADMAP A9.
 """
 from __future__ import annotations
 
@@ -107,6 +129,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import messages as msg
 from repro_torch.core.blocks import _BINNED, graph_block
@@ -114,6 +137,7 @@ from repro_torch.core.tiers import DEMOTE_STREAK, PhasedTierPlan, TierPlan
 from repro_torch.gofs.formats import PartitionedGraph
 from repro_torch.kernels import flat, ops
 from repro_torch.kernels import megastep as mega
+from repro_torch.launch.mesh import check_group
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import skew as obs_skew
 from repro_torch.obs import trace as obs_trace
@@ -211,37 +235,80 @@ class Telemetry:
         return obs_skew.skew_report(self)
 
 
-class _Tally:
-    """Device-side accumulators of one run's telemetry. ``pairs0`` is None
-    where the route observes no per-pair counts ('dense'); ``over0`` is the
-    prime's overflow flags on the tiered/phased routes. With ``phases=K``
-    (the phased route) the per-pair counts and overflow flags are kept per
-    phase, (P, K, P), beside each round's phase and the dense-retry
-    count."""
+class _Ranks:
+    """Where this process sits on the engine's mesh: ``D`` ranks of ``v =
+    P / D`` partitions each, this one ``me``, holding ``rows`` = [me·v,
+    (me+1)·v). ``group`` is the mesh's process group on 'shard_map' (its
+    collectives run at D = 1 too) and None on 'local', where D = 1 and
+    :meth:`sum` and :meth:`gather` are the identity."""
 
-    def __init__(self, P: int, max_s: int, nsent0, wire0, pairs0, device,
+    def __init__(self, num_parts: int, group=None):
+        self.group = group
+        self.D = 1 if group is None else dist.get_world_size(group)
+        self.me = 0 if group is None else dist.get_rank(group)
+        self.v = num_parts // self.D
+        self.rows = slice(self.me * self.v, (self.me + 1) * self.v)
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over every rank (an all_reduce)."""
+        if self.group is None:
+            return t
+        t = t.clone()
+        dist.all_reduce(t, group=self.group)
+        return t
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` (its rows of a (P, ...) array) concatenated
+        in rank order: the full array, on every rank."""
+        if self.group is None:
+            return t
+        parts = [torch.empty_like(t) for _ in range(self.D)]
+        dist.all_gather(parts, t.contiguous(), group=self.group)
+        return torch.cat(parts)
+
+
+def _stats(*vals) -> torch.Tensor:
+    """One int64 vector of a superstep's counters (scalars, then any
+    vector), what :meth:`_Ranks.sum` reduces in one all_reduce."""
+    return torch.cat([v.to(torch.int64).reshape(-1) for v in vals])
+
+
+class _Tally:
+    """Device-side accumulators of one run's telemetry. The per-partition
+    ones (``liters``, ``pairs``, ``over``, ``psec``) hold this process's
+    ``p`` partitions (all P on 'local', a rank's v on 'shard_map', gathered
+    by :meth:`gather` at the end); the histograms and totals hold the
+    global values. ``pairs0`` is None where the route observes no per-pair
+    counts ('dense'); ``cnt0`` is the prime's global Σ counts (Σ ``pairs0``
+    when None); ``over0`` is the prime's overflow flags on the
+    tiered/phased routes. With ``phases=K`` (the phased route) the per-pair
+    counts and overflow flags are kept per phase, (p, K, P), beside each
+    round's phase and the dense-retry count."""
+
+    def __init__(self, p: int, max_s: int, nsent0, wire0, pairs0, device,
                  over0=None, phases: Optional[int] = None, dstep0=None,
-                 queries: Optional[int] = None):
-        self.liters = torch.zeros(P, dtype=torch.int32, device=device)
+                 queries: Optional[int] = None, cnt0=None):
+        self.liters = torch.zeros(p, dtype=torch.int32, device=device)
         self.qsteps = (torch.zeros(queries, dtype=torch.int32, device=device)
                        if queries is not None else None)
         self.hist = torch.zeros(max_s, dtype=torch.int32, device=device)
         self.whist = torch.zeros(max_s + 1, dtype=torch.int64, device=device)
         self.whist[0] = wire0
-        self.sent = torch.as_tensor(nsent0, device=device).to(torch.int64)
+        self.sent = torch.as_tensor(nsent0, device=device).to(
+            torch.int64).clone()
         self.pairs = self.chist = self.over = None
         self.psec = None             # part_seconds, on a clocked loop
         self.phases = phases
         if pairs0 is not None:
             self.chist = torch.zeros(max_s + 1, dtype=torch.int32,
                                      device=device)
-            self.chist[0] = pairs0.sum()
+            self.chist[0] = pairs0.sum() if cnt0 is None else cnt0
             self.pairs = pairs0.clone()
         if over0 is not None:
             self.over = over0.clone()
         if phases is not None:
-            self.pairs = torch.zeros((P, phases, P), dtype=torch.int32,
-                                     device=device)
+            self.pairs = torch.zeros((p, phases, pairs0.shape[1]),
+                                     dtype=torch.int32, device=device)
             self.pairs[:, 0] = pairs0
             self.over = torch.zeros_like(self.pairs)
             self.over[:, 0] = over0
@@ -253,7 +320,10 @@ class _Tally:
 
     def fold(self, step: int, nchanged, liters, nsent, wire, pairs,
              over=None, phase: Optional[int] = None, dstep=None,
-             changed_q=None) -> None:
+             changed_q=None, cnt=None) -> None:
+        """One superstep: ``nchanged``, ``nsent``, ``wire`` and ``cnt`` (Σ
+        ``pairs`` when None) global, ``liters``, ``pairs`` and ``over``
+        this process's partitions'."""
         self.liters += liters
         if changed_q is not None:
             self.qsteps = torch.where(changed_q, step + 1, self.qsteps)
@@ -261,7 +331,7 @@ class _Tally:
         self.whist[step + 1] = wire
         self.sent += nsent
         if self.pairs is not None:
-            self.chist[step + 1] = pairs.sum()
+            self.chist[step + 1] = pairs.sum() if cnt is None else cnt
         if phase is None:
             if self.pairs is not None:
                 self.pairs += pairs
@@ -273,28 +343,47 @@ class _Tally:
             self.phist[step + 1] = phase
             self.dsteps += dstep
 
-    def charge(self, dt: float, eff: Optional[dict]) -> None:
-        """One clocked superstep of ``dt`` seconds into ``psec``: the
-        injected stalls ``eff`` reports (``faults.fire``'s effects) to their
-        partition, the rest spread evenly."""
-        P = len(self.psec)
+    def charge(self, dt: float, eff: Optional[dict], num_parts: int,
+               lo: int) -> None:
+        """One clocked superstep of ``dt`` seconds into ``psec``, which
+        holds the partitions from ``lo`` on of ``num_parts``: the injected
+        stalls ``eff`` reports (``faults.fire``'s effects, which every rank
+        fires and sleeps) to their partition, the rest spread evenly over
+        all ``num_parts``."""
         stalls = [(p, s) for p, s in (eff or {}).get("stalls", [])
-                  if 0 <= p < P]
-        self.psec += max(dt - sum(s for _, s in stalls), 0.0) / P
+                  if 0 <= p < num_parts]
+        self.psec += max(dt - sum(s for _, s in stalls), 0.0) / num_parts
         for p, s in stalls:
-            self.psec[p] += s
+            if lo <= p < lo + len(self.psec):
+                self.psec[p - lo] += s
+
+    def gather(self, ranks: _Ranks) -> None:
+        """The per-partition accumulators of every rank, in place: the
+        (P, ...) arrays the JAX package's ``out_specs`` reassemble."""
+        if ranks.group is None:
+            return
+        self.liters = ranks.gather(self.liters)
+        if self.pairs is not None:
+            self.pairs = ranks.gather(self.pairs)
+        if self.over is not None:
+            self.over = ranks.gather(self.over)
+        if self.psec is not None:
+            self.psec = ranks.gather(torch.from_numpy(self.psec).to(
+                self.liters.device)).cpu().numpy()
 
     def telemetry(self, steps: int, exchange: str, num_parts: int, cap: int,
                   plan=None, num_queries: Optional[int] = None,
-                  rounds: Optional[int] = None) -> Telemetry:
-        """Close the tally of a run of ``steps`` supersteps on route
-        ``exchange``; ``plan`` is the tier plan the tiered/phased run
-        routed with (its schedules price the wire's bytes, a query batch's
-        ``num_queries`` values a slot). ``rounds`` is the exchanges this
-        process ran, ``steps + 1`` (the supersteps and the inbox prime)
-        unless a resumed run says otherwise: it prices the byte model and
-        ``pair_rounds``; the histograms always cover ``steps + 1`` rounds,
-        zero before a resume's restored step."""
+                  rounds: Optional[int] = None,
+                  num_devices: int = 1) -> Telemetry:
+        """Close the (gathered) tally of a run of ``steps`` supersteps on
+        route ``exchange``; ``plan`` is the tier plan the tiered/phased run
+        routed with (its schedules over ``num_devices`` price the wire's
+        bytes, a query batch's ``num_queries`` values a slot). ``rounds``
+        is the exchanges this process ran, ``steps + 1`` (the supersteps
+        and the inbox prime) unless a resumed run says otherwise: it
+        prices the byte model and ``pair_rounds``; the histograms always
+        cover ``steps + 1`` rounds, zero before a resume's restored
+        step."""
         whist = self.whist[:steps + 1].cpu().numpy()
         rounds = steps + 1 if rounds is None else rounds
         wire = int(whist.sum())
@@ -317,7 +406,7 @@ class _Tally:
             # its rounds (a slight overcount on retried rounds — dense
             # ships no ids)
             rounds_k = np.bincount(phist, minlength=K)
-            scheds = [p.schedule(1) for p in plan.phase_plans()]
+            scheds = [p.schedule(num_devices) for p in plan.phase_plans()]
             t.bytes_on_wire = int(
                 wire * 4 * (num_queries or 1)
                 + sum(scheds[k].round_index_slots() * int(rounds_k[k]) * 4
@@ -341,8 +430,8 @@ class _Tally:
         if exchange == "megastep":
             t.bytes_on_wire = 0
         elif exchange == "tiered":
-            t.bytes_on_wire = plan.schedule(1).round_bytes(num_queries) \
-                * rounds
+            t.bytes_on_wire = plan.schedule(num_devices).round_bytes(
+                num_queries) * rounds
         else:
             t.bytes_on_wire = Telemetry.model_bytes(
                 wire, num_parts, rounds, cap, exchange == "compact",
@@ -356,6 +445,43 @@ class _Tally:
         return t
 
 
+def _mesh_ranks(num_parts: int, backend: str, mesh,
+                device: torch.device) -> _Ranks:
+    """An engine's :class:`_Ranks`, after checking its mesh: one axis, of
+    the engine's device type, over the process group that device runs on
+    (NCCL for ``cuda``, gloo for ``cpu``: no fallback), tiling the
+    partitions."""
+    if backend == "local":
+        if mesh is not None:
+            raise ValueError("a mesh needs backend='shard_map'")
+        return _Ranks(num_parts)
+    if mesh is None:
+        raise ValueError("backend='shard_map' needs a mesh "
+                         "(launch.mesh.make_mesh)")
+    if mesh.ndim != 1:
+        raise ValueError(f"the graph engine runs on a one-axis mesh, got "
+                         f"{mesh.ndim} axes")
+    if mesh.device_type != device.type:
+        raise ValueError(f"a {mesh.device_type} mesh cannot run a "
+                         f"{device.type} engine")
+    group = mesh.get_group()
+    check_group(group, device)
+    if num_parts % mesh.size():
+        raise ValueError(f"{num_parts} partitions do not tile a mesh of "
+                         f"{mesh.size()} devices")
+    return _Ranks(num_parts, group)
+
+
+def _own_rows(gb: dict, ranks: _Ranks, num_parts: int) -> dict:
+    """A passed device block (a full one, as ``device_block`` uploads
+    it) cut to this rank's rows."""
+    n = gb["vmask"].shape[0]
+    if n != num_parts:
+        raise ValueError(f"a block of {n} partitions for a graph of "
+                         f"{num_parts}")
+    return {k: t[ranks.rows] for k, t in gb.items()}
+
+
 class GopherEngine:
     """Runs a program over a PartitionedGraph to global quiescence."""
 
@@ -365,12 +491,14 @@ class GopherEngine:
                  tier_plan=None, tracer=None, metrics=None,
                  validate: bool = False, device="cuda"):
         self.device = resolve_device(device)
-        if backend != "local" or mesh is not None:
-            raise NotImplementedError(
-                "only the 'local' backend is ported (ROADMAP A8: the "
-                "multi-device backend)")
+        if backend not in ("local", "shard_map"):
+            raise ValueError(f"unknown backend {backend!r}")
         if exchange not in _EXCHANGES:
             raise ValueError(f"unknown exchange {exchange!r}")
+        self.mesh = mesh
+        self._ranks = _mesh_ranks(pg.num_parts, backend, mesh, self.device)
+        if gb is not None and backend == "shard_map":
+            gb = _own_rows(gb, self._ranks, pg.num_parts)
         # the exchange as asked for, before 'auto' and the plan
         # normalisation below: failover and migration rebuild engines
         # from it
@@ -383,9 +511,19 @@ class GopherEngine:
         kind = getattr(program, "megastep_kind", None)
         if exchange == "auto":
             # 'local' + an eligible program -> the fused route; any other
-            # program -> the staged dense route (the single-device
-            # transpose is the whole wire, so no compaction pays)
-            exchange = "megastep" if kind is not None else "dense"
+            # program, or a one-device mesh -> the staged dense route (the
+            # single-device transpose is the whole wire, so no compaction
+            # pays); a mesh of several devices -> 'tiered', whose routed
+            # buffers track the frontier
+            if backend == "local":
+                exchange = "megastep" if kind is not None else "dense"
+            else:
+                exchange = "dense" if self._ranks.D == 1 else "tiered"
+        if exchange == "megastep" and backend != "local":
+            raise ValueError(
+                "the megastep exchange is a local-backend route (its flat "
+                "state spans every partition); a mesh routes dense, "
+                "compact, tiered or phased")
         if exchange == "megastep" and kind is None:
             raise ValueError(
                 "program is not megastep-eligible (megastep_kind is None)")
@@ -454,7 +592,8 @@ class GopherEngine:
         too."""
         if self._gb is None:
             self._gb = graph_block(self.pg, self.device,
-                                   binned=self.num_queries is not None)
+                                   binned=self.num_queries is not None,
+                                   rows=self._ranks.rows)
         if self.num_queries is not None and not set(_BINNED) <= set(
                 self._gb):
             raise ValueError(
@@ -564,14 +703,14 @@ class GopherEngine:
                      "qx0": np.float32, "qfrontier0": bool}
 
     def _layer(self, gb: dict, extra: Optional[dict]) -> dict:
-        """``gb`` with the run's ``extra`` entries over it, as tensors on
-        the engine's device (copies: no run writes into the caller's
-        arrays)."""
+        """``gb`` with the run's ``extra`` entries over it (this rank's rows
+        of each (P, ...) array on 'shard_map'), as tensors on the engine's
+        device (copies: no run writes into the caller's arrays)."""
         if not extra:
             return gb
         out = dict(gb)
         for k, v in extra.items():
-            v = np.asarray(v)
+            v = np.asarray(v)[self._ranks.rows]
             dtype = self._EXTRA_DTYPES.get(k, v.dtype)
             out[k] = torch.tensor(v.astype(dtype, copy=False),
                                   device=self.device)
@@ -589,9 +728,15 @@ class GopherEngine:
         escalates the phases that spilled. The rerun layers the aborted
         attempt's ``extra`` (a resume's ``x0`` and ``frontier0``) over the
         block as the attempt did, and runs untraced inside a
-        ``dense-retry`` span."""
+        ``dense-retry`` span.
+
+        On 'shard_map' every rank gathers the state and the per-partition
+        telemetry first, so each decides the same and returns the same."""
         P, cap, Q = self.pg.num_parts, self.pg.mailbox_cap, self.num_queries
-        t = tally.telemetry(steps, self.exchange, P, cap, self.tier_plan, Q)
+        D = self._ranks.D
+        tally.gather(self._ranks)
+        t = tally.telemetry(steps, self.exchange, P, cap, self.tier_plan, Q,
+                            num_devices=D)
         old = self.tier_plan
         if t.spills and self.exchange == "phased":
             over_k = np.transpose(tally.over.cpu().numpy(), (1, 0, 2))
@@ -605,6 +750,7 @@ class GopherEngine:
             with self.tracer.span("dense-retry", spills=t.spills):
                 state, steps2, tally2 = self._run_batched(extra,
                                                           mode="dense")
+            tally2.gather(self._ranks)
             t2 = tally2.telemetry(steps2, "dense", P, cap, num_queries=Q)
             t2.exchange = "tiered"
             t2.retried = True
@@ -617,9 +763,15 @@ class GopherEngine:
             t2.pair_rounds = steps + 1
             # the aborted attempt's geometry crossed the wire too
             t2.wire_slots += t.wire_slots
-            t2.bytes_on_wire += old.schedule(1).round_bytes(Q) * (steps + 1)
+            t2.bytes_on_wire += old.schedule(D).round_bytes(Q) * (steps + 1)
             t = t2
-        return {k: v.cpu().numpy() for k, v in state.items()}, t
+        return self._host_state(state), t
+
+    def _host_state(self, state: dict) -> dict:
+        """The run's state as (P, ...) numpy arrays (every rank's rows on
+        'shard_map')."""
+        return {k: self._ranks.gather(v).cpu().numpy()
+                for k, v in state.items()}
 
     def _record_run_metrics(self, t: Telemetry) -> None:
         """Gopher Scope: fold a finished run's telemetry into the metrics
@@ -660,9 +812,11 @@ class GopherEngine:
             t0 = time.perf_counter()
             eff = _faults.fire("engine.superstep", step=step,
                                backend=self.backend,
-                               part_verts=self._part_verts, num_devices=1)
+                               part_verts=self._part_verts,
+                               num_devices=self._ranks.D)
             yield ss
-            tally.charge(time.perf_counter() - t0, eff)
+            tally.charge(time.perf_counter() - t0, eff, self.pg.num_parts,
+                         self._ranks.rows.start)
 
     # ---------------- the staged route ----------------
 
@@ -719,16 +873,31 @@ class GopherEngine:
         payload that would cross the wire; ``route(payload) -> (inbox,
         route_extras)`` routes it to the receivers and combines their
         inboxes. ``route_extras`` is {} except on 'phased': {'wire': the
-        round's routed slots, 'dstep': the 0/1 dense-retry flag}."""
+        round's routed slots, 'dstep': the 0/1 dense-retry flag}.
+
+        ``nsent`` and ``wire`` are this process's counts (tensors): on
+        'shard_map' a rank's, summed over the mesh by the loop's one
+        all_reduce — 'dense' v·P·cap a rank, 'tiered' the schedule's
+        ``device_round_slots()`` — as the JAX package counts them. The
+        rows are a rank's v partitions; the routes move them over the
+        mesh's group."""
         prog = self.program
         P, cap, v_max = self.pg.num_parts, self.pg.mailbox_cap, self.pg.v_max
         Q = self.num_queries
+        ranks = self._ranks
+        v = ranks.v
         combine = prog.combine
         mode = mode or self.exchange
         if mode not in ("dense", "compact", "tiered", "phased"):
             raise ValueError(f"the {mode!r} route has no staged exchange")
+        dev = gb["ob_inv"].device
         gather = (msg.build_outbox_gather if Q is None
                   else msg.build_outbox_gather_batched)
+
+        def phys(x):
+            if ranks.group is None:
+                return msg.route_local(x)
+            return msg.route_shard_map(x, ranks.group)
 
         def finish(iv):
             if Q is None:
@@ -740,14 +909,16 @@ class GopherEngine:
                 combine)
 
         if mode == "dense":
+            wire = torch.tensor(v * P * cap, device=dev)
+
             def pack(state):
                 vals, send = prog.messages(state, gb)
                 slot_vals = gather(vals, send, gb["ob_inv"], P, cap, combine)
-                return (slot_vals,), send.sum(), P * P * cap, {}
+                return (slot_vals,), send.sum(), wire, {}
 
             def route(payload):
                 (slot_vals,) = payload
-                return finish(msg.route_local(slot_vals)), {}
+                return finish(phys(slot_vals)), {}
             return pack, route
 
         if mode == "compact":
@@ -767,8 +938,7 @@ class GopherEngine:
 
             def route(payload):
                 pvals, pinv = payload
-                return finish(unpack(msg.route_local(pvals),
-                                     msg.route_local(pinv), combine)), {}
+                return finish(unpack(phys(pvals), phys(pinv), combine)), {}
             return pack, route
 
         # tiered / phased
@@ -780,46 +950,56 @@ class GopherEngine:
         if plan.num_parts != P or plan.cap != cap:
             raise ValueError("the tier plan was built for another graph "
                              "geometry")
-        dev = gb["ob_inv"].device
-        sched = plan.schedule(1)
-        tables = msg.tiered_tables(sched, dev)
-        limits = torch.from_numpy(plan.limits().reshape(-1)).to(dev)
+        sched = plan.schedule(ranks.D)
+        tables = msg.tiered_tables(sched, dev, ranks.me)
+        limits = torch.from_numpy(
+            plan.limits()[ranks.rows].reshape(-1)).to(dev)
         ident = flat.COMBINE_IDENTITY[combine]
         slots = sched.device_round_slots()
-        R = P * P
+        wire = torch.tensor(slots, device=dev)
+        R = v * P
         # a slot's values: one, or a query batch's Q-vector
         tail = () if Q is None else (Q,)
 
         def pack(state):
             vals, send = prog.messages(state, gb)
             slot_vals = gather(vals, send, gb["ob_inv"], P, cap,
-                               combine).reshape(P, P, cap, *tail)
+                               combine).reshape(v, P, cap, *tail)
             act = msg.active_slots(send, gb["ob_inv"], P, cap)
             # the pack truncates each row to its tier width and flags the
             # rows whose active slots did not fit
             pvals, sids, _, counts, over = ops.outbox_pack(
                 slot_vals.reshape(R, cap, *tail), act.reshape(R, cap), limits,
                 ident)
-            return ((slot_vals, pvals, sids, over), send.sum(), slots,
-                    {"pairs": counts.reshape(P, P),
-                     "over": over.reshape(P, P)})
+            return ((slot_vals, pvals, sids, over), send.sum(), wire,
+                    {"pairs": counts.reshape(v, P),
+                     "over": over.reshape(v, P)})
+
+        def tier_route(slot_vals, pvals, sids):
+            return msg.route_tiered(slot_vals, pvals.reshape(v, P, cap, *tail),
+                                    sids.reshape(v, P, cap), sched, combine,
+                                    group=ranks.group, tables=tables)
 
         def route(payload):
             slot_vals, pvals, sids, over = payload
-            iv = msg.route_tiered(slot_vals, pvals.reshape(P, P, cap, *tail),
-                                  sids.reshape(P, P, cap), sched, combine,
-                                  tables=tables)
-            if mode == "phased":
+            if mode == "tiered":
+                iv = tier_route(slot_vals, pvals, sids)
+                return finish(iv.reshape(v, P, -1)), {}
+            retry = (over > 0).any()
+            if ranks.group is None:
                 # on one device the dense route is a transpose, so both are
                 # computed and the overflow flag selects on the device
-                retry = (over > 0).any()
-                iv = torch.where(retry, msg.route_local(slot_vals), iv)
-                dstep = retry.int()
-            iv = iv.reshape(P, P, -1)
-            if mode == "tiered":
-                return finish(iv), {}
-            return finish(iv), {"wire": slots + dstep * (R * cap - slots),
-                                "dstep": dstep}
+                iv = torch.where(retry, msg.route_local(slot_vals),
+                                 tier_route(slot_vals, pvals, sids))
+            else:
+                # over a mesh every rank must run the same collectives: the
+                # flag is summed over the ranks and read, and ONE route runs
+                retry = ranks.sum(retry.to(torch.int64)) > 0
+                iv = (phys(slot_vals) if bool(retry)
+                      else tier_route(slot_vals, pvals, sids))
+            dstep = retry.int()
+            return finish(iv.reshape(v, P, -1)), {
+                "wire": wire + dstep * (R * cap - slots), "dstep": dstep}
 
         return pack, route
 
@@ -845,14 +1025,17 @@ class GopherEngine:
           * the global halt vote lands (every later segment then runs no
             superstep).
 
-        The demotion streak's violation count is stacked with the halt
-        vote, so a superstep still reads the host once. An enabled ``tr``
-        records the spans, counters, fault sites and ``part_seconds`` of
-        the module docstring, reading the superstep's counts for its span."""
+        The superstep's counters [#partitions changed, nsent, wire, Σ
+        counts, the demotion streak's violations (, the lanes changed)] are
+        stacked into one vector — on 'shard_map' summed over the ranks by
+        one all_reduce — so a superstep still reads the host once. An
+        enabled ``tr`` records the spans, counters, fault sites and
+        ``part_seconds`` of the module docstring, reading the superstep's
+        counts for its span."""
         mode = mode or self.exchange
         phased = mode == "phased"
         prog = self.program
-        P = self.pg.num_parts
+        ranks = self._ranks
         max_s = self.max_supersteps
         K = self.tier_plan.num_phases if phased else 1
         stages = []
@@ -874,23 +1057,28 @@ class GopherEngine:
             payload, nsent0, wire0, ex0 = pack(state)
             inbox, rex0 = route(payload)
             tr.sync(inbox)
-            wire0 = rex0.get("wire", wire0)
-            tally = _Tally(P, max_s, nsent0, wire0, ex0.get("pairs"),
+            pairs0 = ex0.get("pairs")
+            nsent0, wire0, cnt0 = ranks.sum(_stats(
+                nsent0, rex0.get("wire", wire0),
+                nsent0.new_zeros(()) if pairs0 is None else pairs0.sum()))
+            tally = _Tally(ranks.v, max_s, nsent0, wire0, pairs0,
                            self.device, over0=ex0.get("over"),
                            phases=K if phased else None,
-                           dstep0=rex0.get("dstep"), queries=self.num_queries)
+                           dstep0=rex0.get("dstep"), queries=self.num_queries,
+                           cnt0=cnt0)
             if tr.enabled:
                 sp.set(wire=int(wire0), nsent=int(nsent0))
         tr.count("dispatches", 3)
         if tr.enabled:
-            tally.psec = np.zeros(P, np.float64)
+            tally.psec = np.zeros(ranks.v, np.float64)
 
         step, done = 0, False
         for k in range(K):
             pack, route = stages[k]
             last = k == K - 1
             nlim = (None if last else torch.from_numpy(
-                self.tier_plan.phase_plans()[k + 1].limits()).to(self.device))
+                self.tier_plan.phase_plans()[k + 1].limits()[ranks.rows]
+            ).to(self.device))
             bound = -1 if last else int(self.tier_plan.boundaries[k])
             streak = 0
             with tr.span("phase", index=k, boundary=bound):
@@ -900,7 +1088,7 @@ class GopherEngine:
                     with self._superstep(tr, tally, step) as ss:
                         with tr.span("sweep"):
                             state, changed, liters = prog.superstep(
-                                state, inbox, gb, step)
+                                state, inbox, gb, step, reduce=ranks.sum)
                             tr.sync(changed)
                         with tr.span("pack"):
                             payload, nsent, wire, ex = pack(state)
@@ -912,25 +1100,27 @@ class GopherEngine:
                             inbox, rex = route(payload)
                             tr.sync(inbox)
                         with tr.span("halt-vote"):
-                            wire = rex.get("wire", wire)
                             nchanged, changed_q = _halt_vote(changed)
-                            tally.fold(step, nchanged, liters, nsent, wire,
-                                       ex.get("pairs"), over=ex.get("over"),
+                            pairs = ex.get("pairs")
+                            zero = nsent.new_zeros(())
+                            stats = ranks.sum(_stats(
+                                nchanged, nsent, rex.get("wire", wire),
+                                zero if pairs is None else pairs.sum(),
+                                zero if nlim is None else (pairs > nlim).sum(),
+                                *(() if changed_q is None else (changed_q,))))
+                            tally.fold(step, stats[0], liters, stats[1],
+                                       stats[2], pairs, over=ex.get("over"),
                                        phase=k if phased else None,
                                        dstep=rex.get("dstep"),
-                                       changed_q=changed_q)
+                                       changed_q=(None if changed_q is None
+                                                  else stats[5:] > 0),
+                                       cnt=stats[3])
                             # the superstep's one host read: the halt vote,
                             # with the demotion streak's violations
-                            if nlim is None:
-                                nch, nviol = int(nchanged), 0
-                            else:
-                                viol = (ex["pairs"] > nlim).sum()
-                                nch, nviol = torch.stack(
-                                    [nchanged.to(torch.int64),
-                                     viol.to(torch.int64)]).tolist()
+                            nch, nviol = stats[[0, 4]].tolist()
                             if tr.enabled:
-                                ss.set(changed=nch, wire=int(wire),
-                                       nsent=int(nsent))
+                                ss.set(changed=nch, wire=int(stats[2]),
+                                       nsent=int(stats[1]))
                         tr.count("dispatches", 3)
                     step += 1
                     done = nch == 0
@@ -969,7 +1159,13 @@ class GopherEngine:
         before each sweep. ``Telemetry.part_seconds`` times each superstep
         from before its fault site to after the halt vote's one host read,
         charges injected stalls to their partition and spreads the rest
-        evenly."""
+        evenly.
+
+        On 'shard_map' a superstep's counters are one all_reduce before its
+        host read, as in :meth:`_run_batched`; a snapshot holds the full
+        (P, ...) arrays, gathered on every rank and written by rank 0
+        (``Checkpointer.save(group=)``), and a resume restores each rank's
+        own rows."""
         if self.exchange in ("megastep", "tiered", "phased"):
             prev = self.exchange
             self.exchange = "compact"
@@ -982,6 +1178,7 @@ class GopherEngine:
         gb = self._layer(self._gb_for_staged(), extra)
         prog = self.program
         P = self.pg.num_parts
+        ranks = self._ranks
         max_s = self.max_supersteps
         pack, route = self.make_exchange_stages(gb)
         compact = self.exchange == "compact"
@@ -990,53 +1187,67 @@ class GopherEngine:
         if good is not None:
             # the restore reads only the structure: its leaves' paths
             snap_like = {"state": prog.init(gb), "inbox": torch.empty(0)}
-            snap, step = ck.restore(snap_like, step=good, device=self.device)
+            snap, step = ck.restore(snap_like, step=good, device=self.device,
+                                    rows=ranks.rows)
             state, inbox = snap["state"], snap["inbox"]
             step = int(step)
-            pairs0 = (torch.zeros((P, P), dtype=torch.int32,
+            pairs0 = (torch.zeros((ranks.v, P), dtype=torch.int32,
                                   device=self.device) if compact else None)
-            tally = _Tally(P, max_s, 0, 0, pairs0, self.device)
+            tally = _Tally(ranks.v, max_s, 0, 0, pairs0, self.device)
             primed = False
         else:
             state = prog.init(gb)
             payload, nsent0, wire0, ex0 = pack(state)
             _faults.fire("exchange.route", step=0, backend=self.backend)
             inbox, rex0 = route(payload)
-            tally = _Tally(P, max_s, nsent0, rex0.get("wire", wire0),
-                           ex0.get("pairs"), self.device)
+            pairs0 = ex0.get("pairs")
+            nsent0, wire0, cnt0 = ranks.sum(_stats(
+                nsent0, rex0.get("wire", wire0),
+                nsent0.new_zeros(()) if pairs0 is None else pairs0.sum()))
+            tally = _Tally(ranks.v, max_s, nsent0, wire0, pairs0, self.device,
+                           cnt0=cnt0)
             step = 0
             primed = True
 
-        tally.psec = np.zeros(P, np.float64)   # Gopher Balance's time channel
+        # Gopher Balance's time channel
+        tally.psec = np.zeros(ranks.v, np.float64)
         start = step
         budget = superstep_budget
         done = False
         while not done and step < max_s and (budget is None
                                              or step - start < budget):
             with self._superstep(obs_trace.NOOP, tally, step, clocked=True):
-                state, changed, liters = prog.superstep(state, inbox, gb,
-                                                        step)
+                state, changed, liters = prog.superstep(
+                    state, inbox, gb, step, reduce=ranks.sum)
                 payload, nsent, wire, ex = pack(state)
                 _faults.fire("exchange.route", step=step + 1,
                              backend=self.backend)
                 inbox, rex = route(payload)
                 nchanged, _ = _halt_vote(changed)
-                tally.fold(step, nchanged, liters, nsent,
-                           rex.get("wire", wire), ex.get("pairs"))
-                nch = int(nchanged)          # the superstep's one host read
+                pairs = ex.get("pairs")
+                stats = ranks.sum(_stats(
+                    nchanged, nsent, rex.get("wire", wire),
+                    nsent.new_zeros(()) if pairs is None else pairs.sum()))
+                tally.fold(step, stats[0], liters, stats[1], stats[2], pairs,
+                           cnt=stats[3])
+                nch = int(stats[0])          # the superstep's one host read
             step += 1
             done = nch == 0
             cut = budget is not None and step - start >= budget
             if done or cut or (step - start) % every == 0 or step >= max_s:
-                ck.save({"state": state, "inbox": inbox}, step)
+                ck.save({"state": {k: ranks.gather(v)
+                                   for k, v in state.items()},
+                         "inbox": ranks.gather(inbox)}, step,
+                        group=ranks.group)
         # after a resume the wire counters cover only THIS process's
         # exchanges, so the byte model counts the same rounds (no prime
         # ran, and the supersteps before the resume shipped elsewhere)
         rounds = step - start + (1 if primed else 0)
+        tally.gather(ranks)
         t = tally.telemetry(step, self.exchange, P, self.pg.mailbox_cap,
                             rounds=rounds)
         self._record_run_metrics(t)
-        return {k: v.cpu().numpy() for k, v in state.items()}, t
+        return self._host_state(state), t
 
     # ---------------- the fused route ----------------
 

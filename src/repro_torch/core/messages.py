@@ -1,15 +1,16 @@
 """Mailbox message routing — the superstep-boundary exchange.
 
-The port of the JAX package's ``core/messages.py`` for the ``local``
-backend. A mailbox is a fixed-capacity (P_src, P_dst, cap) tensor; on one
-device the route between partitions is a transpose, and each partition's
+The port of the JAX package's ``core/messages.py``. A mailbox is a
+fixed-capacity (P_src, P_dst, cap) tensor; on one device (the ``local``
+backend) the route between partitions is a transpose, and each partition's
 inbox is a ⊕-combine of the slots it receives. Capacity is the most
 messages between any partition pair, fixed by GoFS at build time, and
 empty slots carry the combine identity.
 
-Every function works on the whole (P, ...) batch of partitions at once:
-the JAX package ``vmap``s its per-partition forms, the port writes the
-leading partition axis out.
+Every function works on a whole batch of partitions at once: all P on
+``local``, a rank's v = P / D rows on ``shard_map`` (the JAX package
+``vmap``s its per-partition forms, the port writes the leading partition
+axis out).
 
 - :func:`build_outbox_gather` / :func:`combine_inbox_gather` are the hot
   path: both ends are gathers through the inverse maps of the graph block.
@@ -19,9 +20,13 @@ leading partition axis out.
   exchange: each pair row is packed to the prefix of its active slots
   (``kernels.ops.outbox_pack``, kernel K5 on the card) and rebuilt at the
   receiver by a gather, bit-identical to the dense exchange.
+- :func:`route_local` (a transpose) and :func:`route_shard_map` (one
+  ``all_to_all_single`` over the mesh's process group) deliver the dense
+  and compact exchanges' rows.
 - :func:`route_tiered` is the tiered exchange's route along a
   ``core.tiers.TierSchedule``: hot pairs ship the dense row, warm and cold
-  pairs their packed tier-width prefix, excluded pairs nothing.
+  pairs their packed tier-width prefix, excluded pairs nothing; over D > 1
+  ranks by ``all_to_all_single`` and ``batch_isend_irecv`` shifts.
 - the ``*_batched`` forms carry a query batch: values QUERY-TRAILING,
   (P, r_max, Q) at the sender and (P, P, cap·Q) on the wire, so every slot
   moves one contiguous Q-vector; the pack's plan and the active slots are
@@ -251,41 +256,75 @@ def route_local(outbox_vals):
     return outbox_vals.transpose(0, 1)
 
 
+def route_shard_map(outbox_vals, group):
+    """The ``shard_map`` backend's route: each rank holds ``v = P / D``
+    source partitions, (v, D·v, cap[, ...]) outbox rows. Rearranged to
+    (D, v_src, v_dst, ...) so that ONE ``all_to_all_single`` over the
+    mesh's ``group`` delivers every rank pair's block, then reassembled as
+    the receiver's (v_dst, P_src, cap[, ...]) slots. A query batch's
+    trailing Q rides along; int32 slot maps route the same way. Runs its
+    collective at D = 1 too, as the JAX package's does."""
+    import torch.distributed as dist
+    v, P = outbox_vals.shape[:2]
+    tail = outbox_vals.shape[2:]
+    D = P // v
+    x = outbox_vals.reshape(v, D, v, -1).transpose(0, 1).contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    # out[d_src, v_src, v_dst] on this (destination) rank
+    return out.permute(2, 0, 1, 3).reshape(v, P, *tail)
+
+
 # ---------------- the tiered exchange ----------------
 
-def tiered_tables(sched, device) -> dict:
-    """The index tensors :func:`route_tiered` moves rows by, from a
-    one-device ``core.tiers.TierSchedule`` (its numpy tables, PAD entries
-    dropped): ``hot_src``/``hot_dst`` the sender's outbox row and the
-    receiver's inbox row of every hot pair (the uniform block and the
-    residual shifts), and per warm/cold shift the same pair of row lists.
-    Built once per run, so no superstep copies a table to the device."""
-    if sched.D != 1:
-        raise NotImplementedError(
-            "tier schedules over several devices are not ported yet: "
-            "ROADMAP A8 (the multi-device backend)")
+def tiered_tables(sched, device, me: int = 0) -> dict:
+    """The index tensors :func:`route_tiered` moves rows by on rank ``me``
+    of a ``core.tiers.TierSchedule`` over ``sched.D`` devices: for the hot
+    tier's uniform block and for every shift ``k`` (the residual hot rows,
+    then the warm and the cold tiers), the rows this rank SENDS (its local
+    outbox rows, PAD entries read row 0) and the rows it RECEIVES into (its
+    local inbox pairs, PAD entries pointing at the sink row ``v·P`` past
+    the end). A shift's buffer row r on the sender is row r on the
+    receiver, so the padding travels and lands in the sink, as the JAX
+    package's ``mode="drop"`` writes do. At D = 1 no table has PAD
+    entries. Built once per run, so no superstep copies a table to the
+    device."""
+    sink = sched.v * sched.P
 
-    def pairs(send, recv):
-        send, recv = np.asarray(send).reshape(-1), np.asarray(recv).reshape(-1)
-        keep = (send != PAD) & (recv != PAD)
-        return (torch.from_numpy(send[keep].astype(np.int64)).to(device),
-                torch.from_numpy(recv[keep].astype(np.int64)).to(device))
+    def rows(send, recv):
+        send = np.asarray(send).reshape(-1).astype(np.int64)
+        recv = np.asarray(recv).reshape(-1).astype(np.int64)
+        return (torch.from_numpy(np.where(send == PAD, 0, send)).to(device),
+                torch.from_numpy(np.where(recv == PAD, sink, recv)).to(device))
 
-    hot = [pairs(sched.hot_send[0], sched.hot_recv[0])] if sched.hot_h else []
-    hot += [pairs(st[0], rt[0]) for _, _, st, rt in sched.hot_res_shifts]
-    hot_src = torch.cat([a for a, _ in hot]) if hot else None
-    hot_dst = torch.cat([b for _, b in hot]) if hot else None
-    return {"hot_src": hot_src, "hot_dst": hot_dst,
-            "packed": [(sched.warm_cap, pairs(st[0], rt[0]))
-                       for _, _, st, rt in sched.warm_shifts]
-                      + [(1, pairs(st[0], rt[0]))
-                         for _, _, st, rt in sched.cold_shifts]}
+    hot = (rows(sched.hot_send[me], sched.hot_recv[me])
+           if sched.hot_h else None)
+    return {"hot": hot,
+            "hot_res": [(k, rows(st[me], rt[me]))
+                        for k, _, st, rt in sched.hot_res_shifts],
+            "packed": [(sched.warm_cap, k, rows(st[me], rt[me]))
+                       for k, _, st, rt in sched.warm_shifts]
+                      + [(1, k, rows(st[me], rt[me]))
+                         for k, _, st, rt in sched.cold_shifts]}
 
 
-def route_tiered(dense_vals, pvals, sids, sched, combine: str,
-                 axis_name=None, tables=None):
-    """Route one superstep's outboxes along the tier schedule, on one
-    device (D = 1: every "shift" is local and no collective runs).
+def _shift(bufs, k: int, D: int, me: int, group):
+    """One ``batch_isend_irecv`` over the mesh: send ``bufs`` to rank
+    (me + k) % D and receive the same shapes from (me − k) % D."""
+    import torch.distributed as dist
+    recv = [torch.empty_like(b) for b in bufs]
+    to = dist.get_global_rank(group, (me + k) % D)
+    frm = dist.get_global_rank(group, (me - k) % D)
+    ops_ = ([dist.P2POp(dist.isend, b.contiguous(), to, group) for b in bufs]
+            + [dist.P2POp(dist.irecv, r, frm, group) for r in recv])
+    for w in dist.batch_isend_irecv(ops_):
+        w.wait()
+    return recv
+
+
+def route_tiered(dense_vals, pvals, sids, sched, combine: str, group=None,
+                 tables=None):
+    """Route one superstep's outboxes along the tier schedule.
 
     dense_vals (v, P, cap[, Q])  gather-form dense slot values (hot rows
                                  ship these as they are — no slot ids
@@ -293,47 +332,65 @@ def route_tiered(dense_vals, pvals, sids, sched, combine: str,
     pvals      (v, P, cap[, Q])  packed prefixes (warm/cold rows ship their
                                  first tier-width columns)
     sids       (v, P, cap)       packed position -> slot id maps
-    sched                        a one-device ``core.tiers.TierSchedule``
-    tables                       its :func:`tiered_tables` (built here if
-                                 None)
+    sched                        a ``core.tiers.TierSchedule`` over D
+                                 devices
+    group                        the mesh's process group (D > 1); this
+                                 process is its rank ``me``
+    tables                       :func:`tiered_tables` for this rank
+                                 (built here if None)
 
-    A query batch carries the trailing Q axis, and every slot moves its
-    Q-vector. Returns the received dense slot array, shaped as
-    ``dense_vals``: every occupied slot of a routed pair holds its exact
-    value, everything else the ⊕-identity, so when no pair overflowed its
-    tier width it is bit-identical to :func:`route_local`'s delivery. A
-    write the JAX package drops (``mode="drop"``) goes to one extra sink
-    slot past the end, which is cut off; each real slot is written at most
-    once."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "route_tiered over a mesh axis is not ported yet: ROADMAP A8 "
-            "(the multi-device backend)")
+    The hot tier's uniform block is ONE ``all_to_all_single`` of (D, h,
+    cap[, Q]) row blocks; the residual hot rows and every warm and cold
+    shift k are one ``batch_isend_irecv`` each (to (me + k) % D, from
+    (me − k) % D; skipped, local, when k % D == 0); warm and cold values
+    travel with their int32 slot ids. At D = 1 no collective runs. A query
+    batch carries the trailing Q axis, and every slot moves its Q-vector.
+
+    Returns the received dense slot array, shaped as ``dense_vals``: every
+    occupied slot of a routed pair holds its exact value, everything else
+    the ⊕-identity, so when no pair overflowed its tier width it is
+    bit-identical to :func:`route_local`'s (or :func:`route_shard_map`'s)
+    delivery. A write the JAX package drops (``mode="drop"``) goes to one
+    extra sink row past the end, which is cut off; each real slot is
+    written at most once."""
+    import torch.distributed as dist
+    D = sched.D
+    if D > 1 and group is None:
+        raise ValueError("a tier schedule over several devices routes over "
+                         "a mesh: pass its process group")
+    me = dist.get_rank(group) if D > 1 else 0
     if tables is None:
-        tables = tiered_tables(sched, dense_vals.device)
+        tables = tiered_tables(sched, dense_vals.device, me)
     ident = COMBINE_IDENTITY[combine]
     v, P, cap = dense_vals.shape[:3]
     tail = dense_vals.shape[3:]
     rows = v * P
+    dflat = dense_vals.reshape(rows, cap, *tail)
     out = torch.full((rows + 1, cap, *tail), ident, dtype=dense_vals.dtype,
                      device=dense_vals.device)
-    if tables["hot_src"] is not None:
-        out[tables["hot_dst"]] = dense_vals.reshape(rows, cap, *tail)[
-            tables["hot_src"]]
+    if tables["hot"] is not None:
+        src, dst = tables["hot"]
+        buf = dflat[src]                                # (D·h, cap, ...)
+        if D > 1:
+            got = torch.empty_like(buf)
+            dist.all_to_all_single(got, buf, group=group)
+            buf = got
+        out[dst] = buf
+    for k, (src, dst) in tables["hot_res"]:
+        buf = dflat[src]
+        if k % D:
+            (buf,) = _shift([buf], k, D, me, group)
+        out[dst] = buf
     flat = out.reshape(-1, *tail)
     pflat = pvals.reshape(rows, cap, *tail)
     iflat = sids.reshape(rows, cap)
-    for width, (src, dst) in tables["packed"]:
+    for width, k, (src, dst) in tables["packed"]:
         bv = pflat[src][:, :width]
         bi = iflat[src][:, :width]
+        if k % D:
+            bv, bi = _shift([bv, bi], k, D, me, group)
+        # a PAD receive row is the sink row, so its slots land past the end
         pos = torch.where(bi != PAD, dst[:, None] * cap + bi.long(),
-                          rows * cap)                  # the sink slot
+                          rows * cap)
         flat[pos.reshape(-1)] = bv.reshape(-1, *tail)
     return out[:rows].reshape(v, P, cap, *tail)
-
-
-# ---------------- not ported yet ----------------
-
-def route_shard_map(*args, **kwargs):
-    raise NotImplementedError("route_shard_map is not ported yet: ROADMAP A8 "
-                              "(the multi-device backend)")

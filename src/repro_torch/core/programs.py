@@ -15,9 +15,15 @@ engine calls the methods below on the whole (P, ...) batch at once (the
 JAX package ``vmap``s them per partition):
 
     init(gb)                          -> state dict of (P, v_max) tensors
-    superstep(state, inbox, gb, step) -> (state, changed (P,), liters (P,))
+    superstep(state, inbox, gb, step, reduce)
+                                      -> (state, changed (P,), liters (P,))
     messages(state, gb)               -> (vals (P, r_max), send (P, r_max))
     combine                           -> inbox ⊕: 'min' | 'max' | 'sum'
+
+On the ``shard_map`` backend each rank calls them on its own rows, and
+``reduce`` (a tensor -> its sum over every rank, an all_reduce over the
+mesh; the identity on ``local``) makes a program's global sums global:
+PageRank's dangling mass and ``tol`` delta.
 
 The staged sweeps run over the flat (P·v_max,) state and the block's flat
 adjacency ``gb["adj"]`` (``kernels.flat.flat_adjacency``): one kernel
@@ -37,6 +43,10 @@ from repro_torch.gofs.formats import PAD
 from repro_torch.kernels import flat, ops
 
 INF = float("inf")
+
+
+def _identity(t):
+    return t
 
 
 def _at_remote_src(t: torch.Tensor, gb: dict):
@@ -92,7 +102,7 @@ class SemiringProgram:
                               self.semiring)
         return flat.combine_ew(self.combine, x, y.reshape(x.shape))
 
-    def superstep(self, state, inbox, gb, step):
+    def superstep(self, state, inbox, gb, step, reduce=None):
         x0 = state["x"]
         vmask = gb["vmask"]
         x = flat.combine_ew(self.combine, x0, inbox)
@@ -169,10 +179,12 @@ class PageRankProgram:
         deg = gb["out_degree"].to(torch.float32)
         return torch.where(deg > 0, r / torch.clamp(deg, min=1.0), 0.0)
 
-    def superstep(self, state, inbox, gb, step):
+    def superstep(self, state, inbox, gb, step, reduce=None):
         """One Jacobi iteration of every partition. The dangling mass and
-        the ``tol`` delta are GLOBAL: summed per partition, then over all P
-        partitions (the JAX package's ``psum`` over the partition axis)."""
+        the ``tol`` delta are GLOBAL: summed per partition, then over the
+        batch's partitions, then by ``reduce`` over the mesh's ranks (the
+        JAX package's ``psum`` over the partition and mesh axes)."""
+        reduce = reduce or _identity
         vmask = gb["vmask"]
         r = state["r"]
         P = vmask.shape[0]
@@ -180,13 +192,13 @@ class PageRankProgram:
                                      gb["adj"]).reshape(r.shape)
         tele = (self.teleport_fn(gb) if self.teleport_fn is not None
                 else 1.0 / self.n_global)
-        dangling = torch.where(vmask & (gb["out_degree"] == 0), r, 0.0) \
-            .sum(dim=1).sum()
+        dangling = reduce(torch.where(vmask & (gb["out_degree"] == 0), r,
+                                      0.0).sum(dim=1).sum())
         r_new = torch.where(
             vmask,
             (1.0 - self.damping) * tele
             + self.damping * (pull + inbox + dangling * tele), 0.0)
-        delta = (r_new - r).abs().sum(dim=1).sum()
+        delta = reduce((r_new - r).abs().sum(dim=1).sum())
         more = step + 1 < self.num_iters
         if self.tol is not None:
             changed = (delta > self.tol) & more

@@ -28,8 +28,9 @@ fault-free reference for idempotent ⊕ programs, allclose for PageRank):
                       match the fault-free run (also writes
                       ``balance_torch.json`` next to the main report)
     device_loss       mid-run device loss on a D-device mesh: it needs the
-                      multi-device backend (ROADMAP A8), so it reports a
-                      failed gate naming it; not in the default list
+                      multi-device backend's device-loss half (ROADMAP
+                      A8.2), so it reports a failed gate naming it; not in
+                      the default list
 
 Writes the machine-readable report to ``--out`` only, and exits non-zero
 if any scenario failed its recovery or parity gate.
@@ -45,7 +46,8 @@ import time
 
 _ALL = ("device_loss", "corrupt_snapshot", "failed_delta", "corrupt_block",
         "straggler", "poisoned_query", "skew_heal")
-# device_loss needs a mesh (ROADMAP A8): asked for by name only
+# device_loss needs the mesh's device-loss half (ROADMAP A8.2): asked for
+# by name only
 _DEFAULT = tuple(s for s in _ALL if s != "device_loss")
 
 
@@ -104,9 +106,9 @@ def _state_parity(a, b, exact):
 
 def scenario_device_loss(args):
     """Mid-run device loss on a D-device mesh -> shrink + resume. The
-    port's engine runs on one device: the mesh-shrink failover waits for
-    the multi-device backend."""
-    return {"ok": False, "error": "needs the shard_map backend: ROADMAP A8"}
+    mesh-shrink failover waits for ROADMAP A8.2."""
+    return {"ok": False,
+            "error": "needs the mesh's device-loss half: ROADMAP A8.2"}
 
 
 def scenario_corrupt_snapshot(args):

@@ -5,7 +5,7 @@ The port of the JAX package's ``launch/elastic.py``, its host half:
 :func:`plan_mesh`, :func:`shrink_after_failure` and :func:`rebalance_hint`
 are pure Python, with the same answers. Building a mesh from a plan
 (``MeshPlan.make``) and re-sharding a checkpoint onto it (:func:`restart`)
-need the multi-device backend and raise naming ROADMAP A8.
+wait for ROADMAP A8.2 (the mesh's device-loss half) and raise naming it.
 
 Policy: keep TP ('model') fixed at the per-arch value (it is matched to
 head / expert divisibility), shrink/grow DP ('data'); the pod axis absorbs
@@ -18,8 +18,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-_NEEDS_MESH = ("a device mesh is not ported yet: ROADMAP A8 (the "
-               "multi-device backend)")
+_NEEDS_MESH = ("re-deriving a mesh after device loss is not ported yet: "
+               "ROADMAP A8.2 (the multi-device backend's service and "
+               "device-loss half)")
 
 
 @dataclasses.dataclass

@@ -38,7 +38,14 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None,
+                    help="serve sharded over a mesh (names=shape): not "
+                         "ported yet, ROADMAP A8.3")
     args = ap.parse_args(argv)
+    if args.mesh:
+        raise NotImplementedError(
+            "serving over a mesh is not ported yet: ROADMAP A8.3 (the LM "
+            "half of the multi-device backend)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)

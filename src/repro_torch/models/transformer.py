@@ -9,7 +9,7 @@ keys and values, with ring buffers of ``min(window, max_seq)`` slots for
 window segments. ``decode_step`` writes the cache in place (the JAX
 package returns a new one) and returns it with ``len`` advanced; ``len`` is
 a Python int. The JAX package's sharding constraints are no-ops on one
-device and are left out (ROADMAP A8). The MoE and VLM members of the JAX
+device and are left out (ROADMAP A8.3). The MoE and VLM members of the JAX
 module come with their families (ROADMAP A10).
 """
 from __future__ import annotations

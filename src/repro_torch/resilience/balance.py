@@ -413,7 +413,7 @@ def migrate_and_resume(engine, checkpointer, plan: MigrationPlan,
     elif isinstance(tier_plan, TierPlan):
         tier_plan = TierPlan.from_block(res.block)
     ne = GopherEngine(
-        res.pg, engine.program, backend=engine.backend,
+        res.pg, engine.program, backend=engine.backend, mesh=engine.mesh,
         max_supersteps=engine.max_supersteps,
         gb=device_block(res.block, engine.device),
         exchange=engine.exchange_requested, tier_plan=tier_plan,
@@ -454,9 +454,12 @@ def migrate_and_resume(engine, checkpointer, plan: MigrationPlan,
         mode = ne.exchange if ne.exchange in ("dense", "compact") \
             else "compact"
         pack, route = ne.make_exchange_stages(gb, mode=mode)
-        st = {k: torch.from_numpy(v).to(ne.device) for k, v in state.items()}
-        inbox = route(pack(st)[0])[0].cpu().numpy()
-    ck.save({"state": state, "inbox": inbox}, int(step))
+        rows = ne._ranks.rows                 # a mesh rank's partitions
+        st = {k: torch.from_numpy(v[rows]).to(ne.device)
+              for k, v in state.items()}
+        inbox = ne._ranks.gather(route(pack(st)[0])[0]).cpu().numpy()
+    ck.save({"state": state, "inbox": inbox}, int(step),
+            group=ne._ranks.group)
     ne.metrics.counter("rebalance_migrations_total",
                        labels={"backend": ne.backend}).inc()
     return ne, res, int(step)

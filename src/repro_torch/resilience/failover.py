@@ -5,14 +5,13 @@ package, device loss on a 'parts' mesh is survivable WITHOUT
 repartitioning: the surviving devices re-tile the SAME P partitions over a
 smaller mesh, the lost partitions are announced as a synthetic migration,
 and the run resumes from the newest checksum-verified snapshot. That half
-needs the multi-device backend: on the port's local engine a
-``DeviceLossFault`` raises ``NotImplementedError`` naming ROADMAP A8, and
-so does :func:`shrink_parts_mesh`. A plain crash restarts the engine in
+is ROADMAP A8.2: a ``DeviceLossFault`` raises ``NotImplementedError``
+naming it, and so does :func:`shrink_parts_mesh`. A plain crash restarts the engine in
 place through :func:`repro_torch.resilience.recovery.run_with_recovery`;
 its ``RecoveryExhausted`` carries that loop's ``RecoveryReport``, and its
 restarts tick ``recovery_restarts_total``. The JAX package's
 ``failover_events_total`` counter sits on the device-loss branch, so it
-comes with that branch (ROADMAP A8).
+comes with that branch (ROADMAP A8.2).
 """
 from __future__ import annotations
 
@@ -23,8 +22,8 @@ from repro_torch.resilience import faults as _faults
 from repro_torch.resilience.recovery import (RecoveryReport,
                                              run_with_recovery)
 
-_NEEDS_MESH = ("device-loss failover needs backend='shard_map', which is "
-               "not ported yet: ROADMAP A8 (the multi-device backend)")
+_NEEDS_MESH = ("device-loss failover is not ported yet: ROADMAP A8.2 (the "
+               "multi-device backend's service and device-loss half)")
 
 
 def _largest_divisor_at_most(p: int, d: int) -> int:
@@ -37,7 +36,7 @@ def _largest_divisor_at_most(p: int, d: int) -> int:
 def shrink_parts_mesh(mesh, lost: Sequence[int], num_parts: int,
                       axis_name: str = "parts"):
     """Rebuild a 1-axis 'parts' mesh after losing the device INDICES in
-    ``lost`` (the JAX package's; the port has no mesh yet)."""
+    ``lost`` (the JAX package's; ROADMAP A8.2)."""
     raise NotImplementedError(_NEEDS_MESH)
 
 
@@ -57,7 +56,7 @@ def run_with_failover(engine, checkpointer, every: int = 1,
     telemetry, FailoverReport)`` — the engine is returned because the JAX
     package's device-loss path rebuilds it; here it is always the one passed
     in. A ``DeviceLossFault`` raises ``NotImplementedError`` naming ROADMAP
-    A8."""
+    A8.2."""
     try:
         state, tele, rep = run_with_recovery(engine, checkpointer,
                                              every=every, extra=extra,

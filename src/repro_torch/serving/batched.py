@@ -98,7 +98,7 @@ class BatchedSemiringProgram:
                              flat.binned_plan_of(gb["adj"]), self.semiring)
         return flat.combine_ew(self.combine, x, y.reshape(x.shape))
 
-    def superstep(self, state, inbox, gb, step):
+    def superstep(self, state, inbox, gb, step, reduce=None):
         x0 = state["x"]                               # (P, v_max, Q)
         vm = gb["vmask"][..., None]
         P, v_max, Q = x0.shape
@@ -155,9 +155,11 @@ class BatchedPersonalizedPageRank:
         deg = gb["out_degree"].to(torch.float32)[..., None]
         return torch.where(deg > 0, r / torch.clamp(deg, min=1.0), 0.0)
 
-    def superstep(self, state, inbox, gb, step):
+    def superstep(self, state, inbox, gb, step, reduce=None):
         """One Jacobi iteration of every query and partition. Each query's
-        dangling mass is GLOBAL: summed per partition, then over all P."""
+        dangling mass is GLOBAL: summed per partition, then over the
+        batch's partitions, then by ``reduce`` over the mesh's ranks (see
+        ``core.programs``)."""
         vm = gb["vmask"][..., None]
         r = state["r"]                                # (P, v_max, Q)
         P, _, Q = r.shape
@@ -169,6 +171,8 @@ class BatchedPersonalizedPageRank:
         seed = gb[self.seed_key]
         dangling = torch.where(vm & (gb["out_degree"] == 0)[..., None], r,
                                0.0).sum(dim=1).sum(dim=0)        # (Q,)
+        if reduce is not None:
+            dangling = reduce(dangling)
         r_new = torch.where(
             vm, (1.0 - self.damping) * seed
             + self.damping * (pull + inbox + dangling * seed), 0.0)

@@ -31,7 +31,7 @@ The service feeds the ``serving_*`` counters, histograms and gauges of
 the JAX package's service into its metrics registry (``metrics=``, or the
 process default); its pooled engines feed the default registry, as the
 JAX package's do. What the port leaves out: ``backend='shard_map'`` or a
-``mesh`` (ROADMAP A8, which raise). Engines run on ``device`` (the card
+``mesh`` (ROADMAP A8.2, which raise). Engines run on ``device`` (the card
 unless the caller passes ``device='cpu'``).
 """
 from __future__ import annotations
@@ -190,8 +190,8 @@ class GraphQueryService:
                  device="cuda"):
         if backend != "local" or mesh is not None:
             raise NotImplementedError(
-                "only the 'local' backend is ported (ROADMAP A8: the "
-                "multi-device backend)")
+                "the service on a mesh is not ported yet: ROADMAP A8.2 (the "
+                "multi-device backend's service and device-loss half)")
         self.device = resolve_device(device)
         self.graphs = dict(graphs)
         self.backend = backend

@@ -23,7 +23,14 @@ and :meth:`Checkpointer.latest_good_step` skips a committed snapshot whose
 bytes no longer match (bit-rot, truncation).
 
 The BSP engine's checkpointed runs (``GopherEngine.run(checkpointer=)``)
-snapshot ``{"state": ..., "inbox": ...}`` through this class.
+snapshot ``{"state": ..., "inbox": ...}`` through this class. On the
+``shard_map`` backend a snapshot still holds the full (P, ...) arrays:
+every rank passes the gathered arrays to ``save(group=)``, rank 0 of the
+group writes them and the ranks meet at a barrier once the commit marker
+is on disk, so every rank sees the same newest snapshot; each rank
+restores its own rows (``restore(rows=)``). A snapshot of a mesh run is
+therefore the one file a one-process run writes, and either package
+restores it.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.engine import resolve_device
 
@@ -124,11 +132,27 @@ class Checkpointer:
         os.makedirs(directory, exist_ok=True)
 
     # ------------------------------------------------------------ save
-    def save(self, state, step: int, extra: Optional[dict] = None):
+    def save(self, state, step: int, extra: Optional[dict] = None,
+             group=None):
         """Snapshot `state` at `step`. The device-to-host copies happen
         here, before the call returns, so the caller may go on changing
         its tensors; with async_save only the file writes (numpy arrays)
-        run on a background thread."""
+        run on a background thread.
+
+        With a process ``group`` every rank of it calls this with the same
+        ``state``; only its rank 0 writes, synchronously, and the ranks
+        leave through a barrier after the commit marker is written."""
+        if group is not None:
+            try:
+                if dist.get_rank(group) == 0:
+                    self._save(state, step, extra)
+                    self.wait()
+            finally:
+                dist.barrier(group=group)
+            return
+        self._save(state, step, extra)
+
+    def _save(self, state, step: int, extra: Optional[dict]):
         self.wait()
         t0 = time.perf_counter()
         pairs = _leaves_with_paths(state)
@@ -218,11 +242,13 @@ class Checkpointer:
                 return s
         return None
 
-    def restore(self, state_like, step: Optional[int] = None, device=None):
+    def restore(self, state_like, step: Optional[int] = None, device=None,
+                rows: Optional[slice] = None):
         """Restore into the structure of `state_like` (its leaves' values
         are not read). Returns ``(state, step)``: every leaf a torch tensor
         on ``device`` (``cuda`` when None, as every entry point of the port
-        defaults) with the saved dtype and shape."""
+        defaults) with the saved dtype and shape, or only the leading-axis
+        ``rows`` of each (a ``shard_map`` rank's partitions)."""
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -234,7 +260,8 @@ class Checkpointer:
         out = []
         for pth, _ in _leaves_with_paths(state_like):
             dmark = blocks.get(f"{pth}::dtype")
-            out.append(_from_host(blocks[pth],
+            arr = blocks[pth] if rows is None else blocks[pth][rows]
+            out.append(_from_host(arr,
                                   str(dmark) if dmark is not None else None,
                                   device))
         return _rebuild(state_like, iter(out)), step

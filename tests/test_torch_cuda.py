@@ -1088,3 +1088,68 @@ def test_lm_serving_on_the_card_matches_the_cpu(cuda_device, arch):
                                    atol=1e-4)
         tok = torch.argmax(wl, -1)
     assert _build.launches["flash_attention"] == cfg.n_layers
+
+
+def test_mesh_one_nccl_rank_equals_local(cuda_device, tmp_path):
+    """``backend='shard_map'`` on a world of one NCCL rank (the card
+    machine's one card): its collectives run (the all_to_all, the halt
+    vote's and PageRank's all_reduces, the gathers) and every staged
+    exchange is bit-equal to 'local' on the card ('auto' resolving to
+    'dense'), with equal Telemetry and K2/K5 (K1 for PageRank) launch
+    counts; a checkpointed compact CC likewise. A CPU engine on the NCCL
+    mesh and a CPU mesh over NCCL are refused."""
+    import torch.distributed as dist
+
+    from repro_torch.core import PageRankProgram, TierPlan
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training.checkpoint import Checkpointer
+    pg = _serving_graph()[1]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = make_mesh((1,), ("parts",), device="cuda")
+        cases = [(algo, ex) for algo in ("cc", "sssp")
+                 for ex in ("dense", "compact", "tiered", "phased", "auto")]
+        cases += [("pagerank", "dense"), ("cc", "checkpointed")]
+        for algo, ex in cases:
+            prog = _ck_program(algo, pg)
+            kw = {"max_supersteps": 64} if algo == "pagerank" else {}
+            if ex in ("tiered", "phased"):
+                kw["tier_plan"] = TierPlan.from_graph(pg)
+            runs = []
+            for backend in ("local", "shard_map"):
+                _build.reset_launches()
+                eng = GopherEngine(
+                    pg, prog, backend=backend,
+                    mesh=mesh if backend == "shard_map" else None,
+                    exchange={"auto": "dense" if backend == "local" else
+                              "auto", "checkpointed": "compact"}.get(ex, ex),
+                    device=cuda_device, **kw)
+                if ex == "checkpointed":
+                    out = eng.run(checkpointer=Checkpointer(
+                        str(tmp_path / backend)), checkpoint_every=2)
+                else:
+                    out = eng.run()
+                runs.append(out + (dict(_build.launches),))
+            (sl, tl, ll), (sm, tm, lm) = runs
+            _same_state(sl, sm, algo)
+            assert tm.exchange == tl.exchange, (algo, ex)
+            for f in Telemetry.__dataclass_fields__:
+                if f != "part_seconds":
+                    a, b = getattr(tl, f), getattr(tm, f)
+                    assert (a is None and b is None) or np.array_equal(
+                        np.asarray(a), np.asarray(b)), (algo, ex, f)
+            assert ll == lm, (algo, ex)
+            k = "semiring_spmv" if algo == "pagerank" \
+                else "semiring_spmv_frontier"
+            assert lm[k] > 0 and (ex == "dense" or ex == "auto"
+                                  or algo == "pagerank"
+                                  or lm["outbox_pack"] > 0), (algo, ex)
+        with pytest.raises(ValueError, match="cuda mesh"):
+            GopherEngine(pg, _ck_program("cc", pg), backend="shard_map",
+                         mesh=mesh, device="cpu")
+        with pytest.raises(ValueError, match="gloo"):
+            make_mesh((1,), ("parts",), device="cpu")
+    finally:
+        dist.destroy_process_group()

@@ -150,9 +150,7 @@ UNSUPPORTED = {
     "pagerank_tol": (lambda pg: talg.pagerank(pg, tol=1e-6, device="cpu"),
                      None),
     "blockrank": (lambda pg: talg.blockrank(pg, device="cpu"), None),
-    "shard_map": (lambda pg: GopherEngine(pg, _cc_program(),
-                                          backend="shard_map", device="cpu"),
-                  "ROADMAP A8"),
+    "shard_map": (lambda pg: _one_rank_run(pg), None),
     "dense": (lambda pg: GopherEngine(pg, _cc_program(), exchange="dense",
                                       device="cpu").run(), None),
     "compact": (lambda pg: GopherEngine(pg, _cc_program(),
@@ -176,6 +174,19 @@ UNSUPPORTED = {
         pg, BatchedSemiringProgram("min_plus", 2), device="cpu").run_queries(
         extra={"qinit": sssp_query_init(pg, [0, 1])}), None),
 }
+
+
+def _one_rank_run(pg):
+    """The multi-device backend (ROADMAP A8.1) on a one-rank gloo world,
+    equal to the local run; tests/test_torch_mesh.py holds 4 ranks against
+    the JAX package."""
+    from _mesh_world import one_rank_world
+    with tempfile.TemporaryDirectory() as d, one_rank_world(d) as mesh:
+        s, t = GopherEngine(pg, _cc_program(), backend="shard_map",
+                            mesh=mesh, device="cpu").run()
+    sl, tl = GopherEngine(pg, _cc_program(), exchange="dense",
+                          device="cpu").run()
+    assert np.array_equal(s["x"], sl["x"]) and t.supersteps == tl.supersteps
 
 
 def _checkpointed_run(pg):

@@ -145,14 +145,29 @@ def test_incremental_matches_jax_and_cold(scenario, runs):
                 assert t.local_iters.sum() < ct.local_iters.sum(), case
 
 
-def test_incremental_refusals(runs):
-    """The batched resume on a mesh waits for the multi-device backend
-    (A8), and a JAX-only ``spmv_backend`` is refused."""
+def test_incremental_refusals(runs, tmp_path):
+    """The batched resume runs on a mesh (ROADMAP A8.1: here a one-rank
+    gloo world, bit-equal to the local resume with equal Telemetry; a mesh
+    is required), and a JAX-only ``spmv_backend`` is refused."""
+    from _mesh_world import one_rank_world
+    from repro_torch.serving import gather_query_results
     r = runs["removal"]
-    with pytest.raises(NotImplementedError, match="A8"):
-        talg.incremental_sssp_batched(
-            r["tres"].pg, [0, 1], np.zeros((2, r["tres"].pg.n_global)),
-            r["tres"], backend="shard_map", device="cpu")
+    srcs = [r["src"], 0]
+    prev = gather_query_results(r["tpg0"], np.stack(
+        [talg.sssp(r["tpg0"], s, device="cpu")[0] for s in srcs], -1))
+    args = (r["tres"].pg, srcs, prev, r["tres"])
+    with pytest.raises(ValueError, match="mesh"):
+        talg.incremental_sssp_batched(*args, backend="shard_map",
+                                      device="cpu")
+    want, wt = talg.incremental_sssp_batched(*args, exchange="dense",
+                                             device="cpu")
+    with one_rank_world(tmp_path) as mesh:
+        got, gt = talg.incremental_sssp_batched(
+            *args, backend="shard_map", mesh=mesh, device="cpu")
+    assert gt.exchange == "dense"       # what 'auto' is on one device
+    assert np.array_equal(got, want)
+    _assert_tele_equal(gt, wt)
+    assert np.array_equal(gt.query_supersteps, wt.query_supersteps)
     r = runs["insert"]
     with pytest.raises(NotImplementedError, match="spmv_backend"):
         talg.incremental_bfs(r["tres"].pg, 3, r["path_prev"], r["tres"],

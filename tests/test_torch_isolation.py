@@ -54,8 +54,8 @@ def test_importing_the_port_loads_no_jax():
 def test_every_new_module_is_covered():
     """The modules of the staged route, of the tier plans, of LM serving
     (dense and ssm), of the store and incremental analytics, of graph
-    serving, of checkpointing and resilience and of observability are
-    among the files checked above."""
+    serving, of checkpointing and resilience, of observability and of the
+    multi-device backend are among the files checked above."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("core/messages.py", "core/subgraph.py", "kernels/flat.py",
                 "kernels/outbox_compact.py", "core/tiers.py",
@@ -72,5 +72,5 @@ def test_every_new_module_is_covered():
                 "obs/skew.py", "resilience/recovery.py",
                 "resilience/failover.py", "resilience/balance.py",
                 "launch/elastic.py", "launch/chaos.py", "obs/trace.py",
-                "obs/metrics.py", "launch/scope.py"):
+                "obs/metrics.py", "launch/scope.py", "launch/mesh.py"):
         assert f"src/repro_torch/{mod}" in names, mod

@@ -404,7 +404,10 @@ def test_scope_cli_on_the_cpu(tmp_path, capsys):
     """``python -m repro_torch.launch.scope --device cpu`` prints the
     timeline, skew and metrics and writes scope_trace.json, .jsonl and
     scope_metrics.json, with the JAX CLI's span tree and metrics for the
-    same arguments; ``--backend shard_map`` raises naming A8."""
+    same arguments; with ``--backend shard_map --devices 2`` (two gloo
+    ranks, ROADMAP A8.1) rank 0 writes the same span tree (the JAX
+    package's traced ``shard_map`` run's tree is held in
+    tests/test_torch_mesh.py)."""
     argv = ["--algo", "sssp", "--rows", "14", "--cols", "14",
             "--exchange", "phased", "--boundary-sync"]
     outs = {}
@@ -431,6 +434,14 @@ def test_scope_cli_on_the_cpu(tmp_path, capsys):
     validate_metrics(snaps[0])
     j_validate_metrics(snaps[1])
     assert _comparable(snaps[0]) == _comparable(snaps[1])
-    with pytest.raises(NotImplementedError, match="A8"):
-        scope.main(["--backend", "shard_map", "--device", "cpu",
-                    "--out", str(tmp_path / "x")])
+    out = tmp_path / "mesh"
+    scope.main(argv + ["--backend", "shard_map", "--devices", "2",
+                       "--device", "cpu", "--out", str(out)])
+    assert "backend=shard_map" in capsys.readouterr().out
+    with open(out / "scope_trace.json") as f:
+        validate_chrome_trace(json.load(f))
+    with open(out / "scope_trace.jsonl") as f:
+        assert collections.Counter(
+            (e["name"], e["depth"]) for e in map(json.loads, f)) == trees[0]
+    with open(out / "scope_metrics.json") as f:
+        validate_metrics(json.load(f))

@@ -276,7 +276,7 @@ def test_warm_and_refusals(graphs):
     """``warm`` runs one batch per (family, bucket) on the engines real
     batches use, leaves the stats alone and counts the batches in the
     service's ``metrics=`` registry; ``rebalance`` without a skew picture
-    does nothing; what waits for ROADMAP A8 raises naming it."""
+    does nothing; what waits for ROADMAP A8.2 raises naming it."""
     _, tpg = graphs["road"]
     reg = MetricsRegistry()
     svc = tsrv.GraphQueryService({"road": tpg}, metrics=reg, device="cpu")
@@ -292,6 +292,6 @@ def test_warm_and_refusals(graphs):
     assert tsrv.GraphQueryService({"road": tpg}, device="cpu").metrics \
         is default_registry()
     for kw in ({"backend": "shard_map"}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="A8"):
+        with pytest.raises(NotImplementedError, match="A8.2"):
             tsrv.GraphQueryService({"road": tpg}, device="cpu", **kw)
     assert tplanner.FAMILY_OF_KIND["reach"] == "traversal"

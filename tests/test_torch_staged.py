@@ -482,10 +482,20 @@ def test_compact_pack_and_unpack_match_jax(blocks, name):
     assert np.array_equal(got.numpy(), tmsg.route_local(dense).numpy())
 
 
-def test_unported_routes_name_their_items():
-    with pytest.raises(NotImplementedError, match="A8"):
-        tmsg.route_shard_map()
-    with pytest.raises(NotImplementedError, match="A8"):
-        tmsg.route_tiered(torch.zeros((2, 2, 4)), torch.zeros((2, 2, 4)),
-                          torch.zeros((2, 2, 4), dtype=torch.int32), None,
-                          "min", axis_name="parts")
+def test_unported_routes_name_their_items(tmp_path):
+    """The mesh routes are ported (ROADMAP A8.1): on a one-rank gloo world
+    ``route_shard_map`` runs its all_to_all and delivers what
+    ``route_local`` does, for slot values, int32 slot maps and a query
+    batch's trailing Q; 4 gloo ranks are held against the JAX package in
+    tests/test_torch_mesh.py."""
+    from _mesh_world import one_rank_world
+    rng = np.random.default_rng(3)
+    xs = [torch.from_numpy(rng.standard_normal((3, 3, 5)).astype(np.float32)),
+          torch.from_numpy(rng.integers(-1, 5, (3, 3, 5)).astype(np.int32)),
+          torch.from_numpy(rng.standard_normal((3, 3, 5, 2))
+                           .astype(np.float32))]
+    with one_rank_world(tmp_path) as mesh:
+        for x in xs:
+            got = tmsg.route_shard_map(x, mesh.get_group())
+            assert got.dtype == x.dtype
+            assert torch.equal(got, tmsg.route_local(x))

@@ -311,11 +311,22 @@ def test_route_tiered_matches_jax(graphs, plan_kind):
         dense = tmsg.route_local(tv).numpy()
         recv = occ.T[:, :, None] & np.ones(cap, bool)
         assert np.array_equal(got.numpy()[recv], dense[recv])
-    with pytest.raises(NotImplementedError, match="A8"):
-        tmsg.route_tiered(tv, pv, sids, plan.schedule(1), "min",
-                          axis_name="parts")
-    with pytest.raises(NotImplementedError, match="A8"):
-        tmsg.tiered_tables(plan.schedule(2), "cpu")
+    # over two devices the route needs the mesh's process group (routed
+    # over gloo ranks in tests/test_torch_mesh.py); each rank's tables
+    # receive exactly its routed pairs, padding into the sink row
+    with pytest.raises(ValueError, match="process group"):
+        tmsg.route_tiered(tv, pv, sids, plan.schedule(2), "min")
+    s2, v = plan.schedule(2), P // 2
+    for me in range(2):
+        tab = tmsg.tiered_tables(s2, "cpu", me)
+        recv = [tab["hot"]] if tab["hot"] is not None else []
+        recv += [r for _, r in tab["hot_res"]]
+        recv += [r for _, _, r in tab["packed"]]
+        got_rows = np.concatenate([r[1].numpy() for r in recv])
+        src, dst = np.nonzero(plan.tiers != ttiers.EXCLUDED)
+        mine = dst // v == me
+        want = (dst[mine] % v) * P + src[mine]
+        assert sorted(got_rows[got_rows < v * P]) == sorted(want)
 
 
 # ---------------- engine runs ----------------

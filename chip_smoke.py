@@ -203,13 +203,37 @@ failure exits non-zero and prints no result:
       ``mesh_phase`` line (NCCL's init, the phase's seconds); the first
       mesh runs' launches are ``mesh_launches``. A failed NCCL init or
       collective fails the phase;
+   k. the multi-device backend's service and device-loss half, after 4j,
+      on a world of one NCCL rank of its own: (1)
+      ``MeshPlan((1,), ('parts',)).make`` builds the mesh over an NCCL
+      subgroup (``launch.mesh.sub_mesh``, not the world's group), and
+      compact CC on it is bit-equal to 4j's with K2 and K5 launched; (2)
+      ``GraphQueryService(backend='shard_map', mesh=)`` over 4a's graphs
+      serves 4g's 25-query stream in one drain (its pooled engines on
+      'dense', what 'auto' is on one rank): every answer, error, cached
+      flag and query superstep 4g's (PPR within rtol 1e-5, atol 0), one
+      ``service_mesh`` line with the drain's seconds, p50/p99 and
+      queries a second beside 4g's drain; then ``enable_landmarks`` (the
+      same 8 landmarks as 4g) and ``apply_delta`` with 4f's delta and
+      ``rebuild_landmarks``: the refreshed vectors within 1e-4 relative of
+      4g's (``service_mesh_landmarks``, with whether they are bit-equal);
+      (3) ``run_with_failover`` on the mesh with a crash at superstep 2
+      (``checkpoint_every=2``): phased CC and SSSP (4c's taught plan; K2,
+      K5) and dense 30-iteration PageRank (K1), each restarted once from
+      step 2, bit-equal to its 4j run (PageRank rtol 1e-5, atol 0) with
+      equal supersteps; one ``failover`` line a run; (4) a device loss of
+      the one rank raises ``ValueError`` (every device lost). Every run's
+      launches are ``failover_launches``; a failed NCCL init, subgroup or
+      collective fails the phase. One ``failover_phase`` line with the
+      phase's seconds;
 5. kernel times at the paths' shapes: one ``{"kernels": [...]}`` line.
-   ``launches`` counts phase 4's timed runs but 4f's, 4g's, 4h's, 4i's and
-   4j's, which stand beside it as ``incremental_launches``,
+   ``launches`` counts phase 4's timed runs but 4f's, 4g's, 4h's, 4i's,
+   4j's and 4k's, which stand beside it as ``incremental_launches``,
    ``serving_launches``, ``checkpoint_launches`` (4h's every run, its
    uncheckpointed CC and the chaos scenarios included),
-   ``observability_launches`` (4i's every run in this process) and
-   ``mesh_launches`` (4j's mesh runs).
+   ``observability_launches`` (4i's every run in this process),
+   ``mesh_launches`` (4j's mesh runs) and ``failover_launches`` (4k's
+   every run).
    K3 is also held at the main path's CC superstep 0 with each walk
    forced. Its ``bound_ms`` counts only the rows with an active
    in-neighbour, summed over the plain version's sweeps, over the lanes
@@ -1005,18 +1029,22 @@ def main_path(dev):
     delta = incremental_path(dev, g, ug, pg, upg, src, results,
                              incremental_launches)
     serving_launches = dict.fromkeys(_build.launches, 0)
-    svc = serving_path(dev, g, ug, pg, upg, delta, serving_launches)
+    svc, served = serving_path(dev, g, ug, pg, upg, delta,
+                               serving_launches)
     checkpoint_launches = dict.fromkeys(_build.launches, 0)
     checkpoint_path(dev, pg, src, results, staged, checkpoint_launches)
     observability_launches = dict.fromkeys(_build.launches, 0)
     observability_path(dev, pg, src, results, staged, svc,
                        observability_launches)
     mesh_launches = dict.fromkeys(_build.launches, 0)
-    mesh_path(dev, pg, src, {**staged, **tiers_4c}, counts_4c, taught,
-              mesh_launches)
+    mesh_runs = mesh_path(dev, pg, src, {**staged, **tiers_4c}, counts_4c,
+                          taught, mesh_launches)
+    failover_launches = dict.fromkeys(_build.launches, 0)
+    failover_path(dev, pg, upg, src, delta, served, mesh_runs, taught,
+                  failover_launches)
     return (pg, path_launches, incremental_launches, serving_launches,
             checkpoint_launches, observability_launches, mesh_launches,
-            plain_k4)
+            failover_launches, plain_k4)
 
 
 def drive(dev, runs: dict, path_launches: dict, n: int,
@@ -1871,11 +1899,32 @@ def sweep_times(dev, upg, gb) -> dict:
     return out
 
 
+def service_stream(g):
+    """Phase 4g's sources (numpy, seed 11) and its 25-query stream over
+    the graphs ``rn`` (weighted) and ``rn_unit``: returns (the generator,
+    left where 4g goes on drawing, the stream, (bfs, sssp, ppr, more bfs)
+    sources)."""
+    rng = np.random.default_rng(SERVE_SEED)
+    srcs = rng.choice(g.n, 32, replace=False)
+    bfs_src, sssp_src = srcs[:BFS_Q], srcs[8:8 + SSSP_Q]
+    ppr_src, more_src = srcs[12:12 + PPR_Q], srcs[16:22]
+    stream = ([("bfs", "rn_unit", int(s)) for s in bfs_src]
+              + [("bfs", "rn_unit", int(s)) for s in more_src]
+              + [("reach", "rn_unit", (int(bfs_src[0]), int(bfs_src[1]))),
+                 ("reach", "rn_unit", (int(bfs_src[2]), int(bfs_src[3])))]
+              + [("sssp", "rn", int(s)) for s in sssp_src]
+              + [("ppr", "rn", int(s)) for s in ppr_src]
+              + [("sssp", "rn", g.n + 5)])
+    return rng, stream, (bfs_src, sssp_src, ppr_src, more_src)
+
+
 def serving_path(dev, g, ug, pg, upg, delta, launches_4g):
     """Phase 4g: Gopher Serve at RN scale, each run checked (see the module
     docstring). ``delta`` is phase 4f's 1 % reopened-segment delta; the
     timed runs' launch counts go into ``launches_4g``. Returns the service,
-    whose metrics registry phase 4i reads."""
+    whose metrics registry phase 4i reads, and what phase 4k holds its
+    service on a mesh to: the stream, its responses, the drain's seconds
+    and the refreshed landmark vectors."""
     import torch
     from repro_torch import algorithms
     from repro_torch.core import (GopherEngine, TierPlan, device_block,
@@ -1889,10 +1938,7 @@ def serving_path(dev, g, ug, pg, upg, delta, launches_4g):
                                      gather_query_results, ppr_query_seed,
                                      sssp_query_init)
     t_phase = t0 = time.perf_counter()
-    rng = np.random.default_rng(SERVE_SEED)
-    srcs = rng.choice(g.n, 32, replace=False)
-    bfs_src, sssp_src = srcs[:BFS_Q], srcs[8:8 + SSSP_Q]
-    ppr_src, more_src = srcs[12:12 + PPR_Q], srcs[16:22]
+    rng, stream, (bfs_src, sssp_src, ppr_src, more_src) = service_stream(g)
     ugb = device_block(host_graph_block(upg), dev, binned=True)
     wgb = device_block(host_graph_block(pg), dev, binned=True)
     log(json.dumps({"serving_setup_s": time.perf_counter() - t0,
@@ -2010,13 +2056,6 @@ def serving_path(dev, g, ug, pg, upg, delta, launches_4g):
     # (5): the service over both graphs, one mixed stream
     svc = GraphQueryService({"rn": pg, "rn_unit": upg},
                             metrics=MetricsRegistry(), device=dev)
-    stream = ([("bfs", "rn_unit", int(s)) for s in bfs_src]
-              + [("bfs", "rn_unit", int(s)) for s in more_src]
-              + [("reach", "rn_unit", (int(bfs_src[0]), int(bfs_src[1]))),
-                 ("reach", "rn_unit", (int(bfs_src[2]), int(bfs_src[3])))]
-              + [("sssp", "rn", int(s)) for s in sssp_src]
-              + [("ppr", "rn", int(s)) for s in ppr_src]
-              + [("sssp", "rn", g.n + 5)])
     for kind, gname, s in stream:
         svc.submit(kind, gname, s)
     _build.reset_launches()
@@ -2115,7 +2154,8 @@ def serving_path(dev, g, ug, pg, upg, delta, launches_4g):
         "compact = megastep, tiered (rerun) = phased = dense, ppr = float64 "
         "reference, the service's answers, hits and rejection, landmark "
         "bounds and the refresh = a cold build — all agree")
-    return svc
+    return svc, {"stream": stream, "resp": resp, "drain_s": drain_s,
+                 "landmarks": lc1.landmarks, "landmark_dist": lc1.dist}
 
 
 # ---------------- phase 4h: checkpointing and resilience ----------------
@@ -2554,7 +2594,8 @@ def mesh_path(dev, pg, src, earlier, counts_4c, taught, launches_4j):
     into ``launches_4j``. The process group is this phase's own: made
     here (a ``file://`` rendezvous in a temporary directory) and
     destroyed at its end; a failed NCCL init or collective fails the
-    phase."""
+    phase. Returns each case's first mesh run, (state, Telemetry), by
+    name."""
     import os
     import tempfile
     import torch
@@ -2604,7 +2645,7 @@ def mesh_path(dev, pg, src, earlier, counts_4c, taught, launches_4j):
             init_s = time.perf_counter() - t0
             if float(probe) != 1.0:
                 fail(f"mesh: a one-rank all_reduce gave {float(probe)}")
-            lines = {}
+            lines, first = {}, {}
             for name, algo, ex, lex, plan, ref, kernels in cases:
                 runs = {"local": [], "shard_map": []}
                 # in turns (local, mesh, mesh, local): the host's drift
@@ -2633,6 +2674,7 @@ def mesh_path(dev, pg, src, earlier, counts_4c, taught, launches_4j):
                 # of the first mesh run count as the phase's
                 (sl, tl, _, ll), (sm, tm, _, lm) = (
                     runs["local"][0], runs["shard_map"][0])
+                first[name] = (sm, tm)
                 for k, c in lm.items():
                     launches_4j[k] += c
                 for k in kernels:
@@ -2685,6 +2727,223 @@ def mesh_path(dev, pg, src, earlier, counts_4c, taught, launches_4j):
         "compact, tiered, phased and auto (dense) CC/SSSP, 30-iteration "
         "PageRank and a checkpointed compact CC, with equal supersteps, "
         "local_iters, wire and launches — all agree")
+    return first
+
+
+# ---------------- phase 4k: the service and device loss on a mesh --------
+
+def _percentiles(resp) -> dict:
+    """p50/p99 latency (ms) of one drain's answered responses, and how
+    many there were."""
+    lat = [r.latency_s for r in resp.values() if r.error is None]
+    return {"p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+            "answered": len(lat)}
+
+
+def failover_path(dev, pg, upg, src, delta, served, mesh_runs, taught,
+                  launches_4k):
+    """Phase 4k: the multi-device backend's service and device-loss half
+    on a world of one NCCL rank, each step checked (see the module
+    docstring). ``served`` holds phase 4g's stream, answers, drain time
+    and refreshed landmarks, ``mesh_runs`` phase 4j's first mesh runs by
+    name, ``taught`` 4c's phased plan; every run's launch counts go into
+    ``launches_4k``. The process group is this phase's own; a failed NCCL
+    init, subgroup or collective fails the phase."""
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import (GopherEngine, PageRankProgram,
+                                  SemiringProgram, init_max_vertex,
+                                  make_sssp_init)
+    from repro_torch.kernels import _build
+    from repro_torch.launch.elastic import MeshPlan
+    from repro_torch.launch.mesh import mesh_ranks
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.resilience import faults, run_with_failover
+    from repro_torch.serving import GraphQueryService
+    from repro_torch.training.checkpoint import Checkpointer
+    t_phase = time.perf_counter()
+    k1, k2, k5 = "semiring_spmv", "semiring_spmv_frontier", "outbox_pack"
+    loc = (int(pg.part_of[src]), int(pg.local_of[src]))
+    cc = SemiringProgram("max_first", init_max_vertex)
+
+    def counted(fn):
+        """``fn()`` with the launch counts set to 0 just before it and
+        added to ``launches_4k`` just after; returns (its output, its
+        seconds, its launches)."""
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = dict(_build.launches)
+        for k, c in launches.items():
+            launches_4k[k] += c
+        return out, secs, launches
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_4k_") as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(tmp, 'rdv')}",
+            rank=0, world_size=1, device_id=dev)
+        try:
+            # (1) the plan's mesh over an NCCL subgroup; compact CC on it
+            mesh = MeshPlan((1,), ("parts",)).make(device="cuda")
+            group = mesh.get_group()
+            if (group is dist.group.WORLD or mesh_ranks(mesh) != [0]
+                    or dist.get_backend(group) != "nccl"):
+                fail(f"4k: MeshPlan.make gave {mesh} over "
+                     f"{dist.get_backend(group)}")
+            (st, te), cc_s, lc = counted(lambda: GopherEngine(
+                pg, cc, backend="shard_map", mesh=mesh, exchange="compact",
+                device=dev).run())
+            want = mesh_runs["cc_compact"]
+            if not np.array_equal(st["x"], want[0]["x"]) or (
+                    te.supersteps != want[1].supersteps):
+                fail("4k: compact CC on the plan's mesh differs from 4j's")
+            if lc[k2] == 0 or lc[k5] == 0:
+                fail(f"4k: compact CC launched {lc}")
+            log(json.dumps({"failover_mesh_cc": {
+                "warm_s": cc_s, "supersteps": te.supersteps,
+                "launches": {k: c for k, c in lc.items() if c}}}))
+
+            # (2) 4g's stream through the service on the mesh
+            svc = GraphQueryService({"rn": pg, "rn_unit": upg},
+                                    backend="shard_map", mesh=mesh,
+                                    metrics=MetricsRegistry(), device=dev)
+            for kind, gname, s in served["stream"]:
+                svc.submit(kind, gname, s)
+            resp, drain_s, ls = counted(svc.drain)
+            worst_ppr = 0.0
+            if set(resp) != set(served["resp"]):
+                fail("4k service: other tickets than 4g's")
+            for t, w in served["resp"].items():
+                r = resp[t]
+                if (r.error, r.cached, r.supersteps) != (
+                        w.error, w.cached, w.supersteps):
+                    fail(f"4k service {t}: error {r.error}, cached "
+                         f"{r.cached}, supersteps {r.supersteps}; 4g's "
+                         f"{w.error}, {w.cached}, {w.supersteps}")
+                if w.error is not None:
+                    continue
+                if w.query.kind == "ppr":
+                    worst_ppr = max(worst_ppr, held_ppr(
+                        r.result, w.result, f"4k service ppr {t}"))
+                elif not np.array_equal(r.result, w.result):
+                    fail(f"4k service: {w.query.kind} {t} differs from "
+                         f"4g's answer")
+            engines = sorted({e.exchange for e in svc._engines.values()})
+            if engines != ["dense"]:
+                fail(f"4k service: pooled engines on {engines}")
+            mine, theirs = (_percentiles(resp),
+                            _percentiles(served["resp"]))
+            log(json.dumps({"service_mesh": {
+                "queries": len(served["stream"]), "drain_s": drain_s,
+                **mine, "qps": mine["answered"] / drain_s,
+                "exchanges": engines, "ppr_max_rel_err": worst_ppr,
+                "launches": {k: c for k, c in ls.items() if c},
+                "local_4g": {"drain_s": served["drain_s"], **theirs,
+                             "qps": theirs["answered"]
+                             / served["drain_s"]}}}))
+
+            # landmarks, then 4f's delta with the refresh
+            lm = served["landmarks"]
+            _, build_s, lb = counted(lambda: svc.enable_landmarks(
+                "rn", len(lm)))
+            if not np.array_equal(svc.landmark_caches["rn"].landmarks, lm):
+                fail("4k: the mesh service chose other landmarks than 4g")
+            _, apply_s, la = counted(lambda: svc.apply_delta(
+                "rn", delta, rebuild_landmarks=True))
+            got, want = (svc.landmark_caches["rn"].dist,
+                         served["landmark_dist"])
+            fin = np.isfinite(want)
+            if not np.array_equal(np.isfinite(got), fin) or not np.allclose(
+                    got[fin], want[fin], rtol=LANDMARK_RTOL, atol=0):
+                fail("4k: the refreshed landmarks differ from 4g's beyond "
+                     f"{LANDMARK_RTOL}")
+            log(json.dumps({"service_mesh_landmarks": {
+                "build_s": build_s, "apply_delta_s": apply_s,
+                "bit_equal_to_4g": bool(np.array_equal(got, want)),
+                "telemetry": svc.landmark_telemetry("rn"),
+                "launches": {k: lb[k] + la[k] for k in lb
+                             if lb[k] + la[k]}}}))
+
+            # (3) a crash at superstep 2, recovered on the mesh
+            progs = {"cc_phased": (cc, "phased", taught, [k2, k5]),
+                     "sssp_phased": (SemiringProgram(
+                         "min_plus", make_sssp_init(*loc)), "phased",
+                         taught, [k2, k5]),
+                     "pagerank_dense": (PageRankProgram(
+                         n_global=pg.n_global, num_iters=30), "dense",
+                         None, [k1])}
+            for name, (prog, ex, plan, kernels) in progs.items():
+                eng = GopherEngine(
+                    pg, prog, backend="shard_map", mesh=mesh, exchange=ex,
+                    tier_plan=plan, device=dev,
+                    **({"max_supersteps": 64} if ex == "dense" else {}))
+                crash = faults.FaultPlan([faults.FaultSpec(
+                    "engine.superstep", "crash", at=2)])
+
+                def recover(eng=eng, crash=crash, name=name):
+                    with faults.inject(crash):
+                        return run_with_failover(eng, Checkpointer(
+                            os.path.join(tmp, name)), every=2)
+                (eng2, state, tele, rep), secs, lf = counted(recover)
+                ws, wt = mesh_runs[name]
+                key = "r" if name == "pagerank_dense" else "x"
+                if eng2 is not eng or rep.restarts != 1 or (
+                        rep.resumed_steps != [2]):
+                    fail(f"4k failover {name}: {rep}")
+                if key == "r":
+                    if not np.allclose(state[key], ws[key], rtol=1e-5,
+                                       atol=0.0):
+                        fail(f"4k failover {name}: max abs diff "
+                             f"{np.abs(state[key] - ws[key]).max()} "
+                             f"from 4j's")
+                elif not np.array_equal(state[key], ws[key]):
+                    fail(f"4k failover {name}: differs from 4j's")
+                if tele.supersteps != wt.supersteps:
+                    fail(f"4k failover {name}: {tele.supersteps} "
+                         f"supersteps, 4j's {wt.supersteps}")
+                for k in kernels:
+                    if lf[k] == 0:
+                        fail(f"4k failover {name}: kernel {k} was never "
+                             f"launched")
+                log(json.dumps({"failover": name, "devices": 1,
+                                "backend": "shard_map/nccl",
+                                "supersteps": tele.supersteps,
+                                "restarts": rep.restarts,
+                                "resumed_steps": rep.resumed_steps,
+                                "warm_s": secs,
+                                "launches": {k: c for k, c in lf.items()
+                                             if c}}))
+
+            # (4) device loss of the one rank raises
+            loss = faults.FaultPlan([faults.FaultSpec(
+                "engine.superstep", "device_loss", at=1,
+                payload={"lost": [0]})])
+            try:
+                with faults.inject(loss):
+                    run_with_failover(GopherEngine(
+                        pg, cc, backend="shard_map", mesh=mesh,
+                        exchange="compact", device=dev), Checkpointer(
+                            os.path.join(tmp, "lost")), every=2)
+            except ValueError as e:
+                if "every device" not in str(e):
+                    raise
+            else:
+                fail("4k: losing the only device did not raise")
+        finally:
+            dist.destroy_process_group()
+    log(json.dumps({"failover_phase": {"phase_4k_s": time.perf_counter()
+                                       - t_phase}}))
+    log("failover path checks: the plan's NCCL sub-mesh, compact CC = 4j, "
+        "the service on it = 4g's answers (PPR rtol 1e-5), landmarks "
+        "refreshed after 4f's delta within 1e-4 of 4g's, crash failovers "
+        "of phased CC/SSSP and dense PageRank = 4j, device loss of the one "
+        "rank refused — all agree")
 
 
 # ---------------- phases 4d and 4e: LM serving at full width --------------
@@ -3691,7 +3950,7 @@ def main() -> None:
     k8_err = check_k8(dev)
     (pg, path_launches, incremental_launches, serving_launches,
      checkpoint_launches, observability_launches, mesh_launches,
-     plain_k4) = main_path(dev)
+     failover_launches, plain_k4) = main_path(dev)
     for arch, op, key, piece in LM_PATHS:
         lm_path(dev, path_launches, arch, op, key, piece)
     kernels = kernel_times(dev, pg, path_launches, plain_k4)
@@ -3703,6 +3962,7 @@ def main() -> None:
         row["checkpoint_launches"] = checkpoint_launches[row["name"]]
         row["observability_launches"] = observability_launches[row["name"]]
         row["mesh_launches"] = mesh_launches[row["name"]]
+        row["failover_launches"] = failover_launches[row["name"]]
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -473,13 +473,17 @@ def _mesh_ranks(num_parts: int, backend: str, mesh,
 
 
 def _own_rows(gb: dict, ranks: _Ranks, num_parts: int) -> dict:
-    """A passed device block (a full one, as ``device_block`` uploads
-    it) cut to this rank's rows."""
+    """A passed device block cut to this rank's rows: a full one (as
+    ``device_block`` uploads it) is cut here; one of ``v`` rows is taken
+    as this rank's already (``device_block(rows=)``, the service's shared
+    block on a mesh)."""
     n = gb["vmask"].shape[0]
-    if n != num_parts:
-        raise ValueError(f"a block of {n} partitions for a graph of "
-                         f"{num_parts}")
-    return {k: t[ranks.rows] for k, t in gb.items()}
+    if n == num_parts:
+        return {k: t[ranks.rows] for k, t in gb.items()}
+    if n == ranks.v:
+        return gb
+    raise ValueError(f"a block of {n} partitions for a graph of "
+                     f"{num_parts} on {ranks.D} ranks")
 
 
 class GopherEngine:

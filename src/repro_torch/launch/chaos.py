@@ -1,8 +1,8 @@
 """Gopher Shield chaos CLI — deterministic fault scenarios with parity gates.
 
     PYTHONPATH=src python -m repro_torch.launch.chaos [--quick] \
-        [--device cuda] [--parts 8] [--out chiprun_out/chaos_torch.json] \
-        [--scenarios a,b,...]
+        [--device cuda] [--devices 4] [--parts 8] \
+        [--out chiprun_out/chaos_torch.json] [--scenarios a,b,...]
 
 The port of the JAX package's ``launch/chaos.py``, on the port's engine,
 service and checkpointer, on ``--device`` (the card unless ``cpu`` is
@@ -27,10 +27,16 @@ fault-free reference for idempotent ⊕ programs, allclose for PageRank):
                       sub-graphs move (no full re-partition), and results
                       match the fault-free run (also writes
                       ``balance_torch.json`` next to the main report)
-    device_loss       mid-run device loss on a D-device mesh: it needs the
-                      multi-device backend's device-loss half (ROADMAP
-                      A8.2), so it reports a failed gate naming it; not in
-                      the default list
+    device_loss       mid-run device loss on a ``--devices``-rank mesh:
+                      elastic mesh shrink + announce-floor plan rebuild +
+                      checkpoint resume (resilience.run_with_failover).
+                      Each algorithm runs in a world of its own of
+                      ``--devices`` ranks of this CLI
+                      (``launch.mesh.launch_ranks``: gloo ranks on the
+                      CPU, NCCL ranks on the card, one card each); rank 1
+                      is lost at superstep 2 and leaves, rank 0 reports.
+                      Asked for by name only: the default list runs on
+                      one card
 
 Writes the machine-readable report to ``--out`` only, and exits non-zero
 if any scenario failed its recovery or parity gate.
@@ -46,8 +52,8 @@ import time
 
 _ALL = ("device_loss", "corrupt_snapshot", "failed_delta", "corrupt_block",
         "straggler", "poisoned_query", "skew_heal")
-# device_loss needs the mesh's device-loss half (ROADMAP A8.2): asked for
-# by name only
+# device_loss needs --devices ranks (on cuda as many cards): asked for by
+# name only
 _DEFAULT = tuple(s for s in _ALL if s != "device_loss")
 
 
@@ -64,6 +70,12 @@ def _parse(argv=None):
     ap.add_argument("--out", default="chiprun_out/chaos_torch.json")
     ap.add_argument("--scenarios", default=",".join(_DEFAULT),
                     help="comma-separated subset of: " + ", ".join(_ALL))
+    ap.add_argument("--devices", type=int, default=4,
+                    help="the ranks of device_loss's mesh")
+    # a rank of a device_loss world (set by the command itself)
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--rendezvous", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--algo", default=None, help=argparse.SUPPRESS)
     return ap.parse_args(argv)
 
 
@@ -105,10 +117,79 @@ def _state_parity(a, b, exact):
 # ---------------------------------------------------------------- scenarios
 
 def scenario_device_loss(args):
-    """Mid-run device loss on a D-device mesh -> shrink + resume. The
-    mesh-shrink failover waits for ROADMAP A8.2."""
-    return {"ok": False,
-            "error": "needs the mesh's device-loss half: ROADMAP A8.2"}
+    """Mid-run device loss on a D-rank mesh -> shrink + resume, parity:
+    one world of ``--devices`` ranks an algorithm, each rank running
+    :func:`_device_loss_rank`; rank 0's result file is the algorithm's."""
+    from repro_torch.launch.mesh import launch_ranks
+    algos = ("cc", "pagerank") if args.quick else ("cc", "sssp", "pagerank")
+    out = {"ok": True, "algos": {}}
+    with tempfile.TemporaryDirectory(prefix="chaos_loss_") as d:
+        for algo in algos:
+            path = os.path.join(d, f"{algo}.json")
+            launch_ranks("repro_torch.launch.chaos", [
+                "--device", args.device, "--devices", str(args.devices),
+                "--parts", str(args.parts), "--rows", str(args.rows),
+                "--cols", str(args.cols), "--seed", str(args.seed),
+                "--algo", algo, "--out", path], args.devices, args.device)
+            with open(path) as f:
+                res = json.load(f)
+            out["algos"][algo] = res
+            out["ok"] = out["ok"] and res["parity"] and res["shrank"]
+    return out
+
+
+def _device_loss_rank(args) -> None:
+    """One rank of a device_loss world: the algorithm checkpointed on the
+    phased exchange over the world's mesh, rank 1 lost at superstep 2
+    through ``run_with_failover``; a rank off the shrunk mesh leaves at
+    once, rank 0 checks parity with a fault-free 'local' run and writes
+    the result to ``--out``."""
+    import torch.distributed as dist
+
+    from repro_torch.core import (GopherEngine, PhasedTierPlan,
+                                  host_graph_block)
+    from repro_torch.launch.mesh import init_rank
+    from repro_torch.resilience import faults, run_with_failover
+    from repro_torch.training.checkpoint import Checkpointer
+    if args.device == "cpu":
+        import torch
+        torch.set_num_threads(1)      # the world's ranks share the cores
+    mesh = init_rank(args.rank, args.devices, args.rendezvous, args.device)
+    try:
+        _, pg = _graph(args)
+        prog = _program(args.algo, pg)
+        hb = host_graph_block(pg)
+        eng = GopherEngine(pg, prog, backend="shard_map", mesh=mesh,
+                           exchange="phased",
+                           tier_plan=PhasedTierPlan.from_block(hb),
+                           device=args.device)
+        plan = faults.FaultPlan([faults.FaultSpec(
+            "engine.superstep", "device_loss", at=2,
+            payload={"lost": [1]})], seed=args.seed)
+        # the snapshots sit beside the rendezvous file, which every rank
+        # reaches
+        ck = Checkpointer(os.path.join(os.path.dirname(args.rendezvous),
+                                       f"ck_{args.algo}"))
+        with faults.inject(plan):
+            eng2, state, tele, rep = run_with_failover(eng, ck, every=1,
+                                                       host_gb=hb)
+        if args.rank != 0 or eng2 is None:
+            return
+        ref, _ = GopherEngine(pg, prog, exchange="dense",
+                              device=args.device).run()
+        res = {"parity": _state_parity(state, ref,
+                                       exact=args.algo != "pagerank"),
+               "shrank": (rep.new_num_devices is not None
+                          and rep.new_num_devices < rep.old_num_devices),
+               "old_devices": rep.old_num_devices,
+               "new_devices": rep.new_num_devices,
+               "lost_partitions": rep.lost_partitions,
+               "restarts": rep.restarts, "supersteps": int(tele.supersteps),
+               "fired": plan.record()}
+        with open(args.out, "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
 
 
 def scenario_corrupt_snapshot(args):
@@ -354,6 +435,9 @@ _SCENARIOS = {
 
 def main(argv=None) -> int:
     args = _parse(argv)
+    if args.rank is not None:
+        _device_loss_rank(args)
+        return 0
     names = [s for s in str(args.scenarios).split(",") if s]
     unknown = [s for s in names if s not in _SCENARIOS]
     if unknown:

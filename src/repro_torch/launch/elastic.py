@@ -1,11 +1,14 @@
 """Elastic scaling: re-derive the mesh from the surviving device count, and
 Gopher Scope's rebalance hint.
 
-The port of the JAX package's ``launch/elastic.py``, its host half:
+The port of the JAX package's ``launch/elastic.py``.
 :func:`plan_mesh`, :func:`shrink_after_failure` and :func:`rebalance_hint`
-are pure Python, with the same answers. Building a mesh from a plan
-(``MeshPlan.make``) and re-sharding a checkpoint onto it (:func:`restart`)
-wait for ROADMAP A8.2 (the mesh's device-loss half) and raise naming it.
+are pure Python, with the same answers. ``MeshPlan.make`` builds a
+one-axis plan's mesh over the first ranks of the default process group
+(``launch.mesh.sub_mesh``), as the JAX package takes the first devices;
+:func:`restart` re-shards a snapshot onto it, each rank restoring its
+rows. The (pod, data, model) meshes and the pspecs that name their axes
+are the LM half's (ROADMAP A8.3) and raise naming it.
 
 Policy: keep TP ('model') fixed at the per-arch value (it is matched to
 head / expert divisibility), shrink/grow DP ('data'); the pod axis absorbs
@@ -16,11 +19,28 @@ because the GoFS partition count is decoupled from the device count
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
-_NEEDS_MESH = ("re-deriving a mesh after device loss is not ported yet: "
-               "ROADMAP A8.2 (the multi-device backend's service and "
-               "device-loss half)")
+import torch.distributed as dist
+
+from repro_torch.launch.mesh import sub_mesh
+
+_NEEDS_LM = ("meshes and pspecs over the ('pod', 'data', 'model') axes are "
+             "not ported yet: ROADMAP A8.3 (the LM half of the multi-device "
+             "backend: models/sharding.py, training/shardspec.py)")
+
+
+class PartitionSpec(tuple):
+    """How a leaf lies on a mesh, as far as :func:`restart` reads the JAX
+    package's ``PartitionSpec``: one entry per leading dimension, an axis
+    name or None (not split); the empty spec is replicated."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple(self)!r}"
 
 
 @dataclasses.dataclass
@@ -28,8 +48,17 @@ class MeshPlan:
     shape: Tuple[int, ...]
     axes: Tuple[str, ...]
 
-    def make(self):
-        raise NotImplementedError(_NEEDS_MESH)
+    def make(self, device="cuda"):
+        """The plan's mesh over the first ``prod(shape)`` ranks of the
+        default group; None on the ranks after them (which take no part).
+        One axis only: the LM meshes are ROADMAP A8.3."""
+        if len(self.axes) != 1:
+            raise NotImplementedError(_NEEDS_LM)
+        n = math.prod(self.shape)
+        if n > dist.get_world_size():
+            raise ValueError(f"a mesh of {n} ranks in a world of "
+                             f"{dist.get_world_size()}")
+        return sub_mesh(range(n), self.axes, device)
 
 
 def plan_mesh(n_chips: int, model_parallel: int = 16,
@@ -104,6 +133,57 @@ def rebalance_hint(skew: dict, threshold: float = 1.5,
                 wasted_speedup_pct=round((1.0 - 1.0 / imb) * 100.0, 1))
 
 
-def restart(checkpointer, state_like, plan: MeshPlan, pspecs):
-    """Re-shard the last committed checkpoint onto the new mesh."""
-    raise NotImplementedError(_NEEDS_MESH)
+def _spec_leaves(like, spec) -> list:
+    """The pspec of each leaf of ``like``, in the checkpoint's leaf order:
+    ``spec`` has ``like``'s structure down to a PartitionSpec (or None,
+    replicated), which holds for every leaf under it."""
+    from repro_torch.training.checkpoint import _leaves_with_paths
+    if spec is None or isinstance(spec, PartitionSpec):
+        return [spec or PartitionSpec()] * len(_leaves_with_paths(like))
+    if isinstance(like, dict):
+        return [s for k in sorted(like) for s in _spec_leaves(like[k],
+                                                              spec[k])]
+    if isinstance(like, (list, tuple)):
+        return [s for v, sp in zip(like, spec) for s in _spec_leaves(v, sp)]
+    raise TypeError(f"a pspec leaf is a PartitionSpec or None, got {spec!r}")
+
+
+def restart(checkpointer, state_like, plan: MeshPlan, pspecs,
+            device="cuda"):
+    """Re-shard the last committed checkpoint onto the plan's mesh.
+    Returns ``(mesh, state, step)``: each leaf whose pspec splits its
+    leading axis over ``'parts'`` holds this rank's rows of it
+    (``Checkpointer.restore(rows=)``), a replicated leaf is whole. A rank
+    outside the mesh gets ``(None, None, None)``."""
+    from repro_torch.training.checkpoint import (_leaves_with_paths,
+                                                 _rebuild)
+    specs = _spec_leaves(state_like, pspecs)
+    if plan.axes != ("parts",) or any(a not in (None, "parts")
+                                      for s in specs for a in s):
+        raise NotImplementedError(_NEEDS_LM)
+    if any(a is not None for s in specs for a in s[1:]):
+        raise ValueError("only a leaf's leading axis splits over 'parts'")
+    split = [bool(s) and s[0] == "parts" for s in specs]
+    leaves = [leaf for _, leaf in _leaves_with_paths(state_like)]
+    sizes = {int(x.shape[0]) for x, sp in zip(leaves, split) if sp}
+    mesh = plan.make(device)
+    if mesh is None:
+        return None, None, None
+    D, me = mesh.size(), mesh.get_local_rank()
+    if len(sizes) > 1 or any(n % D for n in sizes):
+        raise ValueError(f"leading axes {sorted(sizes)} do not tile a mesh "
+                         f"of {D}")
+    step = checkpointer.latest_step()
+    picked = {}
+    for sp in (True, False):     # each restore reads only its own leaves
+        if sp not in split:
+            continue
+        like = _rebuild(state_like, iter(x if s == sp else None
+                                         for x, s in zip(leaves, split)))
+        v = sizes.pop() // D if sp else None
+        got, _ = checkpointer.restore(
+            like, step=step, device=device,
+            rows=slice(me * v, (me + 1) * v) if sp else None)
+        picked[sp] = iter([x for _, x in _leaves_with_paths(got)])
+    state = _rebuild(state_like, (next(picked[sp]) for sp in split))
+    return mesh, state, step

@@ -23,9 +23,10 @@ kernels' device time on the card) into that directory.
 ``--backend shard_map --devices N`` runs the traced run on a mesh of N
 ranks: the command starts N processes of itself (gloo ranks on ``--device
 cpu``; NCCL ranks on ``cuda``, one card each, so N must not exceed the
-cards present), rendezvousing through a file in a temporary directory.
-Every rank traces; rank 0 prints the report and writes the three files,
-and the command fails if any rank does.
+cards present), rendezvousing through a file in a temporary directory
+(``launch.mesh.launch_ranks``). Every rank traces; rank 0 prints the
+report and writes the three files, and the command fails if any rank
+does or if the ranks outlast the launcher's deadline.
 """
 from __future__ import annotations
 
@@ -33,6 +34,8 @@ import argparse
 import json
 import os
 import sys
+
+from repro_torch.launch.mesh import init_rank, launch_ranks
 
 
 def _parse(argv=None):
@@ -102,58 +105,15 @@ def _build(args, mesh=None):
     return eng, tracer
 
 
-def _launch_ranks(argv, args) -> None:
-    """Start ``--devices`` ranks of this command and wait for them; rank
-    0's standard output becomes this process's. Raises if any rank
-    failed."""
-    import subprocess
-    import tempfile
-
-    import torch
-    if args.device.startswith("cuda") and (
-            args.devices > torch.cuda.device_count()):
-        raise ValueError(f"--devices {args.devices} on cuda needs as many "
-                         f"cards; {torch.cuda.device_count()} present")
-    src = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (src, env.get("PYTHONPATH")) if p)
-    with tempfile.TemporaryDirectory(prefix="scope_rdv_") as tmp:
-        procs = [subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.scope", *argv,
-             "--rank", str(r), "--rendezvous", os.path.join(tmp, "rdv")],
-            env=env, stdout=subprocess.PIPE if r == 0 else subprocess.DEVNULL,
-            text=True) for r in range(args.devices)]
-        out, _ = procs[0].communicate()
-        rcs = [procs[0].returncode] + [p.wait() for p in procs[1:]]
-    sys.stdout.write(out)
-    if any(rcs):
-        raise RuntimeError(f"scope ranks exited with {rcs}")
-
-
-def _rank_mesh(args):
-    """This rank's process group (gloo on the CPU, NCCL on the card) and
-    its one-axis mesh."""
-    import torch
-    import torch.distributed as dist
-
-    from repro_torch.launch.mesh import make_mesh
-    cuda = args.device.startswith("cuda")
-    dist.init_process_group(
-        "nccl" if cuda else "gloo", init_method=f"file://{args.rendezvous}",
-        rank=args.rank, world_size=args.devices,
-        **({"device_id": torch.device("cuda", args.rank)} if cuda else {}))
-    return make_mesh((args.devices,), ("parts",), device=args.device)
-
-
 def main(argv=None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = _parse(argv)
     if args.backend == "shard_map" and args.rank is None:
-        _launch_ranks(argv, args)
+        sys.stdout.write(launch_ranks("repro_torch.launch.scope", argv,
+                                      args.devices, args.device))
         return
-    mesh = _rank_mesh(args) if args.backend == "shard_map" else None
+    mesh = (init_rank(args.rank, args.devices, args.rendezvous, args.device)
+            if args.backend == "shard_map" else None)
     try:
         _report(args, *_build(args, mesh))
     finally:

@@ -54,6 +54,14 @@ def recover(engine, checkpointer, every: int = 1, extra: Optional[dict] = None
                       resume=True, extra=extra)
 
 
+def _latest_good(ck) -> Optional[int]:
+    """The step a restart resumes from: the newest snapshot that passes
+    its checksums (the newest committed one for a checkpointer without
+    verification); None for a cold start."""
+    return (ck.latest_good_step() if hasattr(ck, "latest_good_step")
+            else ck.latest_step())
+
+
 def run_with_recovery(engine, checkpointer, every: int = 1,
                       extra: Optional[dict] = None, max_restarts: int = 3,
                       recoverable: tuple = (_faults.CrashFault,)):
@@ -82,7 +90,7 @@ def run_with_recovery(engine, checkpointer, every: int = 1,
             if isinstance(e, _faults.InjectedFault):
                 report.faults.append(dict(site=e.site, kind=e.kind,
                                           visit=e.visit))
-            report.resumed_steps.append(checkpointer.latest_good_step())
+            report.resumed_steps.append(_latest_good(checkpointer))
             engine.metrics.counter(
                 "recovery_restarts_total",
                 labels={"backend": engine.backend}).inc()

@@ -30,9 +30,21 @@ migrate sub-graphs off a straggler partition (Gopher Balance).
 The service feeds the ``serving_*`` counters, histograms and gauges of
 the JAX package's service into its metrics registry (``metrics=``, or the
 process default); its pooled engines feed the default registry, as the
-JAX package's do. What the port leaves out: ``backend='shard_map'`` or a
-``mesh`` (ROADMAP A8.2, which raise). Engines run on ``device`` (the card
-unless the caller passes ``device='cpu'``).
+JAX package's do. Engines run on ``device`` (the card unless the caller
+passes ``device='cpu'``).
+
+On a mesh (``backend='shard_map', mesh=`` a one-axis ``('parts',)``
+``DeviceMesh``, ``launch.mesh``) the service is SPMD, as the engine is:
+every rank builds the same service and submits the same requests, and
+each holds only its rows of each graph's shared device block
+(``device_block(rows=)``). Pooled engines run the phased exchange on a
+mesh of several ranks, with the graph's ``PhasedTierPlan`` built from the
+host block's profiles and replaced by any escalation, and 'auto' on one
+rank (see :meth:`GraphQueryService._exchange_mode`). What gates an engine
+run agrees on every rank, or the ranks would part at a collective: the
+deadline admission reads rank 0's ages of the requests, the breakers read
+rank 0's clock, and a batch attempt that failed on any rank failed on
+all (one all_reduce an attempt).
 """
 from __future__ import annotations
 
@@ -42,13 +54,16 @@ from collections import deque
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
-from repro_torch.core import (GopherEngine, device_block, host_graph_block,
-                              resolve_device, update_changed_profile,
-                              update_phase_profile, update_profile,
-                              verify_host_block)
+from repro_torch.core import (GopherEngine, PhasedTierPlan, device_block,
+                              host_graph_block, resolve_device,
+                              update_changed_profile, update_phase_profile,
+                              update_profile, verify_host_block)
 from repro_torch.gofs.formats import PartitionedGraph
 from repro_torch.gofs.temporal import DeltaValidationError
+from repro_torch.launch.mesh import check_group
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.skew import SkewTracker
 from repro_torch.resilience import faults as _faults
@@ -188,11 +203,22 @@ class GraphQueryService:
                  retry_base_s: float = 0.05, breaker_threshold: int = 3,
                  breaker_cooldown_s: float = 30.0, clock=time.monotonic,
                  device="cuda"):
-        if backend != "local" or mesh is not None:
-            raise NotImplementedError(
-                "the service on a mesh is not ported yet: ROADMAP A8.2 (the "
-                "multi-device backend's service and device-loss half)")
         self.device = resolve_device(device)
+        if backend not in ("local", "shard_map"):
+            raise ValueError(f"unknown backend {backend!r}")
+        if (backend == "shard_map") != (mesh is not None):
+            raise ValueError("backend='shard_map' and a mesh go together")
+        self._group = None
+        if mesh is not None:
+            if mesh.ndim != 1 or mesh.device_type != self.device.type:
+                raise ValueError(f"the service runs on a one-axis "
+                                 f"{self.device.type} mesh")
+            self._group = mesh.get_group()
+            check_group(self._group, self.device)
+            own_clock = clock
+
+            def clock():  # every rank's breakers read one clock: rank 0's
+                return self._on_rank0([own_clock()])[0]
         self.graphs = dict(graphs)
         self.backend = backend
         self.mesh = mesh
@@ -222,6 +248,7 @@ class GraphQueryService:
         self.skew: Dict[str, SkewTracker] = {}
         self._gb: Dict[str, dict] = {}       # device graph blocks
         self._host_gb: Dict[str, dict] = {}  # patchable host twins (temporal)
+        self._tier_plans: Dict[str, PhasedTierPlan] = {}  # Gopher Phases plans
         self._engines: Dict[tuple, GopherEngine] = {}
         self._pending: List[Request] = []
         self._next_ticket = 0
@@ -255,6 +282,7 @@ class GraphQueryService:
         self.cache.invalidate(lambda k: k[0][0] == name)
         self._gb.pop(name, None)
         self._host_gb.pop(name, None)
+        self._tier_plans.pop(name, None)
         self._engines = {k: e for k, e in self._engines.items()
                          if k[0] != name}
         self.landmark_caches.pop(name, None)
@@ -351,19 +379,27 @@ class GraphQueryService:
                 {"problems": "; ".join(problems[:3])})
         self.update_graph(name, res.pg)
         self._host_gb[name] = res.block
-        self._gb[name] = device_block(res.block, self.device, binned=True)
+        self._gb[name] = self._upload(name, res.block)
         if rebuild_landmarks and old_lc is not None:
             if old_lc.drifted():
                 self.landmark_caches[name] = LandmarkCache.build(
                     res.pg, num_landmarks=old_lc.num_landmarks,
-                    strategy=old_lc.strategy, gb=self._gb[name],
-                    device=self.device)
+                    strategy=old_lc.strategy, backend=self.backend,
+                    mesh=self.mesh, gb=self._gb[name], device=self.device)
                 self.stats.landmark_rebootstraps += 1
                 self.metrics.counter("serving_landmark_rebootstraps_total",
                                      labels={"graph": name}).inc()
             else:
+                # on a phased service the refresh, a narrow-frontier
+                # resume, rides the narrow-only single-phase plan
+                exchange, plan = "auto", None
+                if self._exchange_mode() == "phased":
+                    exchange = "phased"
+                    plan = PhasedTierPlan.narrow_resume(res.block)
                 self.landmark_caches[name] = old_lc.refresh(
-                    res.pg, res, delta, directed=directed, gb=self._gb[name],
+                    res.pg, res, delta, directed=directed,
+                    backend=self.backend, mesh=self.mesh, gb=self._gb[name],
+                    exchange=exchange, tier_plan=plan,
                     profile_block=res.block, device=self.device)
         if self.warm_start:
             self.warm(name)
@@ -442,7 +478,7 @@ class GraphQueryService:
             return None
         self.update_graph(name, res.pg)
         self._host_gb[name] = res.block
-        self._gb[name] = device_block(res.block, self.device, binned=True)
+        self._gb[name] = self._upload(name, res.block)
         # the accumulated load picture described the PRE-move layout; reset
         # so the next decision reads post-move telemetry, not stale skew
         self.skew[name] = SkewTracker(num_parts=pg.num_parts,
@@ -494,18 +530,19 @@ class GraphQueryService:
 
         # 1. per-query deadline admission: a request that already overran
         # its SLO is answered with a typed error instead of occupying an
-        # engine lane; then the exact-cache pass and the dedupe of
-        # identical in-flight queries
+        # engine lane (on a mesh by rank 0's ages, so every rank admits
+        # alike); then the exact-cache pass and the dedupe of identical
+        # in-flight queries
+        ages = ([] if self.deadline_s is None
+                else self._on_rank0([t0 - r.t_submit for r in reqs]))
         by_key: Dict[tuple, List[Request]] = {}
-        for r in reqs:
-            if (self.deadline_s is not None
-                    and t0 - r.t_submit > self.deadline_s):
+        for i, r in enumerate(reqs):
+            if ages and ages[i] > self.deadline_s:
                 self.stats.deadline_misses += 1
                 self.metrics.counter("serving_deadline_misses_total").inc()
                 responses[r.ticket] = Response(
                     ticket=r.ticket, query=r.query, result=None,
-                    error="deadline exceeded",
-                    latency_s=t0 - r.t_submit)
+                    error="deadline exceeded", latency_s=ages[i])
                 continue
             key = self._cache_key(r.query)
             hit = self.cache.get(key)
@@ -608,29 +645,33 @@ class GraphQueryService:
             if not br.allow():
                 raise RuntimeError(f"circuit open for graph "
                                    f"{batch.graph!r} ({br.opens} opens)")
+            err = None
             try:
                 _faults.fire("svc.query", graph=batch.graph,
                              family=batch.family, attempt=attempt)
                 out = self._run_batch_once(batch)
-            except Exception as e:
-                last = e
-                opens = br.opens
-                br.record_failure()
-                if br.opens > opens:
-                    self.stats.breaker_opens += 1
-                    self.metrics.counter("serving_breaker_opens_total",
-                                         labels={"graph": batch.graph}).inc()
-                self.stats.query_retries += 1
-                self.metrics.counter("serving_query_retries_total",
-                                     labels={"graph": batch.graph}).inc()
-            else:
+            except Exception as e:  # serving-loop boundary: degrade
+                err = e
+            if self._any(err is not None) and err is None:
+                err = RuntimeError("the batch failed on another rank")
+            if err is None:
                 br.record_ok()
                 if attempt:
                     self.stats.recoveries += 1
                     self.metrics.counter(
                         "serving_recoveries_total",
                         labels={"graph": batch.graph, "site": "query"}).inc()
-                return out
+                return self._account(batch, *out)
+            last = err
+            opens = br.opens
+            br.record_failure()
+            if br.opens > opens:
+                self.stats.breaker_opens += 1
+                self.metrics.counter("serving_breaker_opens_total",
+                                     labels={"graph": batch.graph}).inc()
+            self.stats.query_retries += 1
+            self.metrics.counter("serving_query_retries_total",
+                                 labels={"graph": batch.graph}).inc()
             if attempt < self.max_retries:
                 time.sleep(delays[attempt])
         raise last
@@ -643,6 +684,9 @@ class GraphQueryService:
         return {"qinit": reachability_query_init(pg, lanes)}, "x"
 
     def _run_batch_once(self, batch: pl.Batch):
+        """One batched engine run: (the (Q, n) results, the telemetry, the
+        engine). What it teaches the service is folded in by
+        :meth:`_account`, once the attempt has succeeded on every rank."""
         pg = self.graphs[batch.graph]
         Q = batch.padded_q
         # pad lanes replay query 0; their results are sliced away below
@@ -651,7 +695,13 @@ class GraphQueryService:
             pg, batch.family, [q.sources for q in lanes])
         eng = self._engine(batch.graph, batch.family, Q)
         state, tele = eng.run_queries(extra=extra)
-        results = gather_query_results(pg, state[state_key])
+        return gather_query_results(pg, state[state_key]), tele, eng
+
+    def _account(self, batch: pl.Batch, results, tele, eng):
+        """Fold a served batch into the stats, the graph's skew tracker and
+        metrics, its host block's traffic profiles and, after an
+        escalation, its tier plan; returns the batch's results and each
+        query's own convergence superstep."""
         self.stats.batches += 1
         self.stats.engine_supersteps += tele.supersteps
         self.stats.lane_fill.append(batch.fill)
@@ -677,6 +727,15 @@ class GraphQueryService:
             if tele.phase_pair_slots is not None:
                 update_phase_profile(host, tele.phase_pair_slots,
                                      tele.phase_hist)
+        # an overflow escalation the engine applied: freshly pooled
+        # engines, and the graph's other pooled tier engines, start from
+        # the promoted plan
+        if tele.escalations:
+            self._tier_plans[batch.graph] = eng.tier_plan
+            for key, other in self._engines.items():
+                if (key[0] == batch.graph
+                        and other.exchange in ("tiered", "phased")):
+                    other.tier_plan = eng.tier_plan
         return results[:len(batch.queries)], tele.query_supersteps
 
     def _graph_block(self, graph: str) -> dict:
@@ -688,13 +747,66 @@ class GraphQueryService:
                 host = host_graph_block(self.graphs[graph])
                 self._host_gb[graph] = host   # keep the patchable twin for
                                               # the next apply_delta
-            self._gb[graph] = device_block(host, self.device, binned=True)
+            self._gb[graph] = self._upload(graph, host)
         return self._gb[graph]
 
+    def _upload(self, graph: str, host: dict) -> dict:
+        """``host`` as the graph's device block with the binned adjacency:
+        on a mesh this rank's rows [r·v, (r+1)·v) only."""
+        rows = slice(None)
+        if self.mesh is not None:
+            v = self.graphs[graph].num_parts // self.mesh.size()
+            me = self.mesh.get_local_rank()
+            rows = slice(me * v, (me + 1) * v)
+        return device_block(host, self.device, binned=True, rows=rows)
+
+    # ---------------- agreement over the mesh ----------------
+    def _on_rank0(self, values: list) -> list:
+        """``values`` (floats, as many on every rank) as the mesh's rank 0
+        has them; as they are without a mesh."""
+        if self._group is None or not values:
+            return values
+        t = torch.tensor(values, dtype=torch.float64, device=self.device)
+        dist.broadcast(t, src=dist.get_global_rank(self._group, 0),
+                       group=self._group)
+        return t.tolist()
+
+    def _any(self, flag: bool) -> bool:
+        """Whether ``flag`` holds on any rank of the mesh."""
+        if self._group is None:
+            return flag
+        t = torch.tensor([int(flag)], device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._group)
+        return bool(t.item())
+
+    # ---------------- the pooled engines ----------------
+    def _exchange_mode(self) -> str:
+        """The exchange pooled engines run: 'phased' (Gopher Phases) on a
+        mesh of several ranks — the per-graph plans ride the host blocks'
+        traffic and changed-histogram profiles — and 'auto' everywhere
+        else (the fused route or dense on 'local', dense on a one-rank
+        mesh, where compaction is pure overhead)."""
+        if self.mesh is None:
+            return "auto"
+        return "phased" if self.mesh.size() > 1 else "auto"
+
+    def _tier_plan(self, graph: str) -> Optional[PhasedTierPlan]:
+        """The graph's current Gopher Phases plan (a mesh of several ranks
+        only): built from the host block's profiles, kept until a version
+        bump or an escalation replaces it."""
+        if self._exchange_mode() != "phased":
+            return None
+        if graph not in self._tier_plans:
+            self._graph_block(graph)          # builds the host twin
+            self._tier_plans[graph] = PhasedTierPlan.from_block(
+                self._host_gb[graph])
+        return self._tier_plans[graph]
+
     def _engine(self, graph: str, family: str, Q: int) -> GopherEngine:
-        """The pooled engine of (graph, family, bucket). ``exchange='auto'``
-        resolves to the fused route for the traversal family and to the
-        staged dense route for PPR."""
+        """The pooled engine of (graph, family, bucket), on the exchange
+        :meth:`_exchange_mode` gives. On 'local', 'auto' resolves to the
+        fused route for the traversal family and to the staged dense route
+        for PPR."""
         key = (graph, family, Q)
         if key not in self._engines:
             pg = self.graphs[graph]
@@ -708,8 +820,10 @@ class GraphQueryService:
                                               num_queries=Q)
                 max_ss = 4096
             self._engines[key] = GopherEngine(
-                pg, prog, max_supersteps=max_ss,
-                gb=self._graph_block(graph), device=self.device)
+                pg, prog, backend=self.backend, mesh=self.mesh,
+                max_supersteps=max_ss, gb=self._graph_block(graph),
+                exchange=self._exchange_mode(),
+                tier_plan=self._tier_plan(graph), device=self.device)
         return self._engines[key]
 
     def warm(self, name: str, families=("reach",), qs=(1,)) -> int:
@@ -717,18 +831,31 @@ class GraphQueryService:
         vertex 0, off the request path: it builds the pooled engine and its
         composed mailbox, the kernels, and primes PyTorch's caching
         allocator (there is no ahead-of-time compile to do, so this is the
-        JAX package's fallback of one real run). A query kind names its
-        family (``reach`` warms the traversal engine). ``qs`` entries are
-        the planner's padded bucket sizes. Returns the number of batches
-        run; the stats do not count them."""
+        JAX package's fallback of one real run). On a phased service each
+        engine also runs once on the narrow-resume plan, the one the
+        landmark refresh rides after every ``apply_delta``. A query kind
+        names its family (``reach`` warms the traversal engine). ``qs``
+        entries are the planner's padded bucket sizes. Returns the number
+        of batches run; the stats do not count them."""
         pg = self.graphs[name]
         done = 0
         for family in families:
             family = pl.FAMILY_OF_KIND.get(family, family)
             for Q in qs:
                 extra, _ = self._query_arrays(pg, family, [(0,)] * Q)
-                self._engine(name, family, Q).run_queries(extra=extra)
-                done += 1
+                eng = self._engine(name, family, Q)
+                plans = [eng.tier_plan]
+                if self._exchange_mode() == "phased":
+                    plans.append(PhasedTierPlan.narrow_resume(
+                        self._host_gb[name]))
+                saved = eng.tier_plan
+                try:
+                    for plan in plans:
+                        eng.tier_plan = plan
+                        eng.run_queries(extra=extra)
+                        done += 1
+                finally:
+                    eng.tier_plan = saved
         self.metrics.counter("serving_warm_compiles_total",
                              labels={"graph": name}).inc(done)
         return done
@@ -740,7 +867,8 @@ class GraphQueryService:
         graph's shared block."""
         lc = LandmarkCache.build(self.graphs[graph],
                                  num_landmarks=num_landmarks,
-                                 strategy=strategy,
+                                 strategy=strategy, backend=self.backend,
+                                 mesh=self.mesh,
                                  gb=self._graph_block(graph),
                                  device=self.device)
         self.landmark_caches[graph] = lc

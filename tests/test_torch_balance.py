@@ -304,8 +304,10 @@ def test_service_hooks_and_rebalance_match_jax(strip):
 def test_chaos_quick_on_the_cpu(tmp_path):
     """Every default scenario passes its gates on the CPU; ``skew_heal``
     migrates and halves the imbalance at least, and its side file sits
-    beside the report, in a directory the CLI makes; ``device_loss`` is a
-    failed gate naming A8."""
+    beside the report, in a directory the CLI makes; ``device_loss``,
+    asked for by name, passes on 4 gloo ranks: each algorithm's mesh
+    shrinks from 4 ranks to 2 with partitions [2, 3] lost, one restart,
+    results equal to the fault-free run."""
     out = tmp_path / "reports" / "chaos.json"
     assert chaos.main(["--quick", "--device", "cpu", "--out", str(out)]) == 0
     rep = json.loads(out.read_text())
@@ -317,6 +319,10 @@ def test_chaos_quick_on_the_cpu(tmp_path):
     assert (tmp_path / "reports" / "balance_torch.json").exists()
     lost = tmp_path / "lost.json"
     assert chaos.main(["--quick", "--device", "cpu", "--out", str(lost),
-                       "--scenarios", "device_loss"]) == 1
-    assert "A8" in json.loads(lost.read_text())["scenarios"][
-        "device_loss"]["error"]
+                       "--scenarios", "device_loss", "--devices", "4"]) == 0
+    loss = json.loads(lost.read_text())["scenarios"]["device_loss"]
+    assert loss["ok"] and sorted(loss["algos"]) == ["cc", "pagerank"]
+    for r in loss["algos"].values():
+        assert r["parity"] and r["restarts"] == 1
+        assert (r["old_devices"], r["new_devices"]) == (4, 2)
+        assert r["lost_partitions"] == [2, 3]

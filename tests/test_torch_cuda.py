@@ -1153,3 +1153,110 @@ def test_mesh_one_nccl_rank_equals_local(cuda_device, tmp_path):
             make_mesh((1,), ("parts",), device="cpu")
     finally:
         dist.destroy_process_group()
+
+
+def _nccl_world(tmp_path):
+    """A world of one NCCL rank on this card (rendezvous through a file)."""
+    import torch.distributed as dist
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp_path}/rdv", rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+
+
+def test_mesh_service_one_nccl_rank_equals_local(cuda_device, tmp_path):
+    """``GraphQueryService(backend='shard_map')`` on the mesh
+    ``MeshPlan((1,), ('parts',)).make`` builds over an NCCL subgroup of a
+    one-rank world: a stream of SSSP, BFS, reachability and PPR queries,
+    landmarks refreshed after a delta, ``warm`` and a post-delta query
+    equal the 'local' service on the card (min/max bit-equal with the
+    queries' supersteps, PPR rtol 1e-5); its pooled engines run 'dense',
+    whose batched sweeps are torch ops, and launch what the 'local'
+    service's do."""
+    import torch.distributed as dist
+
+    from repro_torch.gofs import EdgeDelta
+    from repro_torch.launch.elastic import MeshPlan
+    from repro_torch.serving import GraphQueryService
+    pg = _serving_graph()[1]
+    stream = [("sssp", 0), ("bfs", 1700), ("reach", (5, 3000)), ("ppr", 9),
+              ("sssp", 2222)]
+    delta = EdgeDelta.inserts([0, 7], [3500, 1200], [1.0, 2.0])
+
+    def drive(svc):
+        for kind, src in stream:
+            svc.submit(kind, "g", src)
+        _build.reset_launches()
+        res = svc.drain()
+        launches = dict(_build.launches)
+        svc.enable_landmarks("g", 4)
+        svc.apply_delta("g", delta, rebuild_landmarks=True)
+        return (res, launches, svc.landmark_caches["g"].dist,
+                svc.warm("g"), svc.query("sssp", "g", 2222).result)
+
+    want = drive(GraphQueryService({"g": pg}, device=cuda_device))
+    _nccl_world(tmp_path)
+    try:
+        mesh = MeshPlan((1,), ("parts",)).make(device="cuda")
+        assert mesh.get_group() is not dist.group.WORLD
+        assert dist.get_backend(mesh.get_group()) == "nccl"
+        svc = GraphQueryService({"g": pg}, backend="shard_map", mesh=mesh,
+                                device=cuda_device)
+        got = drive(svc)
+        assert all(e.exchange == "dense" for e in svc._engines.values())
+    finally:
+        dist.destroy_process_group()
+    for t, w in want[0].items():
+        r = got[0][t]
+        assert (r.error, r.cached, r.supersteps) == (w.error, w.cached,
+                                                     w.supersteps), t
+        np.testing.assert_allclose(r.result, w.result, rtol=1e-5, atol=0)
+        if w.query.kind != "ppr":
+            assert np.array_equal(r.result, w.result), t
+    assert got[1] == want[1]
+    assert np.array_equal(got[2], want[2]) and got[3] == want[3] == 1
+    assert np.array_equal(got[4], want[4])
+
+
+def test_mesh_failover_one_nccl_rank(cuda_device, tmp_path):
+    """``run_with_failover`` on a one-NCCL-rank mesh: a crash at superstep
+    2 of a checkpointed compact CC and SSSP restarts in place, bit-equal
+    to the 'local' recovered run with the same report, launching K2 and
+    K5; device loss of the one rank raises ``ValueError`` (every device
+    lost)."""
+    from repro_torch.launch.elastic import MeshPlan
+    from repro_torch.resilience import faults, run_with_failover
+    from repro_torch.training.checkpoint import Checkpointer
+    pg = _serving_graph()[1]
+
+    def fail_over(algo, kind, d, **kw):
+        eng = GopherEngine(pg, _ck_program(algo, pg), exchange="compact",
+                           device=cuda_device, **kw)
+        plan = faults.FaultPlan([faults.FaultSpec(
+            "engine.superstep", kind, at=2, payload={"lost": [0]})])
+        _build.reset_launches()
+        with faults.inject(plan):
+            out = run_with_failover(eng, Checkpointer(str(d)), every=1)
+        return out + (dict(_build.launches),)
+
+    want = {a: fail_over(a, "crash", tmp_path / f"local_{a}")
+            for a in ("cc", "sssp")}
+    _nccl_world(tmp_path)
+    try:
+        mesh = MeshPlan((1,), ("parts",)).make(device="cuda")
+        for a in ("cc", "sssp"):
+            eng, s, t, rep, launches = fail_over(
+                a, "crash", tmp_path / f"mesh_{a}", backend="shard_map",
+                mesh=mesh)
+            _, ws, wt, wrep, wl = want[a]
+            assert eng.mesh is mesh and rep == wrep
+            assert rep.restarts == 1 and rep.resumed_steps == [2]
+            _same_state(ws, s, a)
+            assert t.supersteps == wt.supersteps and launches == wl
+            assert launches["semiring_spmv_frontier"] > 0 and launches[
+                "outbox_pack"] > 0
+        with pytest.raises(ValueError, match="every device"):
+            fail_over("cc", "device_loss", tmp_path / "lost",
+                      backend="shard_map", mesh=mesh)
+    finally:
+        import torch.distributed as dist
+        dist.destroy_process_group()

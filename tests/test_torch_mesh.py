@@ -8,8 +8,8 @@ its own, over road_grid(14, 14) in 8 partitions:
     ``XLA_FLAGS=--xla_force_host_platform_device_count=4`` runs the
     matrix on a 4-device mesh;
   * the port: 4 gloo ranks (rendezvous through a file, one thread each)
-    run the same matrix on a 4-rank mesh, and check the mesh routes alone
-    and the refusals; rank 0 writes the results;
+    run the same matrix on a 4-rank mesh, and check the mesh routes alone,
+    the refusals and the service on the mesh; rank 0 writes the results;
   * a 1-rank gloo world runs every exchange on ``shard_map`` beside
     ``local``.
 
@@ -218,8 +218,20 @@ if world > 1:
         pg6, progs["cc"], **P), ValueError, "do not tile"))
     out["refuse_megastep"] = np.asarray(refused(lambda: run(
         progs["cc"], exchange="megastep"), ValueError, "local-backend"))
-    out["refuse_service"] = np.asarray(refused(lambda: GraphQueryService(
-        {"g": pg}, **P), NotImplementedError, "A8.2"))
+    # the service on the mesh (phased) answers as a 'local' one does
+    svc = GraphQueryService({"g": pg}, **P)
+    loc = GraphQueryService({"g": pg}, device="cpu")
+    for s_ in (svc, loc):
+        for kind, src in (("sssp", 0), ("bfs", 9), ("ppr", 3)):
+            s_.submit(kind, "g", src)
+    got, want = svc.drain(), loc.drain()
+    out["service_runs"] = np.asarray(
+        svc._exchange_mode() == "phased" and sorted(got) == sorted(want)
+        and all(got[t].error is None and got[t].supersteps == w.supersteps
+                and np.allclose(got[t].result, w.result, rtol=1e-5, atol=0)
+                and (w.query.kind == "ppr"
+                     or np.array_equal(got[t].result, w.result))
+                for t, w in want.items()))
 else:
     # one rank: every exchange bit-equal to 'local', 'auto' is 'dense'
     for a, prog in progs.items():
@@ -427,8 +439,10 @@ def test_one_rank_world_equals_local(worlds):
 
 def test_refusals(worlds):
     """On the mesh: partitions that do not tile it and the megastep route
-    raise ValueError; the service on a mesh raises NotImplementedError
-    naming ROADMAP A8.2. The three worlds took under a minute here."""
+    raise ValueError; the service on the mesh runs (the phased exchange)
+    and answers an SSSP, a BFS and a PPR query as a 'local' service does,
+    with the queries' own supersteps. The three worlds took under a minute
+    here."""
     t = worlds["torch"]
-    assert t["refuse_tiling"] and t["refuse_megastep"] and t["refuse_service"]
+    assert t["refuse_tiling"] and t["refuse_megastep"] and t["service_runs"]
     assert worlds["seconds"] < 300

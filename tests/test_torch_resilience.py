@@ -5,7 +5,8 @@ the JAX package's (Bernoulli draws included); ``run_with_recovery``
 recovers crashes at ``tests/test_resilience.py``'s local-backend corners
 bit-equal to the JAX package's fault-free run and raises
 ``RecoveryExhausted`` with its report; ``run_with_failover`` restarts a
-crash in place and refuses device loss naming ROADMAP A8;
+crash in place and refuses device loss off a mesh or of every device
+(the multi-rank failover is ``tests/test_torch_failover.py``'s);
 ``launch.elastic`` and ``obs.skew`` give the JAX package's answers; a
 targeted straggler's stalls land in ``part_seconds`` exactly. The graph is
 ``tests/test_resilience.py``'s random graph (100 vertices, 8 partitions).
@@ -168,10 +169,18 @@ def test_recovery_exhaustion_raises_with_report(graph):
     assert isinstance(ei.value.last_error, faults.CrashFault)
 
 
-def test_failover_restarts_a_crash_and_refuses_device_loss(graph):
+def test_failover_restarts_a_crash_and_refuses_device_loss(graph,
+                                                           tmp_path):
     """A crash restarts the same engine in place (bit-equal end); device
-    loss needs the multi-device backend and raises naming ROADMAP A8, as
-    does ``shrink_parts_mesh``."""
+    loss on a 'local' engine raises ``ValueError`` (the JAX package
+    asserts a ``shard_map`` backend), and so does losing the only device
+    of a one-rank mesh, through ``run_with_failover`` and through
+    ``shrink_parts_mesh``; the shrunk mesh's ranks follow the JAX
+    package's sizing (``shrink_after_failure``, clamped to a divisor of
+    P, survivors in order)."""
+    from _mesh_world import one_rank_world
+
+    from repro_torch.resilience.failover import _shrunk_ranks
     _, tpg, refs = graph
     eng = GopherEngine(tpg, _prog("sssp", tpg, "torch"), exchange="compact",
                        device="cpu")
@@ -184,19 +193,35 @@ def test_failover_restarts_a_crash_and_refuses_device_loss(graph):
     assert eng2 is eng and rep.restarts == 1 and rep.resumed_steps == [2]
     assert rep.new_num_devices is None
     _same_state(refs["sssp"][0], state)
-    lost = faults.FaultPlan([faults.FaultSpec(
-        "engine.superstep", "device_loss", at=1, payload={"lost": [1]})])
-    with tempfile.TemporaryDirectory() as d:
-        with faults.inject(lost):
-            with pytest.raises(NotImplementedError, match="A8"):
-                run_with_failover(eng, Checkpointer(d), every=1)
-    with pytest.raises(NotImplementedError, match="A8"):
-        shrink_parts_mesh(None, [1], 8)
+
+    def lose(engine):
+        lost = faults.FaultPlan([faults.FaultSpec(
+            "engine.superstep", "device_loss", at=1, payload={"lost": [0]})])
+        with tempfile.TemporaryDirectory() as d:
+            with faults.inject(lost):
+                with pytest.raises(ValueError) as ei:
+                    run_with_failover(engine, Checkpointer(d), every=1)
+        return str(ei.value)
+    assert "shard_map" in lose(eng)
+    with one_rank_world(tmp_path) as mesh:
+        assert "every device" in lose(GopherEngine(
+            tpg, _prog("sssp", tpg, "torch"), backend="shard_map",
+            mesh=mesh, exchange="compact", device="cpu"))
+        with pytest.raises(ValueError, match="every device"):
+            shrink_parts_mesh(mesh, [0], 8)
+    for D, lost, P in ((4, [1], 8), (4, [0], 8), (4, [1, 2], 8),
+                       (6, [5], 12), (8, [0, 7], 8), (3, [2], 7)):
+        survivors = [r for r in range(D) if r not in lost]
+        k = j_divisor(P, jelastic.shrink_after_failure(
+            jelastic.MeshPlan((D,), ("parts",)), len(lost)).shape[0])
+        assert _shrunk_ranks(list(range(D)), lost, P) == survivors[:k]
 
 
-def test_elastic_answers_match_jax():
+def test_elastic_answers_match_jax(tmp_path):
     """``rebalance_hint``, ``shrink_after_failure``, ``plan_mesh`` and the
-    divisor clamp on a table of inputs; the mesh half raises naming A8."""
+    divisor clamp on a table of inputs; on a one-rank world
+    ``MeshPlan.make`` and a ``('parts',)`` ``restart`` of a snapshot equal
+    to the JAX package's, and the LM axes raise naming A8.3."""
     base = dict(imbalance=1.3, straggler=0, time_imbalance=0.0,
                 time_straggler=-1)
     skews = [base, dict(base, imbalance=1.8), dict(base, imbalance=1.05),
@@ -223,11 +248,45 @@ def test_elastic_answers_match_jax():
         assert (t.shape, t.axes) == (j.shape, j.axes)
     for p, d in ((8, 3), (8, 4), (12, 5), (7, 6), (12, 0)):
         assert _largest_divisor_at_most(p, d) == j_divisor(p, d)
-    with pytest.raises(NotImplementedError, match="A8"):
-        telastic.MeshPlan((2,), ("parts",)).make()
-    with pytest.raises(NotImplementedError, match="A8"):
-        telastic.restart(None, None, telastic.MeshPlan((2,), ("parts",)),
-                         None)
+    # the mesh half on a world of one gloo rank: the plan's mesh, and a
+    # snapshot re-sharded onto it equal to the JAX package's restart of
+    # the same snapshot on its one device
+    from jax.sharding import PartitionSpec as JP
+    from _mesh_world import one_rank_world
+
+    from repro.training.checkpoint import Checkpointer as JCheckpointer
+    rng = np.random.default_rng(0)
+    saved = {"state": {"x": rng.random((8, 5), np.float32),
+                       "frontier": rng.random((8, 5)) < 0.5},
+             "step": np.asarray(7, np.int32)}
+    PS = telastic.PartitionSpec
+    with one_rank_world(tmp_path) as _:
+        plan = telastic.MeshPlan((1,), ("parts",))
+        mesh = plan.make(device="cpu")
+        assert mesh.size() == 1 and mesh.mesh_dim_names == ("parts",)
+        with pytest.raises(ValueError, match="world of 1"):
+            telastic.MeshPlan((2,), ("parts",)).make(device="cpu")
+        ck = Checkpointer(str(tmp_path / "ck"))
+        ck.save(saved, 3)
+        m2, got, step = telastic.restart(
+            ck, saved, plan, {"state": PS("parts"), "step": None},
+            device="cpu")
+        _, want, jstep = jelastic.restart(
+            JCheckpointer(str(tmp_path / "ck")), saved,
+            jelastic.MeshPlan((1,), ("parts",)),
+            {"state": {"x": JP("parts"), "frontier": JP("parts")},
+             "step": JP()})
+        assert step == int(jstep) == 3 and m2.size() == 1
+        for k in ("x", "frontier"):
+            assert np.array_equal(got["state"][k].numpy(),
+                                  np.asarray(want["state"][k]))
+        assert int(got["step"]) == int(want["step"]) == 7
+        for lm in ({"state": PS("data"), "step": None},
+                   {"state": PS("parts", "model"), "step": PS()}):
+            with pytest.raises(NotImplementedError, match="A8.3"):
+                telastic.restart(ck, saved, plan, lm, device="cpu")
+        with pytest.raises(NotImplementedError, match="A8.3"):
+            telastic.MeshPlan((1, 1), ("data", "model")).make(device="cpu")
 
 
 def test_skew_report_and_tracker_match_jax(graph):

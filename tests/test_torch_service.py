@@ -7,7 +7,7 @@ supersteps, summary counts), its dedupe of identical in-flight queries,
 deadline misses, the circuit breaker with ``_run_batch_once`` made to
 raise and a patched block that fails its audit, in both services,
 ``apply_delta`` with landmarks, ``warm`` with its ``metrics=`` feed, and
-the refusals of what waits for ROADMAP A8. The graphs are
+the service on a one-rank mesh beside the 'local' one. The graphs are
 ``tests/test_serving.py``'s, in 4 partitions.
 """
 import dataclasses
@@ -272,11 +272,16 @@ def test_apply_delta_with_landmarks(graphs):
     assert len(tsvc.stats.delta_apply_s) == 1
 
 
-def test_warm_and_refusals(graphs):
+def test_warm_and_refusals(graphs, tmp_path):
     """``warm`` runs one batch per (family, bucket) on the engines real
     batches use, leaves the stats alone and counts the batches in the
     service's ``metrics=`` registry; ``rebalance`` without a skew picture
-    does nothing; what waits for ROADMAP A8.2 raises naming it."""
+    does nothing. On a world of one gloo rank the service on
+    ``backend='shard_map'`` (its shared block cut to the rank's rows)
+    answers a stream as the 'local' service does, with its own convergence
+    supersteps, and warms as many batches; ``shard_map`` without a mesh,
+    or a mesh without it, is refused."""
+    from _mesh_world import one_rank_world
     _, tpg = graphs["road"]
     reg = MetricsRegistry()
     svc = tsrv.GraphQueryService({"road": tpg}, metrics=reg, device="cpu")
@@ -292,6 +297,32 @@ def test_warm_and_refusals(graphs):
     assert tsrv.GraphQueryService({"road": tpg}, device="cpu").metrics \
         is default_registry()
     for kw in ({"backend": "shard_map"}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="A8.2"):
+        with pytest.raises(ValueError, match="go together"):
             tsrv.GraphQueryService({"road": tpg}, device="cpu", **kw)
+    stream = [("sssp", 0), ("bfs", 7), ("reach", (1, 30)), ("ppr", 4),
+              ("sssp", 90), ("bfs", 7)]
+    local = tsrv.GraphQueryService({"road": tpg}, device="cpu")
+    with one_rank_world(tmp_path) as mesh:
+        msvc = tsrv.GraphQueryService({"road": tpg}, backend="shard_map",
+                                      mesh=mesh, device="cpu")
+        for s in (local, msvc):
+            for kind, src in stream:
+                s.submit(kind, "road", src)
+        want, got = local.drain(), msvc.drain()
+        assert msvc._gb["road"]["vmask"].shape[0] == tpg.num_parts
+        assert msvc._exchange_mode() == "auto"
+        assert msvc.warm("road", families=("reach", "ppr")) == 2
+    assert sorted(got) == sorted(want)
+    for t, w in want.items():
+        g = got[t]
+        assert (g.error, g.cached, g.supersteps) == (w.error, w.cached,
+                                                     w.supersteps)
+        if w.query.kind == "ppr":
+            np.testing.assert_allclose(g.result, w.result, rtol=1e-5,
+                                       atol=0)
+        else:
+            assert np.array_equal(g.result, w.result)
+    assert all(e.exchange == "dense" for e in msvc._engines.values())
+    assert msvc.stats.summary()["batches"] == local.stats.summary()[
+        "batches"]
     assert tplanner.FAMILY_OF_KIND["reach"] == "traversal"

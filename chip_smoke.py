@@ -226,14 +226,35 @@ failure exits non-zero and prints no result:
       launches are ``failover_launches``; a failed NCCL init, subgroup or
       collective fails the phase. One ``failover_phase`` line with the
       phase's seconds;
+   l. the LM half of the multi-device backend, inside 4d and 4e, after
+      their checks, on each one's own world of one NCCL rank: the model's
+      weights cut in place to a (1, 1) ('data', 'model') mesh
+      (``training.shardspec.shard_module``: each block is the whole
+      tensor and shares its storage, so no memory is allocated, which is
+      checked) and served through ``make_prefill_step``/``make_decode_step``
+      with ``mesh=`` on the same 4 × 2048 prompts, a warm-up, then a timed
+      prefill and ``LM_MESH_GEN`` (8) decode steps: (i) the tokens equal
+      4d's or 4e's first ones; (ii) K7 launched 32 times (K8 64) in the
+      prefill and never in decode; one ``lm_mesh`` line with the prefill
+      and per-token decode times beside 4d's or 4e's, and the collectives
+      a step by kind (every weight's FSDP all_gather, the row-parallel
+      all_reduces, the argmax's and the tokens' gathers: on one rank each
+      is a copy or a sum of one over NCCL). Then K7 (bf16, causal; H 4,
+      KV 1, dh 128, B 4, S 2048) and K8 (the ssm path's call form;
+      d_inner 1024, B 4, L 2048, N 16), at a TP-8 rank's shapes of
+      llama3-8b and falcon-mamba-7b, against their plain versions (K7 on
+      ``flash_kernel_sm90`` at 1e-2, K8 bit-equal): one ``tp8_shapes``
+      line. The launches of the mesh runs are ``lm_mesh_launches``. The
+      multi-rank path is checked on the CPU over gloo
+      (``tests/test_torch_lm_mesh.py``);
 5. kernel times at the paths' shapes: one ``{"kernels": [...]}`` line.
    ``launches`` counts phase 4's timed runs but 4f's, 4g's, 4h's, 4i's,
-   4j's and 4k's, which stand beside it as ``incremental_launches``,
+   4j's, 4k's and 4l's, which stand beside it as ``incremental_launches``,
    ``serving_launches``, ``checkpoint_launches`` (4h's every run, its
    uncheckpointed CC and the chaos scenarios included),
    ``observability_launches`` (4i's every run in this process),
-   ``mesh_launches`` (4j's mesh runs) and ``failover_launches`` (4k's
-   every run).
+   ``mesh_launches`` (4j's mesh runs), ``failover_launches`` (4k's
+   every run) and ``lm_mesh_launches`` (4l's timed mesh runs).
    K3 is also held at the main path's CC superstep 0 with each walk
    forced. Its ``bound_ms`` counts only the rows with an active
    in-neighbour, summed over the plain version's sweeps, over the lanes
@@ -3021,13 +3042,14 @@ def device_breakdown(run, wall_ms: float, kernel: tuple) -> dict:
 
 
 def lm_path(dev, path_launches: dict, arch: str, op: str, key: str,
-            piece: str) -> None:
+            piece: str, mesh_launches: dict) -> None:
     """Phases 4d and 4e (module docstring): ``arch`` served at full width
     and depth through ``make_prefill_step``/``make_decode_step``, its
     kernel ``op`` once a prefill layer and never in decode, then the
-    decode logits held to a teacher-forced forward, then a 2-layer float32
-    cut held to the same model on the CPU. The model is freed at the end,
-    before the next phase."""
+    decode logits held to a teacher-forced forward, then phase 4l's mesh
+    run of the same weights (its launches into ``mesh_launches``), then a
+    2-layer float32 cut held to the same model on the CPU. The model is
+    freed before the cut."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
@@ -3132,6 +3154,9 @@ def lm_path(dev, path_launches: dict, arch: str, op: str, key: str,
                     **bd_prefill}))
     log(json.dumps({"lm_breakdown": "decode step", "lm": cfg.name,
                     **bd_decode}))
+    lm_mesh_path(dev, model, cfg, prompts, gen, op,
+                 {"prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms},
+                 mesh_launches)
     del model
     torch.cuda.empty_cache()
     lm_cut_against_cpu(dev, cfg, op)
@@ -3193,6 +3218,162 @@ def lm_cut_against_cpu(dev, cfg, op: str) -> None:
                     "max_abs_err": max(errs), "tolerance": 1e-3}))
     del card, host
     torch.cuda.empty_cache()
+
+# ---------------- phase 4l: the LM on a mesh, one NCCL rank ---------------
+
+LM_MESH_GEN = 8                 # phase 4l's decode steps (4d's first 8)
+
+def lm_mesh_path(dev, model, cfg, prompts, gen, op: str, unsharded: dict,
+                 launches_4l: dict) -> None:
+    """Phase 4l for one architecture (module docstring): 4d's or 4e's
+    weights cut in place to a (1, 1) ('data', 'model') mesh of one NCCL
+    rank (a block that is the whole tensor shares its storage: nothing is
+    copied), served through the serve steps with ``mesh=`` on the same
+    prompts for ``LM_MESH_GEN`` decode steps; the tokens must equal the
+    unsharded run's ``gen`` (its first steps), ``op`` launched once a
+    prefill layer and never in decode. The process group is this phase's
+    own, destroyed at its end."""
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.training.shardspec import shard_module
+    from repro_torch.training.train_step import (make_decode_step,
+                                                 make_prefill_step)
+    B, S = prompts.shape
+    G = LM_MESH_GEN
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_4l_") as tmp:
+        t0 = time.perf_counter()
+        dist.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(tmp, 'rdv')}",
+            rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+            before = torch.cuda.memory_allocated(dev)
+            shard_module(model, mesh)
+            grew = torch.cuda.memory_allocated(dev) - before
+            init_s = time.perf_counter() - t0
+            prefill = make_prefill_step(cfg, max_seq=S + gen.shape[1] - 1,
+                                        mesh=mesh)
+            decode = make_decode_step(cfg, mesh=mesh)
+            tok, cache = prefill(model, {"inputs": prompts})    # warm-up
+            for _ in range(2):
+                tok, cache = decode(model, tok, cache)
+            torch.cuda.synchronize()
+            del cache
+            _build.reset_launches()
+            sh.reset_collectives()
+            t = time.perf_counter()
+            tok, cache = prefill(model, {"inputs": prompts})
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t) * 1e3
+            pre, coll_pre = dict(_build.launches), sh.collectives()
+            _build.reset_launches()
+            sh.reset_collectives()
+            toks = [tok]
+            t = time.perf_counter()
+            for _ in range(G):
+                tok, cache = decode(model, tok, cache)
+                toks.append(tok)
+            torch.cuda.synchronize()
+            decode_ms = (time.perf_counter() - t) * 1e3 / G
+            dec, coll_dec = dict(_build.launches), sh.collectives()
+            del cache
+        finally:
+            dist.destroy_process_group()
+    for k in pre:
+        launches_4l[k] += pre[k] + dec[k]
+    if pre[op] != cfg.n_layers or dec[op] != 0:
+        fail(f"{cfg.name} on the mesh: {op} launched {pre[op]} times in "
+             f"the prefill and {dec[op]} in decode, expected "
+             f"{cfg.n_layers} and 0")
+    got, want = torch.stack(toks, dim=1), gen[:, :G + 1]
+    if not torch.equal(got, want):
+        fail(f"{cfg.name} on the mesh: tokens differ from the unsharded "
+             f"run's at {int((got != want).sum())} of {want.numel()}")
+    if grew != 0:
+        fail(f"{cfg.name} on the mesh: cutting to a one-rank mesh "
+             f"allocated {grew} bytes")
+    log(json.dumps({
+        "lm_mesh": cfg.name, "mesh": [1, 1], "axes": ["data", "model"],
+        "backend": "nccl", "batch": B, "prompt": S, "decode_steps": G,
+        "init_s": init_s, "prefill_ms": prefill_ms,
+        "decode_ms_per_token": decode_ms,
+        "unsharded_prefill_ms": unsharded["prefill_ms"],
+        "unsharded_decode_ms_per_token": unsharded["decode_ms_per_token"],
+        "collectives_prefill": coll_pre,
+        "collectives_per_decode_step": {k: v / G
+                                        for k, v in coll_dec.items()},
+        f"{op}_launches_prefill": pre[op], f"{op}_launches_decode": dec[op],
+        "tokens_equal_unsharded": True}))
+
+
+# the per-rank shapes of an 8-way TP mesh, which no earlier phase
+# launches: llama3-8b's 32 heads and 8 kv heads over 8 ranks, and
+# falcon-mamba-7b's d_inner 8192 over 8 ranks
+TP8_K7 = ("llama3-8b prefill, TP 8", 4, 2048, 2048, 4, 1, 128, None, 0,
+          "bfloat16")
+TP8_K8 = dict(B=4, L=2048, D=1024, N=16)
+
+
+def check_tp8_shapes(dev) -> None:
+    """Phase 4l's kernel checks: K7 (bf16, causal; the instantiation its
+    wrapper picks for bf16 at dh 128, ``flash_kernel_sm90<128>``, as phase
+    3 checks it by name) against its plain version at rtol = atol = 1e-2,
+    and K8 in the ssm path's call form (bf16 in, a nonzero h0, float32 y
+    and final state) bit-equal to its plain version, at a TP-8 rank's
+    shapes, each wrapper call counted as one launch; one ``tp8_shapes``
+    line with their errors and CUDA-event times."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.mamba_scan import (mamba1_scan_cuda,
+                                                mamba1_scan_ref)
+
+    def launched(op, fn):
+        before = _build.launches[op]
+        out = fn()
+        if _build.launches[op] != before + 1:
+            fail(f"{op} at a TP-8 shape: not launched once")
+        return out
+
+    what, B, Sq, Sk, H, KV, dh, win, off, dt = TP8_K7
+    q, k, v = attention_inputs(dev, 41, B, Sq, Sk, H, KV, dh, dt)
+    got = launched("flash_attention",
+                   lambda: flash_attention_cuda(q, k, v, causal=True))
+    want = flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    k7_err = held(got, want, TOL[dt], f"K7 at {what}")
+    del got, want
+    k7 = {"shape": what, "instantiation": k7_instantiation(dt, dh),
+          "max_abs_err": k7_err,
+          "call_ms": cuda_ms(lambda: flash_attention_cuda(q, k, v,
+                                                          causal=True)),
+          "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v,
+                                                          causal=True),
+                              reps=3)}
+    del q, k, v
+    args = mamba_inputs(dev, "bfloat16", **TP8_K8)
+    h0 = torch.randn((TP8_K8["B"], TP8_K8["D"], TP8_K8["N"]), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(9))
+    run = lambda f: f(*args, h0, return_state=True,  # noqa: E731
+                      y_dtype=torch.float32)
+    got = launched("mamba1_scan", lambda: run(mamba1_scan_cuda))
+    want = run(mamba1_scan_ref)
+    torch.cuda.synchronize()
+    k8 = {"shape": "falcon-mamba-7b prefill, TP 8: " + ", ".join(
+        f"{n} {v}" for n, v in TP8_K8.items()),
+        "max_abs_err": max(bitwise(got[0], want[0], "K8 y at TP 8"),
+                           bitwise(got[1], want[1], "K8 h_last at TP 8")),
+        "call_ms": cuda_ms(lambda: run(mamba1_scan_cuda)),
+        "plain_ms": cuda_ms(lambda: run(mamba1_scan_ref), reps=3)}
+    del got, want, args, h0
+    torch.cuda.empty_cache()
+    log(json.dumps({"tp8_shapes": {"k7": k7, "k8": k8}}))
 
 # ---------------- phase 5: kernel times at the main path's shapes --------
 
@@ -3951,8 +4132,10 @@ def main() -> None:
     (pg, path_launches, incremental_launches, serving_launches,
      checkpoint_launches, observability_launches, mesh_launches,
      failover_launches, plain_k4) = main_path(dev)
+    lm_mesh_launches = dict.fromkeys(_build.launches, 0)
     for arch, op, key, piece in LM_PATHS:
-        lm_path(dev, path_launches, arch, op, key, piece)
+        lm_path(dev, path_launches, arch, op, key, piece, lm_mesh_launches)
+    check_tp8_shapes(dev)
     kernels = kernel_times(dev, pg, path_launches, plain_k4)
     kernels["kernels"] += [k7_times(dev, path_launches),
                            k8_times(dev, path_launches, k8_err)]
@@ -3963,6 +4146,7 @@ def main() -> None:
         row["observability_launches"] = observability_launches[row["name"]]
         row["mesh_launches"] = mesh_launches[row["name"]]
         row["failover_launches"] = failover_launches[row["name"]]
+        row["lm_mesh_launches"] = lm_mesh_launches[row["name"]]
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,12 +3,13 @@ Gopher Scope's rebalance hint.
 
 The port of the JAX package's ``launch/elastic.py``.
 :func:`plan_mesh`, :func:`shrink_after_failure` and :func:`rebalance_hint`
-are pure Python, with the same answers. ``MeshPlan.make`` builds a
-one-axis plan's mesh over the first ranks of the default process group
-(``launch.mesh.sub_mesh``), as the JAX package takes the first devices;
-:func:`restart` re-shards a snapshot onto it, each rank restoring its
-rows. The (pod, data, model) meshes and the pspecs that name their axes
-are the LM half's (ROADMAP A8.3) and raise naming it.
+are pure Python, with the same answers. ``MeshPlan.make`` builds the
+plan's mesh (the graph engine's ``('parts',)``, or the LM's ``('data',
+'model')`` and ``('pod', 'data', 'model')``) over the first ranks of the
+default process group (``launch.mesh.sub_mesh``), as the JAX package
+takes the first devices; :func:`restart` re-shards a snapshot onto it,
+each rank restoring its block of every leaf by the leaf's pspec
+(``training.shardspec.local_index``).
 
 Policy: keep TP ('model') fixed at the per-arch value (it is matched to
 head / expert divisibility), shrink/grow DP ('data'); the pod axis absorbs
@@ -25,22 +26,10 @@ from typing import Optional, Tuple
 import torch.distributed as dist
 
 from repro_torch.launch.mesh import sub_mesh
+from repro_torch.models.sharding import PartitionSpec, axes_of
 
-_NEEDS_LM = ("meshes and pspecs over the ('pod', 'data', 'model') axes are "
-             "not ported yet: ROADMAP A8.3 (the LM half of the multi-device "
-             "backend: models/sharding.py, training/shardspec.py)")
-
-
-class PartitionSpec(tuple):
-    """How a leaf lies on a mesh, as far as :func:`restart` reads the JAX
-    package's ``PartitionSpec``: one entry per leading dimension, an axis
-    name or None (not split); the empty spec is replicated."""
-
-    def __new__(cls, *axes):
-        return super().__new__(cls, axes)
-
-    def __repr__(self) -> str:
-        return f"PartitionSpec{tuple(self)!r}"
+__all__ = ["MeshPlan", "PartitionSpec", "plan_mesh", "rebalance_hint",
+           "restart", "shrink_after_failure"]
 
 
 @dataclasses.dataclass
@@ -50,15 +39,13 @@ class MeshPlan:
 
     def make(self, device="cuda"):
         """The plan's mesh over the first ``prod(shape)`` ranks of the
-        default group; None on the ranks after them (which take no part).
-        One axis only: the LM meshes are ROADMAP A8.3."""
-        if len(self.axes) != 1:
-            raise NotImplementedError(_NEEDS_LM)
+        default group, row-major; None on the ranks after them (which take
+        no part)."""
         n = math.prod(self.shape)
         if n > dist.get_world_size():
             raise ValueError(f"a mesh of {n} ranks in a world of "
                              f"{dist.get_world_size()}")
-        return sub_mesh(range(n), self.axes, device)
+        return sub_mesh(range(n), self.axes, device, shape=self.shape)
 
 
 def plan_mesh(n_chips: int, model_parallel: int = 16,
@@ -151,39 +138,37 @@ def _spec_leaves(like, spec) -> list:
 def restart(checkpointer, state_like, plan: MeshPlan, pspecs,
             device="cuda"):
     """Re-shard the last committed checkpoint onto the plan's mesh.
-    Returns ``(mesh, state, step)``: each leaf whose pspec splits its
-    leading axis over ``'parts'`` holds this rank's rows of it
-    (``Checkpointer.restore(rows=)``), a replicated leaf is whole. A rank
-    outside the mesh gets ``(None, None, None)``."""
-    from repro_torch.training.checkpoint import (_leaves_with_paths,
-                                                 _rebuild)
+    Returns ``(mesh, state, step)``: each leaf holds this rank's block by
+    its pspec (``shardspec.local_index``: the rows of a ``('parts',)``
+    leaf, an LM parameter's FSDP x TP block, Mamba1's in_proj by its
+    channels), read from the snapshot one block a leaf
+    (``Checkpointer.restore(index=)``); a replicated leaf is whole. A rank
+    outside the mesh gets ``(None, None, None)``. A pspec naming an axis
+    the plan lacks, or a split that does not divide, raises
+    ``ValueError`` before any rank builds the mesh."""
+    from repro_torch.training.checkpoint import _leaves_with_paths
+    from repro_torch.training.shardspec import leaf_names, local_index
     specs = _spec_leaves(state_like, pspecs)
-    if plan.axes != ("parts",) or any(a not in (None, "parts")
-                                      for s in specs for a in s):
-        raise NotImplementedError(_NEEDS_LM)
-    if any(a is not None for s in specs for a in s[1:]):
-        raise ValueError("only a leaf's leading axis splits over 'parts'")
-    split = [bool(s) and s[0] == "parts" for s in specs]
-    leaves = [leaf for _, leaf in _leaves_with_paths(state_like)]
-    sizes = {int(x.shape[0]) for x, sp in zip(leaves, split) if sp}
+    names = leaf_names(state_like)
+    shapes = [tuple(getattr(x, "shape", ()))
+              for _, x in _leaves_with_paths(state_like)]
+    sizes = dict(zip(plan.axes, plan.shape))
+    for name, spec, shape in zip(names, specs, shapes):
+        for d, entry in enumerate(spec):
+            axes = axes_of(entry)
+            if any(a not in sizes for a in axes):
+                raise ValueError(f"{name}: pspec {spec} names an axis "
+                                 f"outside the plan's {plan.axes}")
+            k = math.prod(sizes[a] for a in axes)
+            if d >= len(shape) or shape[d] % k:
+                raise ValueError(f"{name}: pspec {spec} does not tile its "
+                                 f"shape {shape} on the mesh {plan.shape}")
     mesh = plan.make(device)
     if mesh is None:
         return None, None, None
-    D, me = mesh.size(), mesh.get_local_rank()
-    if len(sizes) > 1 or any(n % D for n in sizes):
-        raise ValueError(f"leading axes {sorted(sizes)} do not tile a mesh "
-                         f"of {D}")
     step = checkpointer.latest_step()
-    picked = {}
-    for sp in (True, False):     # each restore reads only its own leaves
-        if sp not in split:
-            continue
-        like = _rebuild(state_like, iter(x if s == sp else None
-                                         for x, s in zip(leaves, split)))
-        v = sizes.pop() // D if sp else None
-        got, _ = checkpointer.restore(
-            like, step=step, device=device,
-            rows=slice(me * v, (me + 1) * v) if sp else None)
-        picked[sp] = iter([x for _, x in _leaves_with_paths(got)])
-    state = _rebuild(state_like, (next(picked[sp]) for sp in split))
+    index = [local_index(n, sp, shape, mesh) if sp else None
+             for n, sp, shape in zip(names, specs, shapes)]
+    state, _ = checkpointer.restore(state_like, step=step, device=device,
+                                    index=index)
     return mesh, state, step

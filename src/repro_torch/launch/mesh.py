@@ -18,8 +18,11 @@ to gloo or from the card to the CPU: a mismatch raises.
 The graph engine (``GopherEngine(backend='shard_map', mesh=...)``) runs on
 a one-axis ``('parts',)`` mesh: over the whole group (:func:`make_mesh`)
 or over some of its ranks (:func:`sub_mesh`, what a mesh that lost a
-device shrinks to). The production LM mesh waits for ROADMAP A8.3 and
-raises naming it.
+device shrinks to). The LM runs on ``('data', 'model')`` and ``('pod',
+'data', 'model')`` meshes (``models.sharding``): :func:`make_mesh` and
+:func:`sub_mesh` take any number of axes, and
+:func:`make_production_mesh` is the JAX package's 16 x 16 (x 2 pods)
+over the first ranks of the group.
 
 :func:`launch_ranks` starts a command once a rank and waits for them all
 under one deadline (the scope and chaos CLIs' ``--devices N``);
@@ -27,6 +30,7 @@ under one deadline (the scope and chaos CLIs' ``--devices N``);
 """
 from __future__ import annotations
 
+import math
 import os
 import subprocess
 import sys
@@ -58,10 +62,11 @@ def _local_rank() -> int:
 
 
 def make_mesh(shape, axes, device="cuda"):
-    """A ``DeviceMesh`` of ``shape`` named ``axes`` over the initialised
-    default process group (the product of ``shape`` must be its world
-    size). On ``cuda`` this process's card (``LOCAL_RANK``, else the rank
-    modulo the cards present) becomes the current device."""
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` (any number of axes,
+    row-major over the ranks) over the initialised default process group
+    (the product of ``shape`` must be its world size). On ``cuda`` this
+    process's card (``LOCAL_RANK``, else the rank modulo the cards
+    present) becomes the current device."""
     device = torch.device(device)
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised process group: "
@@ -75,31 +80,51 @@ def make_mesh(shape, axes, device="cuda"):
                             mesh_dim_names=tuple(axes))
 
 
-def sub_mesh(ranks, axes=("parts",), device="cuda"):
-    """A one-axis ``DeviceMesh`` named ``axes`` over the ``ranks`` of the
-    default group, in that order (a survivor keeps its place), or None on
-    a rank outside them. Only the members build the group
-    (``new_group(use_local_synchronization=True)``): a rank outside never
-    enters the call, so a lost rank is never waited on (on NCCL that
-    holds only where the default group was not bound to a card by
-    ``init_process_group(device_id=)``: see :func:`init_rank`). The
+def sub_mesh(ranks, axes=("parts",), device="cuda", shape=None):
+    """A ``DeviceMesh`` named ``axes`` over the ``ranks`` of the default
+    group laid out row-major in ``shape`` (one axis of ``len(ranks)`` by
+    default; a survivor keeps its place), or None on a rank outside them.
+    Only the members build the groups, one for this rank's slice along
+    each axis (``new_group(use_local_synchronization=True)``): a rank
+    outside never enters the call, so a lost rank is never waited on (on
+    NCCL that holds only where the default group was not bound to a card
+    by ``init_process_group(device_id=)``: see :func:`init_rank`). A
     group's name hashes its ranks and the number of groups each member
     has made so far, so the members must have made as many, as the ranks
-    of one SPMD program have (survivors share their history). The group
-    must be the one ``device`` runs on (NCCL for ``cuda``, gloo for
+    of one SPMD program have (survivors share their history). The groups
+    must be of the backend ``device`` runs on (NCCL for ``cuda``, gloo for
     ``cpu``)."""
     device = torch.device(device)
     ranks = [int(r) for r in ranks]
-    if len(axes) != 1:
-        raise ValueError(f"a sub-mesh has one axis, got {tuple(axes)}")
+    shape = tuple(shape) if shape is not None else (len(ranks),)
+    if len(axes) != len(shape) or math.prod(shape) != len(ranks):
+        raise ValueError(f"a mesh of shape {shape} named {tuple(axes)} "
+                         f"over {len(ranks)} ranks")
     if dist.get_rank() not in ranks:
         return None
-    group = dist.new_group(ranks, use_local_synchronization=True)
-    check_group(group, device)
+    from torch.distributed.device_mesh import DeviceMesh
+    if len(shape) == 1:
+        group = dist.new_group(ranks, use_local_synchronization=True)
+        check_group(group, device)
+        if device.type == "cuda":
+            torch.cuda.set_device(_local_rank())
+        return DeviceMesh.from_group(group, device.type,
+                                     mesh_dim_names=tuple(axes))
+    grid = torch.tensor(ranks).reshape(shape)
+    me = [int(c[0]) for c in torch.nonzero(grid == dist.get_rank(),
+                                           as_tuple=True)]
+    groups = []
+    for d in range(len(shape)):
+        line = grid[tuple(slice(None) if i == d else c
+                          for i, c in enumerate(me))].tolist()
+        if line != sorted(line):
+            raise ValueError(f"the ranks along axis {axes[d]!r} are not in "
+                             f"rank order: {line}")
+        groups.append(dist.new_group(line, use_local_synchronization=True))
+        check_group(groups[-1], device)
     if device.type == "cuda":
         torch.cuda.set_device(_local_rank())
-    from torch.distributed.device_mesh import DeviceMesh
-    return DeviceMesh.from_group(group, device.type,
+    return DeviceMesh.from_group(groups, device.type, mesh=grid,
                                  mesh_dim_names=tuple(axes))
 
 
@@ -163,22 +188,38 @@ def _wait_all(procs, deadline: float):
         time.sleep(0.05)
 
 
-def init_rank(rank: int, world: int, rendezvous: str, device: str):
+def init_rank(rank: int, world: int, rendezvous: str, device: str,
+              shape=None, axes=("parts",)):
     """This rank's default process group (gloo on the CPU, NCCL on the
     card, one card a rank) through the ``file://`` ``rendezvous`` of
-    :func:`launch_ranks`, and the one-axis mesh over all of it. The NCCL
-    group is not bound to a card up front: a bound group builds every
-    subgroup by ``ncclCommSplit``, which every rank of the parent must
-    enter, and a lost rank never does (:func:`sub_mesh`)."""
+    :func:`launch_ranks`, and the mesh of ``shape`` named ``axes`` over all
+    of it (one ``('parts',)`` axis by default). The NCCL group is not
+    bound to a card up front: a bound group builds every subgroup by
+    ``ncclCommSplit``, which every rank of the parent must enter, and a
+    lost rank never does (:func:`sub_mesh`)."""
     if device.startswith("cuda"):
         torch.cuda.set_device(rank)
     dist.init_process_group(
         "nccl" if device.startswith("cuda") else "gloo",
         init_method=f"file://{rendezvous}", rank=rank, world_size=world)
-    return make_mesh((world,), ("parts",), device=device)
+    return make_mesh(shape or (world,), axes, device=device)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    raise NotImplementedError(
-        "the production LM mesh is not ported yet: ROADMAP A8.3 (the LM "
-        "half of the multi-device backend)")
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """16 x 16 = 256 ranks ('data', 'model'); (2, 16, 16) = 512 ranks
+    ('pod', 'data', 'model') when ``multi_pod``, over the first ranks of
+    the initialised default group (None on the ranks after them). A
+    function, not a module constant: importing this module touches no
+    group. Raises ``ValueError`` in a smaller world."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = math.prod(shape)
+    if not dist.is_initialized():
+        raise RuntimeError("make_production_mesh needs an initialised "
+                           "process group")
+    if dist.get_world_size() < n:
+        raise ValueError(f"the production mesh {shape} needs {n} ranks, "
+                         f"the world has {dist.get_world_size()}")
+    if dist.get_world_size() == n:
+        return make_mesh(shape, axes, device=device)
+    return sub_mesh(range(n), axes, device=device, shape=shape)

@@ -6,7 +6,9 @@ params)``), and returns the port's ``Transformer`` or ``SSM`` holding the
 same values: the scan axis of each ``params["blocks"][seg]`` leaf is
 unstacked into one ``Block`` per layer, matrices and embeddings are cast
 to the compute dtype and norm scales kept in float32, as ``init_params``
-stores them.
+stores them. With ``mesh`` each rank keeps its block of every leaf
+(``training.shardspec.shard_module``): this is how a sharded run is held
+to the JAX package's weights.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
+from repro_torch.training.shardspec import shard_module
 
 
 def _fill(dst: torch.nn.ParameterDict, src: dict, index=None) -> None:
@@ -48,9 +51,9 @@ def _check_stack(seg, stack: dict) -> None:
                                  f"segment has {len(seg)} blocks")
 
 
-def params_from_numpy(tree: dict, cfg, device="cuda"):
+def params_from_numpy(tree: dict, cfg, device="cuda", mesh=None):
     """The JAX package's ``init_params`` tree (numpy leaves) as the port's
-    module on ``device``."""
+    module on ``device``; with ``mesh``, this rank's blocks of it."""
     device = resolve_device(device)
     ssm = cfg.family == "ssm"
     n_segs = 1 if ssm else len(T._plan(cfg))
@@ -76,4 +79,4 @@ def params_from_numpy(tree: dict, cfg, device="cuda"):
                     _fill(part, stack[name], i)
                 for name, p in blk.named_parameters(recurse=False):
                     p.copy_(torch.from_numpy(np.array(stack[name][i])))
-    return model
+    return model if mesh is None else shard_module(model, mesh)

@@ -9,7 +9,9 @@
 The dense family runs on ``models.transformer`` (K7 in every prefill
 layer), the ssm family (falcon-mamba) on ``models.ssm`` (K8 in every
 prefill layer); every other family raises ``NotImplementedError`` naming
-the ROADMAP item that brings it.
+the ROADMAP item that brings it. ``init_params(mesh=)`` keeps each rank's
+block of the parameters; the other calls run on the mesh whose rules are
+active (``models.sharding.use``).
 """
 from __future__ import annotations
 
@@ -33,8 +35,10 @@ def _mod(cfg):
     raise NotImplementedError(f"{cfg.name}: not ported yet; {reason}")
 
 
-def init_params(cfg, generator=None, *, seed: int = 0, device="cuda"):
-    return _mod(cfg).init_params(cfg, generator, seed=seed, device=device)
+def init_params(cfg, generator=None, *, seed: int = 0, device="cuda",
+                mesh=None):
+    return _mod(cfg).init_params(cfg, generator, seed=seed, device=device,
+                                 mesh=mesh)
 
 
 def forward(params, inputs, cfg, positions=None):

@@ -10,6 +10,11 @@ cache keeps the JAX package's layout: ``conv`` (n_layers, B, d_conv-1,
 d_inner) in the compute dtype, ``ssm`` (n_layers, B, d_inner, N) float32
 and ``len``, a Python int. ``decode_step`` writes the cache in place (the
 JAX package returns a new one).
+
+On a mesh (``models.sharding.use(mesh)`` around the call) each rank holds
+the block of every parameter and cache leaf its spec gives it
+(``training.shardspec``): its di/TP channels, its rows of the batch. K8
+runs on its channels.
 """
 from __future__ import annotations
 
@@ -20,7 +25,9 @@ from torch import nn
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import compute_dtype
+from repro_torch.models import sharding as sh
+from repro_torch.models.transformer import _cutter, compute_dtype
+from repro_torch.training import shardspec
 
 
 def _check_family(cfg) -> None:
@@ -41,32 +48,36 @@ class Block(nn.Module):
 
 class SSM(nn.Module):
     """The parameters of a Mamba1 stack: ``embed``, ``blocks`` (one
-    ``Block`` a layer) and ``final_norm``. ``forward`` is :func:`forward`."""
+    ``Block`` a layer) and ``final_norm``; with ``mesh`` each cut to the
+    rank's block as soon as it is drawn. ``forward`` is :func:`forward`."""
 
-    def __init__(self, cfg, gen: torch.Generator, device):
+    def __init__(self, cfg, gen: torch.Generator, device, mesh=None):
         super().__init__()
         _check_family(cfg)
         self.cfg = cfg
         dtype = compute_dtype(cfg)
-        self.embed = L.embed_params(gen, cfg, dtype, device)
-        self.blocks = nn.ModuleList(Block(cfg, gen, dtype, device)
+        cut = _cutter(mesh)
+        self.embed = cut(L.embed_params(gen, cfg, dtype, device))
+        self.blocks = nn.ModuleList(cut(Block(cfg, gen, dtype, device))
                                     for _ in range(cfg.n_layers))
         self.final_norm = L._zeros((cfg.d_model,), torch.float32, device)
+        cut(self)
 
     def forward(self, inputs, positions=None):
         return forward(self, inputs, self.cfg, positions)
 
 
 def init_params(cfg, generator: Optional[torch.Generator] = None, *,
-                seed: int = 0, device="cuda") -> SSM:
+                seed: int = 0, device="cuda", mesh=None) -> SSM:
     """Random weights for ``cfg`` (the JAX package's distributions), drawn
     one tensor at a time on ``device`` from ``generator`` (a fresh one
-    seeded with ``seed`` when none is given; it must live on ``device``)."""
+    seeded with ``seed`` when none is given; it must live on ``device``).
+    With ``mesh`` each rank keeps its block of the same draws."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():
-        return SSM(cfg, generator, device)
+        return SSM(cfg, generator, device, mesh)
 
 
 def _layers(params: SSM, inputs, cfg, on_state=None):
@@ -96,15 +107,18 @@ def forward(params: SSM, inputs: torch.Tensor, cfg, positions=None):
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
                device="cuda"):
     """The recurrent state of every layer, zero; its size does not depend
-    on ``max_seq``."""
+    on ``max_seq``. On a mesh ``batch`` is the whole batch and each rank
+    allocates its block."""
     device = resolve_device(device)
     s = cfg.ssm
     di = s.expand * cfg.d_model
+    shapes = shardspec.local_cache_shapes(
+        {"conv": (cfg.n_layers, batch, s.d_conv - 1, di),
+         "ssm": (cfg.n_layers, batch, di, s.d_state)}, sh.active_mesh())
     return {
-        "conv": torch.zeros((cfg.n_layers, batch, s.d_conv - 1, di),
-                            dtype=dtype, device=device),
-        "ssm": torch.zeros((cfg.n_layers, batch, di, s.d_state),
-                           dtype=torch.float32, device=device),
+        "conv": torch.zeros(shapes["conv"], dtype=dtype, device=device),
+        "ssm": torch.zeros(shapes["ssm"], dtype=torch.float32,
+                           device=device),
         "len": 0,
     }
 
@@ -136,7 +150,8 @@ def prefill(params: SSM, inputs: torch.Tensor, cfg,
     ignored, as in the JAX package: the state does not grow. Returns
     (logits, cache, aux_loss)."""
     B, S = inputs.shape[0], inputs.shape[1]
-    cache = init_cache(cfg, B, S, compute_dtype(cfg), inputs.device)
+    cache = init_cache(cfg, B * sh.size("batch"), S, compute_dtype(cfg),
+                       inputs.device)
 
     def keep(i, st):
         cache["conv"][i].copy_(st["conv"])

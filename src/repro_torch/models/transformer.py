@@ -8,9 +8,17 @@ serving cache keeps the JAX package's layout, per segment (n, B, s, KV, dh)
 keys and values, with ring buffers of ``min(window, max_seq)`` slots for
 window segments. ``decode_step`` writes the cache in place (the JAX
 package returns a new one) and returns it with ``len`` advanced; ``len`` is
-a Python int. The JAX package's sharding constraints are no-ops on one
-device and are left out (ROADMAP A8.3). The MoE and VLM members of the JAX
-module come with their families (ROADMAP A10).
+a Python int. The MoE and VLM members of the JAX module come with their
+families (ROADMAP A10).
+
+On a mesh (``models.sharding.use(mesh)`` around the call; the serve steps
+of ``training.train_step`` take the mesh) ``init_params(mesh=)`` keeps the
+rank's block of every parameter, the inputs are the rank's rows of the
+batch, the cache holds its block as ``training.shardspec.cache_pspecs``
+lays it out (batch over ('pod', 'data'), kv heads over 'model', or the
+head dim where the kv heads do not divide TP), and the logits are its
+block as ``sharding.logit_layout`` gives it. K7 runs on the rank's heads.
+Off a mesh nothing changes.
 """
 from __future__ import annotations
 
@@ -21,6 +29,8 @@ from torch import nn
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as sh
+from repro_torch.training import shardspec
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -51,21 +61,32 @@ class Block(nn.Module):
 class Transformer(nn.Module):
     """The parameters of a dense decoder: ``embed``, ``segments`` (one
     ``ModuleList`` of ``Block``s per segment of ``_plan(cfg)``) and
-    ``final_norm``. ``forward`` is :func:`forward`."""
+    ``final_norm``. With ``mesh`` each part is cut to the rank's block as
+    soon as it is drawn (``shardspec.shard_module``), so the draws are the
+    unsharded model's. ``forward`` is :func:`forward`."""
 
-    def __init__(self, cfg, gen: torch.Generator, device):
+    def __init__(self, cfg, gen: torch.Generator, device, mesh=None):
         super().__init__()
         _check_family(cfg)
         self.cfg = cfg
         dtype = compute_dtype(cfg)
-        self.embed = L.embed_params(gen, cfg, dtype, device)
+        cut = _cutter(mesh)
+        self.embed = cut(L.embed_params(gen, cfg, dtype, device))
         self.final_norm = L._zeros((cfg.d_model,), torch.float32, device)
         self.segments = nn.ModuleList(
-            nn.ModuleList(Block(cfg, gen, dtype, device) for _ in range(n))
+            nn.ModuleList(cut(Block(cfg, gen, dtype, device))
+                          for _ in range(n))
             for n, _ in _plan(cfg))
+        cut(self)
 
     def forward(self, inputs, positions=None):
         return forward(self, inputs, self.cfg, positions)
+
+
+def _cutter(mesh):
+    if mesh is None:
+        return lambda m: m
+    return lambda m: shardspec.shard_module(m, mesh)
 
 
 def _plan(cfg):
@@ -88,28 +109,38 @@ def _plan(cfg):
 
 
 def init_params(cfg, generator: Optional[torch.Generator] = None, *,
-                seed: int = 0, device="cuda") -> Transformer:
+                seed: int = 0, device="cuda", mesh=None) -> Transformer:
     """Random weights for ``cfg`` (the JAX package's distributions), drawn
     one tensor at a time on ``device`` from ``generator`` (a fresh one
-    seeded with ``seed`` when none is given; it must live on ``device``)."""
+    seeded with ``seed`` when none is given; it must live on ``device``).
+    With ``mesh`` each rank keeps its block of the same draws."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():
-        return Transformer(cfg, generator, device)
+        return Transformer(cfg, generator, device, mesh)
 
 
 # ---------------------------------------------------------------- forward
 
 def _attn_block(x, p: Block, cfg, pos, is_global: bool):
+    """Pre-norm attention with its residual; returns the keys and values
+    too (whole heads of the rank's rows where the batch folded)."""
     h = L.rms_norm(x, p.ln1, cfg.norm_eps)
-    q, k, v = L.qkv(h, p.attn, cfg)
+    rows = L.batch_fold(cfg, h)
+    if rows is not None:
+        h, pos = h[rows], pos[rows]
+    q, k, v = L.qkv(h, p.attn, cfg, whole=rows is not None)
     q = L.apply_rope(q, pos, cfg.rope_theta)
     k = L.apply_rope(k, pos, cfg.rope_theta)
     win = None if is_global else cfg.swa_window
-    o = L.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+    kq, vq = L.kv_for_heads(k, v, q.shape[2], cfg)
+    o = L.flash_attention(q.contiguous(), kq.contiguous(), vq.contiguous(),
                           causal=True, window=win)
-    return x + L.attn_out(o, p.attn, x.dtype), k, v
+    y = L.attn_out(o, p.attn, x.dtype, whole=rows is not None)
+    if rows is not None:        # the TP ranks' rows back together
+        y, k, v = (sh.gather(t, "tp", 0) for t in (y, k, v))
+    return x + y, k, v
 
 
 def _ffn_block(x, p: Block, cfg):
@@ -156,26 +187,40 @@ def cache_len_for(cfg, is_global: bool, max_seq: int) -> int:
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
                device="cuda"):
     """Per-segment KV caches; window segments use ring buffers of window
-    size."""
+    size. On a mesh ``batch`` is the whole batch and each rank allocates
+    its block (``shardspec.cache_pspecs``)."""
     device = resolve_device(device)
     caches = []
     for n, is_global in _plan(cfg):
         s = cache_len_for(cfg, is_global, max_seq)
-        kv, dh = cfg.n_kv_heads, cfg.head_dim
+        shape = shardspec.local_cache_shapes(
+            {"k": (n, batch, s, cfg.n_kv_heads, cfg.head_dim)},
+            sh.active_mesh())["k"]
         caches.append({
-            "k": torch.zeros((n, batch, s, kv, dh), dtype=dtype,
-                             device=device),
-            "v": torch.zeros((n, batch, s, kv, dh), dtype=dtype,
-                             device=device),
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
         })
     return {"segs": caches, "len": 0}
+
+
+def _cache_block(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Keys or values (..., KV', dh') as attention made them, cut to the
+    cache's block (..., KV, dh): the rank's kv heads or head-dim slice
+    where the cache splits what ``t`` holds whole."""
+    kv, dh = like.shape[-2], like.shape[-1]
+    if t.shape[-2] > kv:
+        t = t.narrow(-2, sh.index("tp") * kv, kv)
+    if t.shape[-1] > dh:
+        t = t.narrow(-1, sh.index("tp") * dh, dh)
+    return t
 
 
 @torch.no_grad()
 def decode_step(params: Transformer, token: torch.Tensor, cache: dict, cfg,
                 positions=None):
-    """token: (B,) int. Returns (logits (B, V), cache), the cache written in
-    place at slot ``len`` (``len % s`` in a full ring) and ``len`` + 1."""
+    """token: (B,) int (the rank's rows on a mesh). Returns (logits (B, V),
+    cache), the cache written in place at slot ``len`` (``len % s`` in a
+    full ring) and ``len`` + 1."""
     _check_family(cfg)
     x = L.embed(token[:, None], params.embed)
     B = x.shape[0]
@@ -193,10 +238,11 @@ def decode_step(params: Transformer, token: torch.Tensor, cache: dict, cfg,
             q, k, v = L.qkv(h, p.attn, cfg)
             q = L.apply_rope(q, positions, cfg.rope_theta)
             k = L.apply_rope(k, positions, cfg.rope_theta)
-            c["k"][i, :, slot] = k[:, 0]
-            c["v"][i, :, slot] = v[:, 0]
+            c["k"][i, :, slot] = _cache_block(k[:, 0], c["k"][i, :, slot])
+            c["v"][i, :, slot] = _cache_block(v[:, 0], c["v"][i, :, slot])
             # the ring buffer already bounds the window
-            o = L.decode_attention(q[:, 0], c["k"][i], c["v"][i], valid)
+            o = L.decode_attention(q[:, 0], c["k"][i], c["v"][i], valid,
+                                   cfg)
             x = x + L.attn_out(o[:, None], p.attn, x.dtype)
             x = _ffn_block(x, p, cfg)
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
@@ -209,14 +255,16 @@ def decode_step(params: Transformer, token: torch.Tensor, cache: dict, cfg,
 def prefill(params: Transformer, inputs: torch.Tensor, cfg,
             max_seq: Optional[int] = None, positions=None):
     """Full-sequence forward + decode-ready cache (ring-packed for window
-    segments: the last s positions at slot pos % s). Returns (logits,
-    cache, aux_loss)."""
+    segments: the last s positions at slot pos % s). On a mesh ``inputs``
+    are the rank's rows. Returns (logits, cache, aux_loss)."""
     B, S = inputs.shape[0], inputs.shape[1]
     max_seq = max_seq or S
-    cache = init_cache(cfg, B, max_seq, compute_dtype(cfg), inputs.device)
+    cache = init_cache(cfg, B * sh.size("batch"), max_seq,
+                       compute_dtype(cfg), inputs.device)
 
     def write(si, i, k, v):
         c = cache["segs"][si]
+        k, v = _cache_block(k, c["k"][i]), _cache_block(v, c["v"][i])
         s_cache = c["k"].shape[2]
         if s_cache >= S:    # plain cache: positions 0..S-1 at slots 0..S-1
             c["k"][i, :, :S] = k

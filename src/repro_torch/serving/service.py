@@ -323,29 +323,30 @@ class GraphQueryService:
         delays = backoff_delays(self.retry_base_s, self.max_retries)
         last: Optional[BaseException] = None
         for attempt in range(self.max_retries + 1):
+            err = res = None
             try:
                 _faults.fire("svc.apply_delta", graph=name, attempt=attempt)
-                res = self._apply_delta_once(name, delta, directed,
-                                             rebuild_landmarks, t0)
-            except DeltaValidationError:
+                res = self._patch_delta(name, delta, directed)
+            except Exception as e:  # serving-loop boundary: degrade, not leak
+                err = e
+            # one all_reduce an attempt on a mesh (as _run_batch's): every
+            # rank installs the patched version or none does, so the ranks
+            # retry together and meet in the install's collectives
+            if self._any(err is not None) and err is None:
+                err = RuntimeError("the delta failed on another rank")
+            if isinstance(err, DeltaValidationError):
                 self.stats.delta_failures += 1
                 self.metrics.counter(
                     "serving_delta_failures_total",
                     labels={"graph": name, "kind": "invalid"}).inc()
-                raise
-            except BlockCorruptionFault as e:
-                last = e
-                self.stats.delta_retries += 1
-                self._host_gb.pop(name, None)
-                self._gb.pop(name, None)
-                self.metrics.counter("serving_delta_retries_total",
-                                     labels={"graph": name}).inc()
-            except Exception as e:  # serving-loop boundary: degrade, not leak
-                last = e
-                self.stats.delta_retries += 1
-                self.metrics.counter("serving_delta_retries_total",
-                                     labels={"graph": name}).inc()
-            else:
+                raise err
+            if err is None:
+                try:
+                    self._install_delta(name, res, delta, directed,
+                                        rebuild_landmarks, t0)
+                except Exception as e:  # serving-loop boundary
+                    err = e
+            if err is None:
                 if attempt or name in self._stale_graphs:
                     self._stale_graphs.discard(name)
                     self.stats.recoveries += 1
@@ -353,6 +354,13 @@ class GraphQueryService:
                         "serving_recoveries_total",
                         labels={"graph": name, "site": "apply_delta"}).inc()
                 return res
+            last = err
+            self.stats.delta_retries += 1
+            if isinstance(err, BlockCorruptionFault):
+                self._host_gb.pop(name, None)
+                self._gb.pop(name, None)
+            self.metrics.counter("serving_delta_retries_total",
+                                 labels={"graph": name}).inc()
             if attempt < self.max_retries:
                 time.sleep(delays[attempt])
         self._stale_graphs.add(name)
@@ -361,10 +369,10 @@ class GraphQueryService:
                              labels={"graph": name, "kind": "exhausted"}).inc()
         raise last
 
-    def _apply_delta_once(self, name: str, delta, directed: bool,
-                          rebuild_landmarks: bool, t0: float):
+    def _patch_delta(self, name: str, delta, directed: bool):
+        """The attempt's half on the host, with no collective: the delta
+        patched into the host block and audited. Returns the DeltaResult."""
         from repro_torch.gofs.temporal import apply_delta as _apply
-        old_lc = self.landmark_caches.get(name)
         host_gb = self._host_gb.get(name)
         if host_gb is None:
             host_gb = host_graph_block(self.graphs[name])
@@ -377,6 +385,14 @@ class GraphQueryService:
             raise BlockCorruptionFault(
                 "blocks.patch", "corrupt_block", -1, {},
                 {"problems": "; ".join(problems[:3])})
+        return res
+
+    def _install_delta(self, name: str, res, delta, directed: bool,
+                       rebuild_landmarks: bool, t0: float) -> None:
+        """The patched version installed: the graph, its block twins, the
+        landmark tier maintained (collectives on a mesh) and the engines
+        warmed."""
+        old_lc = self.landmark_caches.get(name)
         self.update_graph(name, res.pg)
         self._host_gb[name] = res.block
         self._gb[name] = self._upload(name, res.block)
@@ -413,7 +429,6 @@ class GraphQueryService:
         if lc is not None:
             reg.gauge("serving_landmark_stale_frac",
                       labels={"graph": name}).set(lc.stale_frac_ewma)
-        return res
 
     def rebalance(self, name: str, policy=None):
         """Gopher Balance on the serving path: read the graph's live

@@ -28,7 +28,8 @@ snapshot ``{"state": ..., "inbox": ...}`` through this class. On the
 every rank passes the gathered arrays to ``save(group=)``, rank 0 of the
 group writes them and the ranks meet at a barrier once the commit marker
 is on disk, so every rank sees the same newest snapshot; each rank
-restores its own rows (``restore(rows=)``). A snapshot of a mesh run is
+restores its own rows (``restore(rows=)``), or on an LM mesh its block of
+every leaf (``restore(index=)``, ``launch.elastic.restart``). A snapshot of a mesh run is
 therefore the one file a one-process run writes, and either package
 restores it.
 """
@@ -108,6 +109,14 @@ def _from_host(arr: np.ndarray, dtype_name: Optional[str], device):
         t = torch.from_numpy(np.ascontiguousarray(arr).view(np_view))
         return t.view(dt).to(device)
     return torch.from_numpy(np.array(arr)).to(device)
+
+
+def _block(arr: np.ndarray, index: tuple) -> np.ndarray:
+    """``arr`` indexed one dim at a time (so that two integer arrays do not
+    pair up as numpy's fancy indexing would pair them)."""
+    for d, ix in enumerate(index):
+        arr = arr[(slice(None),) * d + (ix,)]
+    return arr
 
 
 def _crc(arr) -> int:
@@ -243,12 +252,17 @@ class Checkpointer:
         return None
 
     def restore(self, state_like, step: Optional[int] = None, device=None,
-                rows: Optional[slice] = None):
+                rows: Optional[slice] = None, index=None):
         """Restore into the structure of `state_like` (its leaves' values
         are not read). Returns ``(state, step)``: every leaf a torch tensor
         on ``device`` (``cuda`` when None, as every entry point of the port
         defaults) with the saved dtype and shape, or only the leading-axis
-        ``rows`` of each (a ``shard_map`` rank's partitions)."""
+        ``rows`` of each (a ``shard_map`` rank's partitions), or with
+        ``index`` (one entry a leaf, in leaf order: None for the whole
+        leaf, else one indexer a dim, a slice or an integer array) each
+        leaf's block."""
+        if rows is not None and index is not None:
+            raise ValueError("pass rows= or index=, not both")
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -257,10 +271,15 @@ class Checkpointer:
         sdir = os.path.join(self.dir, f"step_{step}")
         with np.load(os.path.join(sdir, "host_0.npz")) as z:
             blocks = {k: z[k] for k in z.files}
+        pairs = _leaves_with_paths(state_like)
+        if index is None:
+            index = [None if rows is None else (rows,)] * len(pairs)
+        if len(index) != len(pairs):
+            raise ValueError(f"{len(index)} indices for {len(pairs)} leaves")
         out = []
-        for pth, _ in _leaves_with_paths(state_like):
+        for (pth, _), ix in zip(pairs, index):
             dmark = blocks.get(f"{pth}::dtype")
-            arr = blocks[pth] if rows is None else blocks[pth][rows]
+            arr = blocks[pth] if ix is None else _block(blocks[pth], ix)
             out.append(_from_host(arr,
                                   str(dmark) if dmark is not None else None,
                                   device))

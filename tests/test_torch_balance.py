@@ -309,20 +309,24 @@ def test_chaos_quick_on_the_cpu(tmp_path):
     shrinks from 4 ranks to 2 with partitions [2, 3] lost, one restart,
     results equal to the fault-free run."""
     out = tmp_path / "reports" / "chaos.json"
-    assert chaos.main(["--quick", "--device", "cpu", "--out", str(out)]) == 0
+    rc = chaos.main(["--quick", "--device", "cpu", "--out", str(out)])
+    # every assertion names the report it read, so that a failure under
+    # load says which gate broke and on what numbers
     rep = json.loads(out.read_text())
-    assert sorted(rep["scenarios"]) == sorted(chaos._DEFAULT)
-    assert "device_loss" not in rep["scenarios"]
-    assert all(r["ok"] for r in rep["scenarios"].values())
+    assert rc == 0, rep
+    assert sorted(rep["scenarios"]) == sorted(chaos._DEFAULT), rep
+    assert "device_loss" not in rep["scenarios"], rep
+    assert all(r["ok"] for r in rep["scenarios"].values()), rep
     heal = rep["scenarios"]["skew_heal"]["algos"]["cc"]
-    assert heal["migrations"] and heal["imbalance_drop"] >= 2.0
+    assert heal["migrations"] and heal["imbalance_drop"] >= 2.0, heal
     assert (tmp_path / "reports" / "balance_torch.json").exists()
     lost = tmp_path / "lost.json"
-    assert chaos.main(["--quick", "--device", "cpu", "--out", str(lost),
-                       "--scenarios", "device_loss", "--devices", "4"]) == 0
+    rc = chaos.main(["--quick", "--device", "cpu", "--out", str(lost),
+                     "--scenarios", "device_loss", "--devices", "4"])
     loss = json.loads(lost.read_text())["scenarios"]["device_loss"]
-    assert loss["ok"] and sorted(loss["algos"]) == ["cc", "pagerank"]
+    assert rc == 0, loss
+    assert loss["ok"] and sorted(loss["algos"]) == ["cc", "pagerank"], loss
     for r in loss["algos"].values():
-        assert r["parity"] and r["restarts"] == 1
-        assert (r["old_devices"], r["new_devices"]) == (4, 2)
-        assert r["lost_partitions"] == [2, 3]
+        assert r["parity"] and r["restarts"] == 1, loss
+        assert (r["old_devices"], r["new_devices"]) == (4, 2), loss
+        assert r["lost_partitions"] == [2, 3], loss

@@ -1090,6 +1090,63 @@ def test_lm_serving_on_the_card_matches_the_cpu(cuda_device, arch):
     assert _build.launches["flash_attention"] == cfg.n_layers
 
 
+@pytest.mark.parametrize("arch", ["llama3-8b", "falcon-mamba-7b"])
+def test_lm_mesh_one_nccl_rank_equals_unsharded(cuda_device, tmp_path,
+                                                arch):
+    """One NCCL rank serves ``arch`` at full width, its depth cut to 2
+    layers (bf16), through the mesh path on a (1, 1) ('data', 'model')
+    mesh (``init_params(mesh=)``, the serve steps with ``mesh=``): the
+    tokens of the prefill and 8 decode steps equal the unsharded run's
+    with the same seeded weights, K7 (dense) or K8 (ssm) is launched once
+    a prefill layer and never in decode, as unsharded, and the mesh path
+    issued its collectives over NCCL where the unsharded one issued
+    none."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as sh
+    from repro_torch.training.train_step import (make_decode_step,
+                                                 make_prefill_step)
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    op = "flash_attention" if cfg.family == "dense" else "mamba1_scan"
+    prompts = torch.randint(0, cfg.vocab, (4, 256), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(1))
+
+    def serve(mesh):
+        model = M.init_params(cfg, seed=0, device=cuda_device, mesh=mesh)
+        prefill = make_prefill_step(cfg, max_seq=264, mesh=mesh)
+        decode = make_decode_step(cfg, mesh=mesh)
+        _build.reset_launches()
+        sh.reset_collectives()
+        tok, cache = prefill(model, {"inputs": prompts.to(cuda_device)})
+        torch.cuda.synchronize()
+        pre = (_build.launches[op], sum(sh.collectives().values()))
+        toks = [tok]
+        for _ in range(8):
+            tok, cache = decode(model, tok, cache)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        return (torch.stack(toks, 1).cpu(), pre,
+                _build.launches[op] - pre[0])
+
+    want = serve(None)
+    _nccl_world(tmp_path)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        assert dist.get_backend(mesh.get_group("model")) == "nccl"
+        got = serve(mesh)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got[0], want[0])
+    assert got[1][0] == want[1][0] == cfg.n_layers
+    assert got[2] == want[2] == 0
+    assert want[1][1] == 0 and got[1][1] > 0
+
+
 def test_mesh_one_nccl_rank_equals_local(cuda_device, tmp_path):
     """``backend='shard_map'`` on a world of one NCCL rank (the card
     machine's one card): its collectives run (the all_to_all, the halt

@@ -227,8 +227,8 @@ try:
     restart(ck, saved, MeshPlan((2,), ("parts",)),
             {"state": PartitionSpec("model"), "step": None}, device="cpu")
     out["elastic/refuse_lm"] = np.asarray(False)
-except NotImplementedError as e:
-    out["elastic/refuse_lm"] = np.asarray("A8.3" in str(e))
+except ValueError as e:
+    out["elastic/refuse_lm"] = np.asarray("outside the plan" in str(e))
 m, st, step = restart(ck, saved, MeshPlan((2,), ("parts",)),
                       {"state": PartitionSpec("parts"), "step": None},
                       device="cpu")
@@ -247,6 +247,24 @@ if smesh is not None:
                             device="cpu")
     serve(svc, EdgeDelta)
     out["svc/exchange"] = np.asarray(svc._exchange_mode())
+    # the same delta failing on one rank only: the ranks agree on the
+    # attempt's failure, retry together and install what svc installed
+    one = GraphQueryService({"g": pg}, backend="shard_map", mesh=smesh,
+                            retry_base_s=0.001, device="cpu")
+    one.enable_landmarks("g", 4)
+    plan = faults.FaultPlan([faults.FaultSpec(
+        "svc.apply_delta", "failed_delta", at=0)]
+        if rank == SERVICE_RANKS[1] else [])
+    with faults.inject(plan):
+        one.apply_delta("g", EdgeDelta.inserts([0, 7], [150, 33],
+                                               [1.0, 2.0]),
+                        rebuild_landmarks=True)
+    st = one.stats()
+    out["svc1/meta"] = np.asarray([st["delta_retries"], st["recoveries"],
+                                   one.graphs["g"].version,
+                                   len(plan.record())])
+    out["svc1/lm_dist1"] = np.asarray(one.landmark_caches["g"].dist)
+    out["svc1/after"] = np.asarray(one.query("sssp", "g", 150).result)
 # (3) the failovers, each from a mesh of 4 ranks of its own
 for name, algo, lost in SCENARIOS:
     mesh = sub_mesh(MESHES[name], ("parts",), device="cpu")
@@ -505,7 +523,10 @@ def test_service_on_four_ranks_matches_jax(worlds):
     distances before and after a delta, the refresh's counts and the
     post-delta answer equal; ``approx_sssp`` within 1e-4 relative;
     ``warm`` runs 2 batches (the traversal engine on its plan and on the
-    narrow-resume plan) and the stats agree."""
+    narrow-resume plan) and the stats agree. The same delta through a
+    second service, failing on one rank only: every rank counts one retry
+    and one recovery, and the refreshed landmarks and the post-delta
+    answer equal the fault-free run's."""
     j = _fields(worlds["jax"], "svc")
     ppr = {f"q{t}" for t, (kind, _) in enumerate(
         [("sssp", 0), ("bfs", 37), ("reach", (5, 120)), ("ppr", 3),
@@ -521,6 +542,11 @@ def test_service_on_four_ranks_matches_jax(worlds):
                 np.testing.assert_allclose(t[k], w, rtol=1e-4, atol=0)
             else:
                 assert np.array_equal(t[k], w), (r, k, t[k], w)
+        one = _fields(worlds["ranks"][r], "svc1")
+        assert one["meta"].tolist() == [1, 1, int(j["lm_meta"][0]),
+                                        int(r == SERVICE_RANKS[1])], r
+        assert np.array_equal(one["lm_dist1"], j["lm_dist1"])
+        assert np.array_equal(one["after"], j["after"])
     assert int(j["warm"]) == 2
 
 
@@ -528,7 +554,8 @@ def test_elastic_restart_on_two_ranks(worlds):
     """``MeshPlan((2,), ('parts',))`` builds a mesh over world ranks 0 and
     1 and ``restart`` gives each its 4 rows of the snapshot (and the
     replicated step whole); the other ranks get no mesh; a pspec naming
-    'model' raises naming A8.3."""
+    'model', an axis the plan lacks, raises ``ValueError`` on every rank
+    before any builds the mesh."""
     ranks = worlds["ranks"]
     full = ranks[0]["elastic/x"], ranks[1]["elastic/x"]
     rng = np.random.default_rng(0)

@@ -55,7 +55,8 @@ def test_every_new_module_is_covered():
     """The modules of the staged route, of the tier plans, of LM serving
     (dense and ssm), of the store and incremental analytics, of graph
     serving, of checkpointing and resilience, of observability and of the
-    multi-device backend are among the files checked above."""
+    multi-device backend (its graph and LM halves) are among the files
+    checked above."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("core/messages.py", "core/subgraph.py", "kernels/flat.py",
                 "kernels/outbox_compact.py", "core/tiers.py",
@@ -72,5 +73,6 @@ def test_every_new_module_is_covered():
                 "obs/skew.py", "resilience/recovery.py",
                 "resilience/failover.py", "resilience/balance.py",
                 "launch/elastic.py", "launch/chaos.py", "obs/trace.py",
-                "obs/metrics.py", "launch/scope.py", "launch/mesh.py"):
+                "obs/metrics.py", "launch/scope.py", "launch/mesh.py",
+                "models/sharding.py", "training/shardspec.py"):
         assert f"src/repro_torch/{mod}" in names, mod

@@ -247,14 +247,36 @@ failure exits non-zero and prints no result:
       line. The launches of the mesh runs are ``lm_mesh_launches``. The
       multi-rank path is checked on the CPU over gloo
       (``tests/test_torch_lm_mesh.py``);
+   m. Gopher Sentinel (``repro_torch.analysis``), after 4k (before the LM
+      phases in run order): (1) Pass 2 (every registered semiring's laws
+      and identities) and Pass 3 (the CUDA-source linter over
+      ``kernels/csrc`` and the wrappers) report no error and no warning;
+      (2) 4a's fused CC and SSSP at RN with ``validate=True``, each timed
+      in turns with an unvalidated run (plain, validated, validated,
+      plain; every run a new engine, so each validated run is its
+      configuration's first and is recorded): zero collectives recorded,
+      labels and distances bit-equal to the plain runs' and to 4a's, the
+      same K3 launches; (3) on a world of ONE NCCL rank of its own, 4j's
+      staged compact CC, phased CC (4c's taught plan) and 30-iteration
+      dense PageRank the same way: bit-equal to the unvalidated runs
+      (PageRank too: the same rank, the same order), equal Telemetry and
+      K2/K5/K1 launches, no violation; (4) ``python -m
+      repro_torch.launch.sentinel --matrix quick --devices 1 --device
+      cuda`` exits 0 with no error in its report. One ``sentinel`` line a
+      run with its recorded collectives per superstep, the validated
+      ``warm_s`` beside the unvalidated, and the fingerprint gathers; one
+      ``sentinel_cli`` line; one ``sentinel_phase`` line. The launches of
+      the validated runs are ``sentinel_launches``;
 5. kernel times at the paths' shapes: one ``{"kernels": [...]}`` line.
    ``launches`` counts phase 4's timed runs but 4f's, 4g's, 4h's, 4i's,
-   4j's, 4k's and 4l's, which stand beside it as ``incremental_launches``,
+   4j's, 4k's, 4l's and 4m's, which stand beside it as
+   ``incremental_launches``,
    ``serving_launches``, ``checkpoint_launches`` (4h's every run, its
    uncheckpointed CC and the chaos scenarios included),
    ``observability_launches`` (4i's every run in this process),
    ``mesh_launches`` (4j's mesh runs), ``failover_launches`` (4k's
-   every run) and ``lm_mesh_launches`` (4l's timed mesh runs).
+   every run), ``lm_mesh_launches`` (4l's timed mesh runs) and
+   ``sentinel_launches`` (4m's validated runs).
    K3 is also held at the main path's CC superstep 0 with each walk
    forced. Its ``bound_ms`` counts only the rows with an active
    in-neighbour, summed over the plain version's sweeps, over the lanes
@@ -1063,9 +1085,12 @@ def main_path(dev):
     failover_launches = dict.fromkeys(_build.launches, 0)
     failover_path(dev, pg, upg, src, delta, served, mesh_runs, taught,
                   failover_launches)
+    sentinel_launches = dict.fromkeys(_build.launches, 0)
+    sentinel_path(dev, pg, src, results, {**staged, **tiers_4c}, taught,
+                  sentinel_launches)
     return (pg, path_launches, incremental_launches, serving_launches,
             checkpoint_launches, observability_launches, mesh_launches,
-            failover_launches, plain_k4)
+            failover_launches, sentinel_launches, plain_k4)
 
 
 def drive(dev, runs: dict, path_launches: dict, n: int,
@@ -2967,6 +2992,165 @@ def failover_path(dev, pg, upg, src, delta, served, mesh_runs, taught,
         "rank refused — all agree")
 
 
+# ---------------- phase 4m: Gopher Sentinel ----------------
+
+def _compressed(per_step: list) -> list:
+    """A run's collectives per superstep as [[count of supersteps, {kind:
+    n}], ...], runs of equal supersteps merged."""
+    out = []
+    for step in per_step:
+        if out and out[-1][1] == step:
+            out[-1][0] += 1
+        else:
+            out.append([1, step])
+    return out
+
+
+def sentinel_path(dev, pg, src, fused, earlier, taught, launches_4m):
+    """Phase 4m: Gopher Sentinel on the card, each run checked (see the
+    module docstring). ``fused`` holds phase 4a's results (None: only the
+    plain runs here are the reference), ``earlier`` 4b's and 4c's runs by
+    name (or None), ``taught`` 4c's phased plan; the validated runs'
+    launch counts go into ``launches_4m``. The NCCL process group is this
+    phase's own, made and destroyed here."""
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.analysis import (check_semiring, errors, lint_kernels,
+                                      REGISTRY)
+    from repro_torch.core import (GopherEngine, PageRankProgram,
+                                  SemiringProgram, Telemetry,
+                                  init_max_vertex, make_sssp_init)
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+    t_phase = time.perf_counter()
+    found = [v for v in lint_kernels() if v.severity != "info"]
+    for name in REGISTRY:
+        found += check_semiring(name)
+    if found:
+        fail("sentinel: passes 2-3 found " + "; ".join(map(str, found)))
+    log(json.dumps({"sentinel_passes": {"semirings": sorted(REGISTRY),
+                                        "lint_findings": 0}}))
+    loc = (int(pg.part_of[src]), int(pg.local_of[src]))
+    progs = {"cc": SemiringProgram("max_first", init_max_vertex),
+             "sssp": SemiringProgram("min_plus", make_sssp_init(*loc)),
+             "pagerank": PageRankProgram(n_global=pg.n_global, num_iters=30)}
+    k1, k2, k3, k5 = ("semiring_spmv", "semiring_spmv_frontier",
+                      "megastep_semiring", "outbox_pack")
+
+    def turns(name, algo, make, kernels, want=None, mesh=False):
+        """plain, validated, validated, plain runs of ``make(validate)``;
+        the checks and launches hold each kind's first run."""
+        runs = {False: [], True: []}
+        for check in (False, True, True, False):
+            eng = make(check)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t = time.perf_counter()
+            state, tele = eng.run()
+            torch.cuda.synchronize()
+            runs[check].append((state, tele, time.perf_counter() - t,
+                                dict(_build.launches), eng.sentinel))
+        (s0, t0, _, l0, _), (s1, t1, _, l1, rec) = runs[False][0], \
+            runs[True][0]
+        summary, vs = rec
+        for k, c in l1.items():
+            launches_4m[k] += c
+        key = "r" if algo == "pagerank" else "x"
+        if not np.array_equal(s0[key], s1[key]):
+            fail(f"sentinel {name}: the validated run's state differs")
+        if want is not None and not np.array_equal(s1[key], want):
+            fail(f"sentinel {name}: differs from the earlier phase's run")
+        for f in Telemetry.__dataclass_fields__:
+            a, b = getattr(t0, f), getattr(t1, f)
+            if not ((a is None and b is None) or np.array_equal(
+                    np.asarray(a), np.asarray(b))):
+                fail(f"sentinel {name}: Telemetry.{f} differs")
+        if any(r[3] != l0 for r in runs[False] + runs[True]):
+            fail(f"sentinel {name}: launches {l1}, unvalidated {l0}")
+        for k in kernels:
+            if l1[k] == 0:
+                fail(f"sentinel {name}: kernel {k} was never launched")
+        if errors(vs) or (not mesh and summary.ops):
+            fail(f"sentinel {name}: {[str(v) for v in vs]}, "
+                 f"{len(summary.ops)} collectives recorded")
+        if any(r[4] is None for r in runs[True]):
+            fail(f"sentinel {name}: a validated run was not recorded")
+        log(json.dumps({
+            "sentinel": name, "exchange": t1.exchange,
+            "backend": "shard_map/nccl" if mesh else "local",
+            "supersteps": t1.supersteps,
+            "collectives": len(summary.ops),
+            "fingerprint_gathers": summary.fingerprints,
+            "init": summary.init_counts,
+            "per_superstep": _compressed(summary.per_superstep()),
+            "end": summary.end_counts,
+            "warm_s": [r[2] for r in runs[True]],
+            "unvalidated_warm_s": [r[2] for r in runs[False]],
+            "launches": {k: c for k, c in l1.items() if c},
+            "violations": [v.code for v in vs]}))
+        return s1
+
+    for algo in ("cc", "sssp"):
+        s1 = turns(f"{algo}_fused", algo, lambda check, a=algo: GopherEngine(
+            pg, progs[a], validate=check, device=dev), [k3])
+        if fused is not None and not np.array_equal(
+                _as_result(pg, algo, s1["x"]), fused[algo][0]):
+            fail(f"sentinel {algo}_fused: differs from phase 4a's")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_4m_") as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(tmp, 'rdv')}",
+            rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = make_mesh((1,), ("parts",), device="cuda")
+            for name, algo, ex, plan, kernels in (
+                    ("cc_compact", "cc", "compact", None, [k2, k5]),
+                    ("cc_phased", "cc", "phased", taught, [k2, k5]),
+                    ("pagerank_dense", "pagerank", "dense", None, [k1])):
+                kw = {"max_supersteps": 64} if algo == "pagerank" else {}
+                want = (None if earlier is None or algo == "pagerank"
+                        else earlier[name][0]["x"])
+                turns(f"{name}_mesh", algo, lambda check, a=algo, e=ex,
+                      p=plan, k=kw: GopherEngine(
+                          pg, progs[a], backend="shard_map", mesh=mesh,
+                          exchange=e, tier_plan=p, validate=check,
+                          device=dev, **k), kernels, want=want, mesh=True)
+        finally:
+            dist.destroy_process_group()
+
+    t = time.perf_counter()
+    out = os.path.join(tempfile.gettempdir(), "sentinel_report_4m.json")
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.sentinel", "--matrix",
+         "quick", "--devices", "1", "--device", "cuda", "--out", out],
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": os.pathsep.join(
+            p for p in (str(Path(__file__).resolve().parent / "src"),
+                        os.environ.get("PYTHONPATH")) if p)})
+    if res.returncode != 0:
+        fail(f"sentinel CLI exited {res.returncode}: "
+             f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+    with open(out) as f:
+        rep = json.load(f)
+    os.remove(out)
+    if rep["summary"]["errors"]:
+        fail(f"sentinel CLI: {rep['summary']}")
+    log(json.dumps({"sentinel_cli": {
+        "seconds": time.perf_counter() - t, **rep["summary"],
+        "configs_by_backend": {b: sum(c["backend"] == b
+                                      for c in rep["configs"])
+                               for b in ("local", "shard_map")}}}))
+    log(json.dumps({"sentinel_phase": {"phase_4m_s": time.perf_counter()
+                                       - t_phase}}))
+    log("sentinel checks: passes 2-3 clean; validated fused CC/SSSP record "
+        "no collective and equal the plain runs and 4a; validated one-rank "
+        "compact CC, phased CC and PageRank equal the plain runs with equal "
+        "Telemetry and launches; the quick matrix on the card is clean — "
+        "all agree")
+
+
 # ---------------- phases 4d and 4e: LM serving at full width --------------
 
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
@@ -4131,7 +4315,7 @@ def main() -> None:
     k8_err = check_k8(dev)
     (pg, path_launches, incremental_launches, serving_launches,
      checkpoint_launches, observability_launches, mesh_launches,
-     failover_launches, plain_k4) = main_path(dev)
+     failover_launches, sentinel_launches, plain_k4) = main_path(dev)
     lm_mesh_launches = dict.fromkeys(_build.launches, 0)
     for arch, op, key, piece in LM_PATHS:
         lm_path(dev, path_launches, arch, op, key, piece, lm_mesh_launches)
@@ -4147,6 +4331,7 @@ def main() -> None:
         row["mesh_launches"] = mesh_launches[row["name"]]
         row["failover_launches"] = failover_launches[row["name"]]
         row["lm_mesh_launches"] = lm_mesh_launches[row["name"]]
+        row["sentinel_launches"] = sentinel_launches[row["name"]]
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

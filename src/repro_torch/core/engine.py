@@ -117,7 +117,16 @@ returns what the JAX package's single controller returns: the full (P, ...)
 state and the same Telemetry. Checkpointed runs snapshot the gathered
 arrays from rank 0 (``training.checkpoint``) and restore each rank's rows.
 
-Static validation raises ``NotImplementedError`` naming ROADMAP A9.
+Gopher Sentinel (``analysis``). ``validate=True`` checks the tier plan
+(``check_plan_static``) and the program's semiring laws
+(``check_program``) when the engine is built, and runs the first run of
+each configuration (program, backend, exchange, plan, Q, D, P, v_max, cap
+and loop) under the collective recorder: every rank agrees on each
+collective before it is issued, and the run's record is held to the
+group, megastep, byte-budget and reference-kind rules
+(``analysis.validated_run``). A validated run launches the same kernels
+and returns the same state and Telemetry as an unvalidated one; later
+runs of a validated configuration are plain runs.
 """
 from __future__ import annotations
 
@@ -132,6 +141,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import messages as msg
+from repro_torch.core import wire as _wire
 from repro_torch.core.blocks import _BINNED, graph_block
 from repro_torch.core.tiers import DEMOTE_STREAK, PhasedTierPlan, TierPlan
 from repro_torch.gofs.formats import PartitionedGraph
@@ -254,7 +264,7 @@ class _Ranks:
         if self.group is None:
             return t
         t = t.clone()
-        dist.all_reduce(t, group=self.group)
+        _wire.all_reduce(t, group=self.group)
         return t
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
@@ -263,7 +273,7 @@ class _Ranks:
         if self.group is None:
             return t
         parts = [torch.empty_like(t) for _ in range(self.D)]
-        dist.all_gather(parts, t.contiguous(), group=self.group)
+        _wire.all_gather(parts, t.contiguous(), group=self.group)
         return torch.cat(parts)
 
 
@@ -531,9 +541,17 @@ class GopherEngine:
         if exchange == "megastep" and kind is None:
             raise ValueError(
                 "program is not megastep-eligible (megastep_kind is None)")
+        # Gopher Sentinel: validate=True checks the plan and the program's
+        # semiring laws here, and records the first run of each
+        # configuration (see analysis.validated_run)
+        self.validate = validate
+        self._sentinel_tr = None     # the recorder's view of the tracer
+        self._validated: set = set()
+        self.sentinel = None         # (CollectiveSummary, [Violation]) of
+                                     # the last validated run
         if validate:
-            raise NotImplementedError(
-                "static validation is not ported yet: ROADMAP A9 (sentinel)")
+            from repro_torch.analysis import validate_config
+            validate_config(program, exchange, tier_plan)
         # plan/mode normalisation, both directions: a PhasedTierPlan under
         # 'tiered' makes the run phased (a one-phase phased loop is the
         # tiered exchange plus the per-superstep dense retry), a plain
@@ -575,6 +593,8 @@ class GopherEngine:
 
     @property
     def tracer(self) -> obs_trace.Tracer:
+        if self._sentinel_tr is not None:
+            return self._sentinel_tr
         return (self._tracer if self._tracer is not None
                 else obs_trace.get_tracer())
 
@@ -660,12 +680,13 @@ class GopherEngine:
             if self.tracer.enabled:
                 raise ValueError("a traced run does not compose with "
                                  "checkpointing")
-            return self._run_checkpointed(checkpointer, checkpoint_every,
-                                          resume, extra=extra,
-                                          superstep_budget=superstep_budget)
+            return self._checked("checkpointed", lambda: (
+                self._run_checkpointed(checkpointer, checkpoint_every,
+                                       resume, extra=extra,
+                                       superstep_budget=superstep_budget)))
         if superstep_budget is not None:
             raise ValueError("superstep_budget requires a checkpointed run")
-        return self._run(extra)
+        return self._checked("run", lambda: self._run(extra))
 
     def run_queries(self, extra: Optional[dict] = None):
         """Run a query-batched program (``program.num_queries`` = Q) to the
@@ -682,7 +703,16 @@ class GopherEngine:
         messages: a quiesced lane sends nothing."""
         if self.num_queries is None:
             raise ValueError("run_queries requires a query-batched program")
-        return self._run(extra)
+        return self._checked("run", lambda: self._run(extra))
+
+    def _checked(self, loop: str, fn):
+        """``fn()``, the run; on a validating engine the first run of each
+        configuration goes through Gopher Sentinel's recorder
+        (``analysis.validated_run``)."""
+        if not self.validate:
+            return fn()
+        from repro_torch.analysis import validated_run
+        return validated_run(self, loop, fn)
 
     def _run(self, extra: Optional[dict]):
         tr = self.tracer
@@ -1186,6 +1216,10 @@ class GopherEngine:
         max_s = self.max_supersteps
         pack, route = self.make_exchange_stages(gb)
         compact = self.exchange == "compact"
+        # no tracer rides this loop; a validated run's recorder reads its
+        # stages' spans
+        tr = (obs_trace.NOOP if self._sentinel_tr is None
+              else self._sentinel_tr)
 
         good = ck.latest_good_step() if resume else None
         if good is not None:
@@ -1220,29 +1254,35 @@ class GopherEngine:
         done = False
         while not done and step < max_s and (budget is None
                                              or step - start < budget):
-            with self._superstep(obs_trace.NOOP, tally, step, clocked=True):
-                state, changed, liters = prog.superstep(
-                    state, inbox, gb, step, reduce=ranks.sum)
-                payload, nsent, wire, ex = pack(state)
+            with self._superstep(tr, tally, step, clocked=True):
+                with tr.span("sweep"):
+                    state, changed, liters = prog.superstep(
+                        state, inbox, gb, step, reduce=ranks.sum)
+                with tr.span("pack"):
+                    payload, nsent, wire, ex = pack(state)
                 _faults.fire("exchange.route", step=step + 1,
                              backend=self.backend)
-                inbox, rex = route(payload)
-                nchanged, _ = _halt_vote(changed)
-                pairs = ex.get("pairs")
-                stats = ranks.sum(_stats(
-                    nchanged, nsent, rex.get("wire", wire),
-                    nsent.new_zeros(()) if pairs is None else pairs.sum()))
-                tally.fold(step, stats[0], liters, stats[1], stats[2], pairs,
-                           cnt=stats[3])
-                nch = int(stats[0])          # the superstep's one host read
+                with tr.span("exchange"):
+                    inbox, rex = route(payload)
+                with tr.span("halt-vote"):
+                    nchanged, _ = _halt_vote(changed)
+                    pairs = ex.get("pairs")
+                    stats = ranks.sum(_stats(
+                        nchanged, nsent, rex.get("wire", wire),
+                        nsent.new_zeros(()) if pairs is None
+                        else pairs.sum()))
+                    tally.fold(step, stats[0], liters, stats[1], stats[2],
+                               pairs, cnt=stats[3])
+                    nch = int(stats[0])      # the superstep's one host read
             step += 1
             done = nch == 0
             cut = budget is not None and step - start >= budget
             if done or cut or (step - start) % every == 0 or step >= max_s:
-                ck.save({"state": {k: ranks.gather(v)
-                                   for k, v in state.items()},
-                         "inbox": ranks.gather(inbox)}, step,
-                        group=ranks.group)
+                with tr.span("checkpoint"):
+                    ck.save({"state": {k: ranks.gather(v)
+                                       for k, v in state.items()},
+                             "inbox": ranks.gather(inbox)}, step,
+                            group=ranks.group)
         # after a resume the wire counters cover only THIS process's
         # exchanges, so the byte model counts the same rounds (no prime
         # ran, and the supersteps before the resume shipped elsewhere)

@@ -37,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import wire
 from repro_torch.gofs.formats import PAD
 from repro_torch.kernels import ops
 from repro_torch.kernels.flat import COMBINE_IDENTITY, combine_reduce
@@ -264,13 +265,12 @@ def route_shard_map(outbox_vals, group):
     the receiver's (v_dst, P_src, cap[, ...]) slots. A query batch's
     trailing Q rides along; int32 slot maps route the same way. Runs its
     collective at D = 1 too, as the JAX package's does."""
-    import torch.distributed as dist
     v, P = outbox_vals.shape[:2]
     tail = outbox_vals.shape[2:]
     D = P // v
     x = outbox_vals.reshape(v, D, v, -1).transpose(0, 1).contiguous()
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=group)
+    wire.all_to_all_single(out, x, group=group)
     # out[d_src, v_src, v_dst] on this (destination) rank
     return out.permute(2, 0, 1, 3).reshape(v, P, *tail)
 
@@ -317,8 +317,7 @@ def _shift(bufs, k: int, D: int, me: int, group):
     frm = dist.get_global_rank(group, (me - k) % D)
     ops_ = ([dist.P2POp(dist.isend, b.contiguous(), to, group) for b in bufs]
             + [dist.P2POp(dist.irecv, r, frm, group) for r in recv])
-    for w in dist.batch_isend_irecv(ops_):
-        w.wait()
+    wire.batch_isend_irecv(ops_, group=group)
     return recv
 
 
@@ -373,7 +372,7 @@ def route_tiered(dense_vals, pvals, sids, sched, combine: str, group=None,
         buf = dflat[src]                                # (D·h, cap, ...)
         if D > 1:
             got = torch.empty_like(buf)
-            dist.all_to_all_single(got, buf, group=group)
+            wire.all_to_all_single(got, buf, group=group)
             buf = got
         out[dst] = buf
     for k, (src, dst) in tables["hot_res"]:

@@ -103,8 +103,10 @@ def sub_mesh(ranks, axes=("parts",), device="cuda", shape=None):
     if dist.get_rank() not in ranks:
         return None
     from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.core import wire
     if len(shape) == 1:
-        group = dist.new_group(ranks, use_local_synchronization=True)
+        group = wire.new_group(ranks, use_local_synchronization=True)
         check_group(group, device)
         if device.type == "cuda":
             torch.cuda.set_device(_local_rank())
@@ -120,7 +122,7 @@ def sub_mesh(ranks, axes=("parts",), device="cuda", shape=None):
         if line != sorted(line):
             raise ValueError(f"the ranks along axis {axes[d]!r} are not in "
                              f"rank order: {line}")
-        groups.append(dist.new_group(line, use_local_synchronization=True))
+        groups.append(wire.new_group(line, use_local_synchronization=True))
         check_group(groups[-1], device)
     if device.type == "cuda":
         torch.cuda.set_device(_local_rank())

@@ -57,6 +57,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import wire
+
 _state = threading.local()
 _counts: collections.Counter = collections.Counter()
 
@@ -276,7 +278,7 @@ def _group(axes: tuple):
         if ranks != sorted(ranks):
             raise ValueError(f"the mesh's ranks along {axes} are not in "
                              f"rank order: {ranks}")
-        cache[axes] = dist.new_group(ranks, use_local_synchronization=True)
+        cache[axes] = wire.new_group(ranks, use_local_synchronization=True)
     return cache[axes]
 
 
@@ -301,7 +303,7 @@ def gather(x: torch.Tensor, logical, dim: int) -> torch.Tensor:
     src = x.contiguous()
     out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
     _counts["all_gather"] += 1
-    dist.all_gather_into_tensor(out, src, group=group)
+    wire.all_gather_into_tensor(out, src, group=group)
     out = out.view((n,) + tuple(src.shape))            # the blocks stacked
     # contiguous in x's own layout (a view where n == 1 or dim == 0), so
     # that a gathered weight meets the products it met unsharded
@@ -318,7 +320,7 @@ def reduce(x: torch.Tensor, logical="tp") -> torch.Tensor:
         return x
     x = x.contiguous()
     _counts["all_reduce"] += 1
-    dist.all_reduce(x, group=_group(axes))
+    wire.all_reduce(x, group=_group(axes))
     return x
 
 

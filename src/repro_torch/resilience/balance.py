@@ -417,7 +417,8 @@ def migrate_and_resume(engine, checkpointer, plan: MigrationPlan,
         max_supersteps=engine.max_supersteps,
         gb=device_block(res.block, engine.device),
         exchange=engine.exchange_requested, tier_plan=tier_plan,
-        tracer=engine._tracer, metrics=engine._metrics, device=engine.device)
+        tracer=engine._tracer, metrics=engine._metrics,
+        validate=engine.validate, device=engine.device)
 
     # re-home the snapshot: restore → remap state → re-home or recompute the
     # inbox (see below) → re-commit at the same step

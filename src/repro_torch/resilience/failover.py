@@ -166,5 +166,5 @@ def run_with_failover(engine, checkpointer, every: int = 1,
                 max_supersteps=engine.max_supersteps,
                 exchange=engine.exchange_requested, tier_plan=plan,
                 tracer=engine._tracer, metrics=engine._metrics,
-                device=engine.device)
+                validate=engine.validate, device=engine.device)
     raise RecoveryExhausted(report, last)

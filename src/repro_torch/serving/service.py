@@ -57,6 +57,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import wire
 from repro_torch.core import (GopherEngine, PhasedTierPlan, device_block,
                               host_graph_block, resolve_device,
                               update_changed_profile, update_phase_profile,
@@ -782,7 +783,7 @@ class GraphQueryService:
         if self._group is None or not values:
             return values
         t = torch.tensor(values, dtype=torch.float64, device=self.device)
-        dist.broadcast(t, src=dist.get_global_rank(self._group, 0),
+        wire.broadcast(t, src=dist.get_global_rank(self._group, 0),
                        group=self._group)
         return t.tolist()
 
@@ -791,7 +792,7 @@ class GraphQueryService:
         if self._group is None:
             return flag
         t = torch.tensor([int(flag)], device=self.device)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._group)
+        wire.all_reduce(t, op=dist.ReduceOp.MAX, group=self._group)
         return bool(t.item())
 
     # ---------------- the pooled engines ----------------

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import wire
 from repro_torch.core.engine import resolve_device
 
 # what npz cannot hold: dtype -> (its marker, the same-width torch dtype
@@ -157,7 +158,7 @@ class Checkpointer:
                     self._save(state, step, extra)
                     self.wait()
             finally:
-                dist.barrier(group=group)
+                wire.barrier(group=group)
             return
         self._save(state, step, extra)
 

@@ -1317,3 +1317,72 @@ def test_mesh_failover_one_nccl_rank(cuda_device, tmp_path):
     finally:
         import torch.distributed as dist
         dist.destroy_process_group()
+
+
+def _runs_alike(make, check_ops=True):
+    """An unvalidated and a validated run of ``make(validate)`` on the
+    card: (their states, Telemetries, launch counts, the validated run's
+    record)."""
+    out = []
+    for validate in (False, True):
+        eng = make(validate)
+        _build.reset_launches()
+        state, tele = eng.run()
+        torch.cuda.synchronize()
+        out.append((state, tele, dict(_build.launches), eng.sentinel))
+    (s0, t0, l0, _), (s1, t1, l1, (summary, vs)) = out
+    for k in s0:
+        assert np.array_equal(s0[k], s1[k]), k
+    for f in Telemetry.__dataclass_fields__:
+        a, b = getattr(t0, f), getattr(t1, f)
+        assert (a is None and b is None) or np.array_equal(
+            np.asarray(a), np.asarray(b)), f
+    assert l0 == l1
+    assert [v for v in vs if v.severity == "error"] == []
+    return l1, summary
+
+
+def test_sentinel_validated_fused_cc_on_the_card(cuda_device):
+    """A validated fused CC (K3) and SSSP on the card: bit-equal to the
+    unvalidated runs with equal Telemetry and K3 launches, and no
+    collective recorded; Passes 2 and 3 report no error or warning."""
+    from repro_torch.analysis import REGISTRY, check_semiring, lint_kernels
+    pg = _serving_graph()[1]
+    for algo in ("cc", "sssp"):
+        launches, summary = _runs_alike(lambda v, a=algo: GopherEngine(
+            pg, _ck_program(a, pg), validate=v, device=cuda_device))
+        assert launches["megastep_semiring"] > 0 and summary.ops == []
+    assert [v for v in lint_kernels() if v.severity != "info"] == []
+    assert all(check_semiring(n) == [] for n in REGISTRY)
+
+
+def test_sentinel_validated_one_nccl_rank_compact_cc(cuda_device, tmp_path):
+    """On a world of one NCCL rank, a validated compact CC, phased CC and
+    30-iteration dense PageRank are bit-equal to the unvalidated runs
+    with equal Telemetry and K2/K5/K1 launches; every superstep's
+    collectives were recorded and agreed on (one fingerprint gather
+    each, and one at the run's end)."""
+    from repro_torch.launch.mesh import make_mesh
+    pg = _serving_graph()[1]
+    _nccl_world(tmp_path)
+    try:
+        mesh = make_mesh((1,), ("parts",), device="cuda")
+        for algo, ex, kernel in (("cc", "compact", "outbox_pack"),
+                                 ("cc", "phased", "outbox_pack"),
+                                 ("pagerank", "dense", "semiring_spmv")):
+            kw = {"max_supersteps": 64} if algo == "pagerank" else {}
+            plan = PhasedTierPlan.from_graph(pg) if ex == "phased" else None
+            launches, summary = _runs_alike(
+                lambda v, a=algo, e=ex, p=plan, k=kw: GopherEngine(
+                    pg, _ck_program(a, pg), backend="shard_map", mesh=mesh,
+                    exchange=e, tier_plan=p, validate=v, device=cuda_device,
+                    **k))
+            assert launches[kernel] > 0, (algo, ex)
+            steps = summary.per_superstep()
+            assert len(steps) == summary.supersteps and all(
+                s.get("all_reduce", 0) >= 1 for s in steps), (algo, ex)
+            assert summary.end_counts["all_gather"] >= 1
+            assert summary.fingerprints == len(summary.ops) + 1
+    finally:
+        import torch.distributed as dist
+        dist.destroy_process_group()

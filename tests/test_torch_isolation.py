@@ -54,9 +54,9 @@ def test_importing_the_port_loads_no_jax():
 def test_every_new_module_is_covered():
     """The modules of the staged route, of the tier plans, of LM serving
     (dense and ssm), of the store and incremental analytics, of graph
-    serving, of checkpointing and resilience, of observability and of the
-    multi-device backend (its graph and LM halves) are among the files
-    checked above."""
+    serving, of checkpointing and resilience, of observability, of the
+    multi-device backend (its graph and LM halves) and of the sentinel
+    (with its tool) are among the files checked above."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("core/messages.py", "core/subgraph.py", "kernels/flat.py",
                 "kernels/outbox_compact.py", "core/tiers.py",
@@ -74,5 +74,9 @@ def test_every_new_module_is_covered():
                 "resilience/failover.py", "resilience/balance.py",
                 "launch/elastic.py", "launch/chaos.py", "obs/trace.py",
                 "obs/metrics.py", "launch/scope.py", "launch/mesh.py",
-                "models/sharding.py", "training/shardspec.py"):
+                "models/sharding.py", "training/shardspec.py",
+                "core/wire.py", "analysis/__init__.py", "analysis/report.py",
+                "analysis/semiring.py", "analysis/collectives.py",
+                "analysis/kernel_lint.py", "launch/sentinel.py"):
         assert f"src/repro_torch/{mod}" in names, mod
+    assert "tools/sentinel_phase.py" in names

@@ -267,6 +267,33 @@ failure exits non-zero and prints no result:
       ``warm_s`` beside the unvalidated, and the fingerprint gathers; one
       ``sentinel_cli`` line; one ``sentinel_phase`` line. The launches of
       the validated runs are ``sentinel_launches``;
+   n. training on one card, after 4d/4e/4l (each model freed before the
+      next): (i) h2o-danube-1.8b at full width and depth and (ii)
+      falcon-mamba-7b at full width cut to 16 of its 64 layers (its whole
+      train state, ~116 GB, does not fit the card) through
+      ``make_train_step``: mixed-precision AdamW (bf16 model, float32
+      master, m and v), remat, ``SyntheticLM`` batches of 4 × 2048 from
+      seed 0, 2 warm-up and 10 timed steps; the loss finite on every step
+      and lower at the last timed step than at the first; K7 launched
+      twice a layer a step (the forward and remat's recompute) and K7b
+      once (48 and 24), K8 and K8b likewise (32 and 16). One ``train``
+      line each: step ms, tokens a second, peak memory, the losses, the
+      backward kernel's CUDA-event ms a step and its share, and the
+      profiler's device ms of a step by kind (the forward and backward
+      kernels, gemm, other) with the idle share. (iii) Each
+      family at full width cut to 2 layers, in float32: one train step on
+      the card (K7/K7b, K8/K8b) and on the CPU (the plain versions) with
+      the same weights and batch, the loss at rtol 1e-4, every gradient
+      and every updated parameter within a relative L2 error of 1e-3 (one
+      ``train_cut`` line each). (iv) K7b against
+      ``flash_attention_bwd_ref`` at h2o-danube-1.8b's (B 4, S 2048, H
+      32, KV 8, dh 80), llama3-8b's (dh 128, causal) and gemma3-4b's local
+      layer (dh 256, window 1024), and (v) K8b against
+      ``mamba1_scan_bwd_ref`` at falcon-mamba-7b's layer (B 4, L 2048, D
+      8192, N 16), each in float32 (rtol 1e-4, atol 1e-5; K8b's dB, dC
+      and dA atol 1e-5 of their scale) and bf16 (relative L2 1e-2). The
+      timed steps' launches are
+      ``train_launches``;
 5. kernel times at the paths' shapes: one ``{"kernels": [...]}`` line.
    ``launches`` counts phase 4's timed runs but 4f's, 4g's, 4h's, 4i's,
    4j's, 4k's, 4l's and 4m's, which stand beside it as
@@ -275,8 +302,16 @@ failure exits non-zero and prints no result:
    uncheckpointed CC and the chaos scenarios included),
    ``observability_launches`` (4i's every run in this process),
    ``mesh_launches`` (4j's mesh runs), ``failover_launches`` (4k's
-   every run), ``lm_mesh_launches`` (4l's timed mesh runs) and
-   ``sentinel_launches`` (4m's validated runs).
+   every run), ``lm_mesh_launches`` (4l's timed mesh runs),
+   ``sentinel_launches`` (4m's validated runs) and ``train_launches``
+   (4n's timed steps). The backward kernels K7b and K8b run on 4n's path
+   only: their rows' ``launches`` are 4n's. K7b's row is at h2o-danube-
+   1.8b's training layer (bf16, o from K7); its bound is the visible
+   pairs' 5 products of 2·dh FLOP at the bf16 tensor-core peak or its
+   bytes, its library call ``torch.autograd.grad`` through SDPA (the
+   backward alone). K8b's row is at falcon-mamba-7b's training layer
+   (bf16 in, float32 dy); its bound is the largest of its exps (one a
+   (b, l, d, n)) over the SFU, its FLOP and its bytes (``k8b_ops``).
    K3 is also held at the main path's CC superstep 0 with each walk
    forced. Its ``bound_ms`` counts only the rows with an active
    in-neighbour, summed over the plain version's sweeps, over the lanes
@@ -323,6 +358,7 @@ rate, whichever is larger; its library call is
 """
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -2039,7 +2075,7 @@ def serving_path(dev, g, ug, pg, upg, delta, launches_4g):
                                  max_s=BREAKDOWN_STEPS), sweeps, "head")
     head()
     bd = device_breakdown(head, sweeps["head"][1] * 1e3,
-                          ("outbox_pack", "pack_kernel"))
+                          [("outbox_pack", "pack_kernel")])
     log(json.dumps({"serving_breakdown": {
         "run": f"bfs_batch, supersteps 0-{BREAKDOWN_STEPS - 1}",
         "sweeps": sweeps["head"][0], **bd}}))
@@ -3185,14 +3221,14 @@ def op_event_ms(run, op: str) -> tuple:
     return len(calls), sum(s.elapsed_time(e) for s, e in calls)
 
 
-def device_breakdown(run, wall_ms: float, kernel: tuple) -> dict:
+def device_breakdown(run, wall_ms: float, kernels: list) -> dict:
     """Device time of one ``run`` by torch.profiler, by kind of kernel:
-    the hand-written one (``kernel``: its key and a piece of its name, as
-    in ``LM_PATHS``), matrix products (cuBLAS) and the rest, with the
-    count of launches and the card's idle share against ``wall_ms``, the
-    same run's time measured without the profiler (one stream: kernels do
-    not overlap). The profiler slows the host, so its own wall time is
-    reported but not used."""
+    the hand-written ones (``kernels``: pairs of a key and a piece of the
+    kernel's name, as in ``LM_PATHS``), matrix products (cuBLAS)
+    and the rest, with the count of launches and the card's idle share
+    against ``wall_ms``, the same run's time measured without the profiler
+    (one stream: kernels do not overlap). The profiler slows the host, so
+    its own wall time is reported but not used."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3202,18 +3238,16 @@ def device_breakdown(run, wall_ms: float, kernel: tuple) -> dict:
         run()
         torch.cuda.synchronize()
     profiled = (time.perf_counter() - t) * 1e3
-    key, piece = kernel
-    kinds = {key: 0.0, "gemm": 0.0, "other": 0.0}
+    kinds = {**{key: 0.0 for key, _ in kernels}, "gemm": 0.0, "other": 0.0}
     top = []
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA or not evt.device_time_total:
             continue
         ms = evt.device_time_total / 1e3
         name = evt.key.lower()
-        kind = (key if piece in name else
-                "gemm" if any(s in name for s in ("gemm", "nvjet", "xmma",
-                                                  "cutlass", "cublas"))
-                else "other")
+        kind = next((key for key, piece in kernels if piece in name), None)
+        kind = kind or ("gemm" if any(s in name for s in (
+            "gemm", "nvjet", "xmma", "cutlass", "cublas")) else "other")
         kinds[kind] += ms
         top.append((ms, evt.count, evt.key[:60]))
     busy = sum(kinds.values())
@@ -3313,10 +3347,10 @@ def lm_path(dev, path_launches: dict, arch: str, op: str, key: str,
     calls, op_ms = op_event_ms(
         lambda: prefill(model, {"inputs": prompts}), op)
     bd_prefill = device_breakdown(lambda: prefill(model, {"inputs": prompts}),
-                                  prefill_ms, (key, piece))
+                                  prefill_ms, [(key, piece)])
     _, c1 = prefill(model, {"inputs": prompts})
     bd_decode = device_breakdown(lambda: decode(model, gen[:, 0], c1),
-                                 decode_ms, (key, piece))
+                                 decode_ms, [(key, piece)])
     del c1
     log(json.dumps({
         "lm": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
@@ -3558,6 +3592,289 @@ def check_tp8_shapes(dev) -> None:
     del got, want, args, h0
     torch.cuda.empty_cache()
     log(json.dumps({"tp8_shapes": {"k7": k7, "k8": k8}}))
+
+# ---------------- phase 4n: training on one card ----------------
+
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+# (config, its depth on the card (None: whole), the forward and backward
+# kernels' launch keys, JSON keys and pieces of their names): h2o-danube-
+# 1.8b whole (K7, K7b), falcon-mamba-7b at full width cut to 16 of its 64
+# layers (K8, K8b; its whole train state, ~116 GB, does not fit 80 GB)
+TRAIN_PATHS = [
+    ("h2o-danube-1.8b", None, ("flash_attention", "k7", "flash_kernel"),
+     ("flash_attention_bwd", "k7b", "flash_bwd_kernel")),
+    ("falcon-mamba-7b", 16, ("mamba1_scan", "k8", "scan_kernel"),
+     ("mamba1_scan_bwd", "k8b", "scan_bwd_kernel")),
+]
+
+
+def train_path(dev, arch: str, depth, fwd: tuple, bwd: tuple,
+               train_launches: dict) -> None:
+    """Phase 4n (i)/(ii) (module docstring): ``arch`` (``depth`` layers)
+    at full width, mixed-precision AdamW with remat, through
+    ``make_train_step`` on ``SyntheticLM`` batches; the timed steps'
+    launches go into ``train_launches``. The model and its state are
+    freed at the end."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.data import DataCfg, SyntheticLM
+    from repro_torch.training.train_step import make_train_step
+    cfg = get_config(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    opt = O.OptCfg(lr=3e-4, warmup_steps=min(100, steps // 10 + 1),
+                   total_steps=steps, mixed_precision=True)
+    t = time.perf_counter()
+    model = M.init_params(cfg, seed=0, device=dev)
+    n_params = M.param_count(model)
+    state = O.init_state(model, opt)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    data = SyntheticLM(DataCfg(batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                               vocab=cfg.vocab, seed=0))
+    step_fn = make_train_step(cfg, opt)
+
+    def batch():
+        return {k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
+
+    losses, step_ms = [], []
+    for i in range(steps):
+        if i == TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            _build.reset_launches()
+        b = batch()
+        t = time.perf_counter()
+        state, met = step_fn(state, b)
+        loss = float(met["loss"])           # waits for the step
+        if i >= TRAIN_WARMUP:
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(loss)
+        if not math.isfinite(loss):
+            fail(f"{arch} train step {i + 1}: loss {loss}")
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    per_step = {k: c / TRAIN_STEPS for k, c in launches.items()}
+    (fkey, fname, fpiece), (bkey, bname, bpiece) = fwd, bwd
+    if per_step[fkey] != 2 * cfg.n_layers or per_step[bkey] != cfg.n_layers:
+        fail(f"{arch} train: {fkey} {per_step[fkey]} and {bkey} "
+             f"{per_step[bkey]} launches a step, expected "
+             f"{2 * cfg.n_layers} (forward and remat) and {cfg.n_layers}")
+    for k, c in launches.items():
+        train_launches[k] += c
+    timed = losses[TRAIN_WARMUP:]
+    if not (timed[-1] < timed[0] and losses[-1] < losses[0]):
+        fail(f"{arch} train: the loss did not fall: {losses}")
+    wall = statistics.median(step_ms)
+    op = f"{bkey}_cuda"
+    calls, bwd_ms = op_event_ms(lambda: step_fn(state, batch()), op)
+    bd = device_breakdown(lambda: step_fn(state, batch()), wall,
+                          [(fname, fpiece), (bname, bpiece)])
+    log(json.dumps({
+        "train": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
+        "dtype": "bf16 model, float32 master, m and v (mixed precision)",
+        "remat": cfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "warmup_steps": TRAIN_WARMUP, "timed_steps": TRAIN_STEPS,
+        "init_s": init_s, "step_ms": step_ms, "step_ms_median": wall,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * 1e3 / wall,
+        "max_memory_allocated": peak, "losses": losses,
+        f"{fname}_launches_per_step": per_step[fkey],
+        f"{bname}_launches_per_step": per_step[bkey],
+        f"{bname}_event_ms_per_step": bwd_ms, f"{bname}_event_calls": calls,
+        f"{bname}_share_of_step": bwd_ms / wall, "breakdown": bd}))
+    del model, state, step_fn
+    torch.cuda.empty_cache()
+
+
+def train_cut_against_cpu(dev, arch: str, fwd: str, bwd: str) -> None:
+    """Phase 4n (iii): ``arch`` at full width cut to 2 layers, in float32,
+    one train step with the same weights and batch on the card
+    (``fwd``/``bwd`` kernels) and on the CPU (the plain versions): the
+    loss at rtol 1e-4, every gradient and every updated parameter within
+    a relative L2 error of 1e-3."""
+    import copy
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.train_step import _grads, make_loss_fn
+    cut = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+    card = M.init_params(cut, seed=2, device=dev)
+    host = copy.deepcopy(card).to("cpu")
+    opt = O.OptCfg(mixed_precision=False)
+    card_state, host_state = O.init_state(card, opt), O.init_state(host, opt)
+    toks = torch.randint(0, cut.vocab, (1, 257), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(3))
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    loss_fn = make_loss_fn(cut)
+    _build.reset_launches()
+    loss = loss_fn(card, {k: v.to(dev) for k, v in batch.items()})[0]
+    grads = _grads(loss, card)
+    loss = float(loss.detach())
+    torch.cuda.synchronize()
+    if _build.launches[fwd] != 4 or _build.launches[bwd] != 2:
+        fail(f"{arch} train cut: {fwd} {_build.launches[fwd]} and {bwd} "
+             f"{_build.launches[bwd]} launches, expected 4 and 2")
+    t = time.perf_counter()
+    want_loss = loss_fn(host, batch)[0]
+    want = _grads(want_loss, host)
+    want_loss = float(want_loss.detach())
+    cpu_s = time.perf_counter() - t
+    if not math.isclose(loss, want_loss, rel_tol=1e-4):
+        fail(f"{arch} train cut: loss {loss} on the card, {want_loss} on "
+             f"the CPU")
+    worst = ("", 0.0)
+
+    def hold(got, want, what):
+        nonlocal worst
+        for n, g in got.items():
+            rel = float(torch.linalg.vector_norm(g.cpu() - want[n])
+                        / torch.linalg.vector_norm(want[n]).clamp(min=1e-30))
+            if not rel <= 1e-3:
+                fail(f"{arch} train cut: {what} {n} relative L2 error {rel}")
+            worst = max(worst, (n, rel), key=lambda p: p[1])
+    hold(grads, want, "gradient")
+    O.apply_updates(card_state, grads, opt)
+    O.apply_updates(host_state, want, opt)
+    hold({n: p.detach() for n, p in card.named_parameters()},
+         {n: p.detach() for n, p in host.named_parameters()},
+         "updated parameter")
+    log(json.dumps({"train_cut": f"{arch} at full width, depth cut to 2 "
+                    "layers, float32, card against CPU", "batch": 1,
+                    "seq": 256, "loss_card": loss, "loss_cpu": want_loss,
+                    "worst_rel_l2": worst[1], "worst": worst[0],
+                    "grads": len(grads), "cpu_s": cpu_s}))
+    del card, host, card_state, host_state, grads, want
+    torch.cuda.empty_cache()
+
+
+# (what, B, S, H, KV, dh, window): phase 4n (iv)'s K7b shapes, causal
+K7B_CHECKS = [("h2o-danube-1.8b train", 4, 2048, 32, 8, 80, 4096),
+              ("llama3-8b", 4, 2048, 32, 8, 128, None),
+              ("gemma3-4b local", 2, 2048, 8, 4, 256, 1024)]
+
+
+def grads_held(got, want, dt: str, what: str, scaled: tuple = ()) -> float:
+    """A backward kernel's outputs against its plain version: float32 at
+    rtol 1e-4 and atol 1e-5, bf16 at a relative L2 error of 1e-2. The
+    outputs at the indices ``scaled`` take atol 1e-5 of their scale
+    (max(1, their largest magnitude)): K8b's dB, dC and dA sum 8,192
+    channels (and dA B·L steps) of O(1) terms, whose float32 rounding in
+    another order reaches 1e-5 at entries that cancel to near 0. Logs each
+    output's errors; returns the max absolute error."""
+    import torch
+    err, seen = 0.0, []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if w is None:
+            continue
+        g, w = g.float(), w.float()
+        if tuple(g.shape) != tuple(w.shape) or not bool(
+                torch.isfinite(g).all()):
+            fail(f"{what}[{i}]: shape {tuple(g.shape)} or non-finite entries")
+        abs_err = float((g - w).abs().max())
+        scale = max(1.0, float(w.abs().max())) if i in scaled else 1.0
+        rel = float(torch.linalg.vector_norm(g - w)
+                    / torch.linalg.vector_norm(w).clamp(min=1e-30))
+        seen.append({"max_abs_err": abs_err, "scale": scale, "rel_l2": rel})
+        err = max(err, abs_err)
+        if dt == "float32":
+            if not torch.allclose(g, w, rtol=1e-4, atol=1e-5 * scale):
+                fail(f"{what}[{i}]: not allclose at rtol 1e-4, atol 1e-5 × "
+                     f"{scale} (max abs err {abs_err})")
+        elif not rel <= 1e-2:
+            fail(f"{what}[{i}]: relative L2 error {rel} (limit 1e-2)")
+    log(json.dumps({"grads_held": what, "outputs": seen}))
+    return err
+
+
+def backward_inputs(dev, seed, B, S, H, KV, dh, dtype):
+    """q, k, v and do for K7b: :func:`attention_inputs` and do from the
+    next seed."""
+    import torch
+    q, k, v = attention_inputs(dev, seed, B, S, S, H, KV, dh, dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed + 100)
+    do = torch.randn((B, S, H, dh), generator=gen, device=dev).to(q.dtype)
+    return q, k, v, do
+
+
+def check_k7b(dev) -> float:
+    """Phase 4n (iv): K7b against ``flash_attention_bwd_ref`` at
+    ``K7B_CHECKS``, float32 and bf16. Returns the float32 error at the
+    first shape."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_ref)
+    errs = []
+    for i, (what, B, S, H, KV, dh, win) in enumerate(K7B_CHECKS):
+        for dt in ("float32", "bfloat16"):
+            q, k, v, do = backward_inputs(dev, 40 + i, B, S, H, KV, dh, dt)
+            o = flash_attention_ref(q, k, v, window=win).contiguous()
+            got = flash_attention_bwd_cuda(q, k, v, o, do, window=win)
+            want = flash_attention_bwd_ref(q, k, v, o, do, window=win)
+            torch.cuda.synchronize()
+            err = grads_held(got, want, dt, f"K7b {what} {dt}")
+            errs.append(err)
+            log(f"K7b flash_attention_bwd {what}: B={B} S={S} H={H} KV={KV} "
+                f"dh={dh} window={win} {dt} agrees (max_abs_err {err})")
+            del q, k, v, do, o, got, want
+            torch.cuda.empty_cache()
+    return errs[0]
+
+
+def scan_backward_inputs(dev, dtype):
+    """K8b's inputs at falcon-mamba-7b's training layer (B 4, L 2048, D
+    8192, N 16): :func:`mamba_inputs` and a float32 dy, the mixer's form."""
+    import torch
+    args = mamba_inputs(dev, dtype, B=TRAIN_BATCH, L=TRAIN_SEQ)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    dy = torch.randn(args[0].shape, generator=gen, device=dev)
+    return args + (None, dy)
+
+
+def check_k8b(dev) -> float:
+    """Phase 4n (v): K8b against ``mamba1_scan_bwd_ref`` at falcon-mamba-
+    7b's layer, float32 and bf16 inputs. Returns the float32 error."""
+    import torch
+    from repro_torch.kernels.mamba_scan import (mamba1_scan_bwd_cuda,
+                                                mamba1_scan_bwd_ref)
+    errs = []
+    for dt in ("float32", "bfloat16"):
+        args = scan_backward_inputs(dev, dt)
+        got = mamba1_scan_bwd_cuda(*args)
+        want = mamba1_scan_bwd_ref(*args)
+        torch.cuda.synchronize()
+        errs.append(grads_held(got, want, dt, f"K8b {dt}", scaled=(2, 3, 4)))
+        log(f"K8b mamba1_scan_bwd {tuple(args[0].shape)} N="
+            f"{args[4].shape[1]} {dt} agrees (max_abs_err {errs[-1]})")
+        del args, got, want
+        torch.cuda.empty_cache()
+    return errs[0]
+
+
+def training_phase(dev) -> tuple:
+    """Phase 4n: (i) and (ii) through :func:`train_path`, (iii) each
+    family's 2-layer float32 cut against the CPU, (iv) K7b's and (v)
+    K8b's checks. Returns (the timed steps' launches, K7b's and K8b's
+    float32 errors)."""
+    from repro_torch.kernels import _build
+    t = time.perf_counter()
+    train_launches = dict.fromkeys(_build.launches, 0)
+    for arch, depth, fwd, bwd in TRAIN_PATHS:
+        train_path(dev, arch, depth, fwd, bwd, train_launches)
+    for arch, _, fwd, bwd in TRAIN_PATHS:
+        train_cut_against_cpu(dev, arch, fwd[0], bwd[0])
+    k7b_err, k8b_err = check_k7b(dev), check_k8b(dev)
+    log(json.dumps({"train_phase": {"phase_4n_s": time.perf_counter() - t}}))
+    return train_launches, k7b_err, k8b_err
+
 
 # ---------------- phase 5: kernel times at the main path's shapes --------
 
@@ -4297,6 +4614,138 @@ def k8_times(dev, path_launches, f32_err: float) -> dict:
                                "bound_bytes_ms")}}}
 
 
+def k7b_times(dev, train_launches, f32_err: float) -> dict:
+    """K7b at h2o-danube-1.8b's training layer (B 4, S 2048, H 32, KV 8,
+    dh 80, causal; its window of 4096 hides nothing at S 2048), bf16, o
+    from K7. The bound is the visible pairs' 5 products of 2·dh FLOP (the
+    row statistics' scores counted) at the bf16 tensor-core peak, or q, o,
+    do, k and v read and dq, dk and dv written once at the HBM rate. The
+    library call is ``torch.autograd.grad`` through
+    ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``,
+    its backward alone."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (_mask,
+                                                     flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_cuda)
+    what, B, S, H, KV, dh, win = K7B_CHECKS[0]
+    q, k, v, do = backward_inputs(dev, 40, B, S, H, KV, dh, "bfloat16")
+    o = flash_attention_cuda(q, k, v, window=win)
+    kernel = lambda: flash_attention_bwd_cuda(q, k, v, o, do,  # noqa: E731
+                                              window=win)
+    got = kernel()
+    want = flash_attention_bwd_ref(q, k, v, o, do, window=win)
+    torch.cuda.synchronize()
+    err = grads_held(got, want, "bfloat16", f"K7b at {what}")
+    del got, want
+    dev_ms = device_ms(kernel, "flash_bwd_kernel", reps=5)
+    call_ms = cuda_ms(kernel, reps=3)
+    plain_ms = cuda_ms(lambda: flash_attention_bwd_ref(
+        q, k, v, o, do, window=win), reps=2)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+    lib = lambda: torch.autograd.grad(  # noqa: E731
+        out, (qt, kt, vt), dot, retain_graph=True)
+    lib_ms = device_ms(lib, reps=5)
+    lib_call = cuda_ms(lib, reps=3)
+    pairs = int(_mask(S, S, True, win, 0, dev).sum())
+    flop = 2 * dh * 5 * H * B * pairs
+    nbytes = (4 * B * S * H + 4 * B * S * KV) * dh * q.element_size()
+    f_ms = flop / BF16_TENSOR_OPS_PER_S * 1e3
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(f_ms, b_ms)
+    row = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:72",
+           "replaces_note": "no TPU kernel: the JAX package differentiates "
+                            "through flash_attention_pallas or its jnp loop "
+                            "(models/layers.py:95-157); K7b is K7's gradient",
+           "launches": train_launches["flash_attention_bwd"],
+           "max_abs_err": err, "float32_max_abs_err": f32_err,
+           "ms": dev_ms, "call_ms": call_ms, "plain_ms": plain_ms,
+           "bound_ms": bound,
+           "bound_by": "operations" if f_ms >= b_ms else "bytes",
+           "library_ms": lib_ms, "library_call_ms": lib_call,
+           "library": "torch.autograd.grad through F.scaled_dot_product_"
+                      "attention(is_causal=True, enable_gqa=True), the "
+                      "backward alone",
+           "flop": flop, "bytes": nbytes,
+           "tflop_per_s": flop / dev_ms / 1e9,
+           "shape": "h2o-danube-1.8b training layer: B 4, S 2048, H 32, "
+                    "KV 8, dh 80, causal, bf16"}
+    log(json.dumps({"k7b": row}))
+    del q, k, v, do, o, qt, kt, vt, out, dot
+    torch.cuda.empty_cache()
+    return row
+
+
+def k8b_ops(B: int, L: int, D: int, N: int) -> tuple:
+    """The operations K8's gradient needs, not those K8b's code does (it
+    takes exp(δ·A) three times and the forward recurrence twice, to
+    keep its stored states few): (exps, FLOP). One exp(δ·A[d, n]) a (b, l,
+    d, n), as :func:`k8_ops` counts for K8; 19 FLOP a (b, l, d, n) (the
+    forward recurrence's 4 once, the reverse step's 13, 2 in the sums of
+    dB and dC over D) and 6 a (b, l, d) (δ·x twice, e·δ, e·x + Σ)."""
+    return B * L * D * N, 19 * B * L * D * N + 6 * B * L * D
+
+
+def k8b_times(dev, train_launches, f32_err: float, clock_hz: float) -> dict:
+    """K8b at falcon-mamba-7b's training layer (B 4, L 2048, D 8192, N
+    16): bf16 x, δ, B and C, float32 dy, no initial state (the mixer's
+    form). Its bound is the largest of its exps over the SFU's rate, its
+    FLOP (:func:`k8b_ops`) and its bytes: x, δ, B, C, A and dy read, dx,
+    dδ, dB, dC and dA written once."""
+    import torch
+    from repro_torch.kernels.mamba_scan import (mamba1_scan_bwd_cuda,
+                                                mamba1_scan_bwd_ref)
+    args = scan_backward_inputs(dev, "bfloat16")
+    B, L, D = args[0].shape
+    N = args[4].shape[1]
+    kernel = lambda: mamba1_scan_bwd_cuda(*args)  # noqa: E731
+    got, want = kernel(), mamba1_scan_bwd_ref(*args)
+    torch.cuda.synchronize()
+    err = grads_held(got, want, "bfloat16", "K8b at falcon-mamba-7b's layer")
+    del got, want
+    dev_ms = device_ms(kernel, "scan_bwd_kernel", reps=5)
+    call_ms = cuda_ms(kernel, reps=3)
+    plain_ms = cuda_ms(lambda: mamba1_scan_bwd_ref(*args), reps=1)
+    exps, flop = k8b_ops(B, L, D, N)
+    nbytes = (4 * B * L * D * 2 + B * L * D * 4 + 4 * B * L * N * 2
+              + 2 * D * N * 4)
+    ms = {"exps": exps / (SFU_EXPS_PER_CLOCK * SM_COUNT * clock_hz) * 1e3,
+          "operations": flop / FP32_OPS_PER_S * 1e3,
+          "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    by = max(ms, key=ms.get)
+    if dev_ms < ms[by]:
+        fail(f"K8b took {dev_ms} ms, under its bound of {ms[by]} ms ({by})")
+    row = {"name": "mamba1_scan_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/mamba_scan_bwd.cu",
+           "replaces": "src/repro/kernels/mamba_scan.py:48",
+           "replaces_note": "no TPU kernel: mamba1_scan_pallas is "
+                            "forward-only; K8b is K8's gradient",
+           "launches": train_launches["mamba1_scan_bwd"],
+           "max_abs_err": err, "float32_max_abs_err": f32_err,
+           "ms": dev_ms, "call_ms": call_ms, "plain_ms": plain_ms,
+           "bound_ms": ms[by],
+           "bound_by": "bytes" if by == "bytes" else "operations",
+           "bound_set_by": by, "bound_exps_ms": ms["exps"],
+           "bound_flop_ms": ms["operations"], "bound_bytes_ms": ms["bytes"],
+           "exps": exps, "flop": flop, "bytes": nbytes,
+           "sm_clock_hz": clock_hz, "library_ms": None,
+           "library_note": "no PyTorch call computes a selective scan's "
+                           "gradient",
+           "shape": "falcon-mamba-7b training layer: B 4, L 2048, D 8192, "
+                    "N 16, bf16 in, float32 dy, no h0"}
+    log(json.dumps({"k8b": row}))
+    del args
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> None:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import torch
@@ -4320,9 +4769,13 @@ def main() -> None:
     for arch, op, key, piece in LM_PATHS:
         lm_path(dev, path_launches, arch, op, key, piece, lm_mesh_launches)
     check_tp8_shapes(dev)
+    train_launches, k7b_err, k8b_err = training_phase(dev)
     kernels = kernel_times(dev, pg, path_launches, plain_k4)
     kernels["kernels"] += [k7_times(dev, path_launches),
-                           k8_times(dev, path_launches, k8_err)]
+                           k8_times(dev, path_launches, k8_err),
+                           k7b_times(dev, train_launches, k7b_err),
+                           k8b_times(dev, train_launches, k8b_err,
+                                     sm_clock_hz())]
     for row in kernels["kernels"]:
         row["incremental_launches"] = incremental_launches[row["name"]]
         row["serving_launches"] = serving_launches[row["name"]]
@@ -4332,6 +4785,7 @@ def main() -> None:
         row["failover_launches"] = failover_launches[row["name"]]
         row["lm_mesh_launches"] = lm_mesh_launches[row["name"]]
         row["sentinel_launches"] = sentinel_launches[row["name"]]
+        row["train_launches"] = train_launches[row["name"]]
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

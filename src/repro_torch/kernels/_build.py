@@ -31,7 +31,8 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 launches = {"semiring_spmv": 0, "semiring_spmv_frontier": 0,
             "megastep_semiring": 0, "resident_megastep": 0,
             "outbox_pack": 0, "outbox_compact_plan": 0,
-            "flash_attention": 0, "mamba1_scan": 0}
+            "flash_attention": 0, "mamba1_scan": 0,
+            "flash_attention_bwd": 0, "mamba1_scan_bwd": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -174,6 +175,18 @@ def _declare(lib) -> None:
     # (out[6]: lanes, channels, steps, stages, unroll, fused)
     lib.mamba1_scan_layout.argtypes = [ip]
     lib.mamba1_scan_layout.restype = None
+    # (q, k, v, o, do, dq, dk, dv, stats, B, Sq, Sk, H, KV, dh, causal,
+    #  window, q_offset, bf16, scale, device, stream)
+    lib.flash_attention_bwd_launch.argtypes = ([vp] * 9 + [i32] * 10
+                                               + [ctypes.c_float, i32, vp])
+    lib.flash_attention_bwd_launch.restype = i32
+    # (x, delta, Bv, Cv, A, h0 or NULL, dy, dh_last or NULL, dx, ddelta,
+    #  dB, dC, dA, dh0 or NULL, scratch, B, L, D, N, bf16, dy_f32, device,
+    #  stream)
+    lib.mamba1_scan_bwd_launch.argtypes = [vp] * 15 + [i32] * 7 + [vp]
+    lib.mamba1_scan_bwd_launch.restype = i32
+    lib.mamba1_scan_bwd_steps.argtypes = []
+    lib.mamba1_scan_bwd_steps.restype = i32
     lib.kernel_error_string.argtypes = [i32]
     lib.kernel_error_string.restype = ctypes.c_char_p
 

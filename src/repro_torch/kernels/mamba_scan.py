@@ -23,6 +23,14 @@ states as the pairwise tree that torch's ``sum(-1)`` over 16 takes there
 (``csrc/mamba_scan.cu`` names where bits are easily lost). So a decode
 step continues a prefill's state bit for bit. On the CPU torch sums in
 another order, which the tests hold at float32's tolerance.
+
+The backward, K8b, has no TPU counterpart (the Pallas kernel is
+forward-only): ``mamba1_scan_bwd_cuda`` launches
+``csrc/mamba_scan_bwd.cu``, a reverse sweep over L from states that a
+forward pass in the same launch stores every chunk, and
+``mamba1_scan_bwd_ref`` is its plain version, the reverse recurrence
+written out in torch ops. ``kernels.ops.mamba1_scan`` is a
+``torch.autograd.Function`` whose backward picks between them by device.
 """
 from __future__ import annotations
 
@@ -101,6 +109,53 @@ def mamba1_scan_ref(x: torch.Tensor, delta: torch.Tensor, Bv: torch.Tensor,
     return y
 
 
+def mamba1_scan_bwd_ref(x: torch.Tensor, delta: torch.Tensor,
+                        Bv: torch.Tensor, Cv: torch.Tensor, A: torch.Tensor,
+                        h0: Optional[torch.Tensor], dy: torch.Tensor,
+                        dh_last: Optional[torch.Tensor] = None):
+    """The gradients of :func:`mamba1_scan_ref` for the gradients ``dy``
+    of y (B, L, D) and ``dh_last`` of the final state (B, D, N; zeros when
+    None): (dx, dδ, dB, dC, dA, dh0), dx/dδ/dB/dC in their inputs' dtypes,
+    dA and dh0 float32 (dh0 None when ``h0`` is). The states are recomputed
+    and kept; the reverse sweep carries the state's gradient g:
+
+        g += dy_l·C_l;  dC_l = Σ_d dy_l·h_l;  dB_l = Σ_d g·δ_l·x_l
+        e = Σ_n g·B_l;  dx_l = e·δ_l
+        u = g·exp(δ_l·A)·h_{l-1};  dδ_l = Σ_n u·A + e·x_l;  dA += Σ_b u·δ_l
+        g = g·exp(δ_l·A)
+    """
+    B, L, D, N = _check_shapes(x, delta, Bv, Cv, A, h0)
+    xf, df, bf, cf = (t.float() for t in (x, delta, Bv, Cv))
+    af = A.float()
+    dyf = dy.float()
+    h = (torch.zeros((B, D, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.to(torch.float32, copy=True))
+    hs = [h]                                   # hs[l + 1] = h_l
+    for l in range(L):
+        h, _ = scan_step(h, df[:, l], xf[:, l], bf[:, l], cf[:, l], af)
+        hs.append(h)
+    g = (torch.zeros_like(h) if dh_last is None
+         else dh_last.to(torch.float32, copy=True))
+    dx = torch.empty((B, L, D), dtype=torch.float32, device=x.device)
+    dd, dB, dC = torch.empty_like(dx), bf.new_empty((B, L, N)), \
+        cf.new_empty((B, L, N))
+    dA = torch.zeros_like(af)
+    for l in reversed(range(L)):
+        dl, xl, dyl = df[:, l], xf[:, l], dyf[:, l]
+        g = g + dyl[:, :, None] * cf[:, l, None, :]
+        dC[:, l] = (dyl[:, :, None] * hs[l + 1]).sum(1)
+        dB[:, l] = (g * (dl * xl)[:, :, None]).sum(1)
+        e = (g * bf[:, l, None, :]).sum(-1)
+        gd = g * torch.exp(dl[:, :, None] * af)
+        u = gd * hs[l]
+        dd[:, l] = (u * af).sum(-1) + e * xl
+        dx[:, l] = e * dl
+        dA += (u * dl[:, :, None]).sum(0)
+        g = gd
+    return (dx.to(x.dtype), dd.to(delta.dtype), dB.to(Bv.dtype),
+            dC.to(Cv.dtype), dA, None if h0 is None else g)
+
+
 def k8_layout() -> dict:
     """The layout K8 was built with (``csrc/mamba_scan.cu``): lanes a
     channel, channels a block, steps a chunk, raw chunks in the ring, steps
@@ -156,3 +211,63 @@ def mamba1_scan_cuda(x: torch.Tensor, delta: torch.Tensor, Bv: torch.Tensor,
     _build.check(err, "mamba1_scan")
     _build.launches["mamba1_scan"] += 1
     return (y, h_last) if return_state else y
+
+
+def mamba1_scan_bwd_cuda(x: torch.Tensor, delta: torch.Tensor,
+                         Bv: torch.Tensor, Cv: torch.Tensor, A: torch.Tensor,
+                         h0: Optional[torch.Tensor], dy: torch.Tensor,
+                         dh_last: Optional[torch.Tensor] = None):
+    """:func:`mamba1_scan_bwd_ref` by kernel K8b, for contiguous CUDA
+    tensors: x, delta, Bv and Cv of one dtype (float32 or bfloat16), A,
+    h0 and dh_last float32, dy in x's dtype or float32, N <=
+    ``MAX_STATE``. dB, dC and dA are float32 sums by atomics (allclose,
+    not bit-equal, to the plain version); dB and dC come back in Bv's
+    dtype."""
+    if not x.is_cuda:
+        raise ValueError(f"kernel K8b needs CUDA tensors, got {x.device}")
+    B, L, D, N = _check_shapes(x, delta, Bv, Cv, A, h0)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"kernel K8b takes float32 or bfloat16, got "
+                        f"{x.dtype}")
+    if not 1 <= N <= MAX_STATE:
+        raise ValueError(f"kernel K8b is built for a state of at most "
+                         f"{MAX_STATE} entries, got N = {N}")
+    dev = x.device
+    _build.need(x, "x", x.dtype, dev, (B, L, D))
+    _build.need(delta, "delta", x.dtype, dev, (B, L, D))
+    _build.need(Bv, "Bv", x.dtype, dev, (B, L, N))
+    _build.need(Cv, "Cv", x.dtype, dev, (B, L, N))
+    _build.need(A, "A", torch.float32, dev, (D, N))
+    _build.need(dy, "dy", _y_dtype(x, dy.dtype), dev, (B, L, D))
+    if h0 is not None:
+        _build.need(h0, "h0", torch.float32, dev, (B, D, N))
+    if dh_last is not None:
+        _build.need(dh_last, "dh_last", torch.float32, dev, (B, D, N))
+    dx, dd = torch.empty_like(x), torch.empty_like(delta)
+    dB = torch.zeros((B, L, N), dtype=torch.float32, device=dev)
+    dC = torch.zeros((B, L, N), dtype=torch.float32, device=dev)
+    dA = torch.zeros((D, N), dtype=torch.float32, device=dev)
+    dh0 = (None if h0 is None
+           else torch.empty((B, D, N), dtype=torch.float32, device=dev))
+    if L == 0 or B * D == 0:
+        if dh0 is not None:
+            dh0.zero_()
+            if dh_last is not None:
+                dh0.copy_(dh_last)
+        return dx, dd, dB.to(Bv.dtype), dC.to(Cv.dtype), dA, dh0
+    lib = _build.library()
+    steps = lib.mamba1_scan_bwd_steps()
+    scratch = torch.empty((B, -(-L // steps), MAX_STATE, D),
+                          dtype=torch.float32, device=dev)
+    err = lib.mamba1_scan_bwd_launch(
+        x.data_ptr(), delta.data_ptr(), Bv.data_ptr(), Cv.data_ptr(),
+        A.data_ptr(), None if h0 is None else h0.data_ptr(), dy.data_ptr(),
+        None if dh_last is None else dh_last.data_ptr(), dx.data_ptr(),
+        dd.data_ptr(), dB.data_ptr(), dC.data_ptr(), dA.data_ptr(),
+        None if dh0 is None else dh0.data_ptr(), scratch.data_ptr(), B, L,
+        D, N, 1 if x.dtype == torch.bfloat16 else 0,
+        1 if dy.dtype == torch.float32 else 0, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "mamba1_scan_bwd")
+    _build.launches["mamba1_scan_bwd"] += 1
+    return dx, dd, dB.to(Bv.dtype), dC.to(Cv.dtype), dA, dh0

@@ -10,6 +10,12 @@ kernel fails. ``batch_invariant_matmul`` is the one product whose form on the ca
 prepared ``binned_plan``) are plain torch ops on every device, as the JAX
 package computes them outside any Pallas kernel;
 ``multibin_spmv`` sweeps each degree bin with kernel K1 on the card.
+
+``flash_attention`` and ``mamba1_scan`` are ``torch.autograd.Function``s:
+their forward is K7 or K8 (or the plain version) and their backward K7b or
+K8b (or the plain backward, written out as formulas), picked by the same
+rule. With no input that requires a gradient they launch exactly what the
+forward launches.
 """
 from __future__ import annotations
 
@@ -20,9 +26,13 @@ import torch
 
 from repro_torch.gofs.formats import PAD
 
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                 flash_attention_bwd_ref,
+                                                 flash_attention_cuda,
                                                  flash_attention_ref)
-from repro_torch.kernels.mamba_scan import mamba1_scan_cuda, mamba1_scan_ref
+from repro_torch.kernels.mamba_scan import (mamba1_scan_bwd_cuda,
+                                            mamba1_scan_bwd_ref,
+                                            mamba1_scan_cuda, mamba1_scan_ref)
 from repro_torch.kernels.outbox_compact import (outbox_compact_plan_cuda,
                                                 outbox_pack_cuda)
 from repro_torch.kernels.ref import (outbox_compact_plan_ref, outbox_pack_ref,
@@ -73,14 +83,61 @@ def outbox_compact_plan(active: torch.Tensor):
                  "outbox_compact_plan")(active)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """K7 forward, K7b backward (the plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        o = _pick(q, flash_attention_cuda, flash_attention_ref,
+                  "flash_attention")(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.mask = (causal, window, q_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        causal, window, q_offset = ctx.mask
+        dq, dk, dv = _pick(q, flash_attention_bwd_cuda,
+                           flash_attention_bwd_ref, "flash_attention_bwd")(
+            q, k, v, o, do.contiguous(), causal=causal, window=window,
+            q_offset=q_offset)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     q_offset: int = 0) -> torch.Tensor:
     """(B, Sq, H, dh) attention of q over (B, Sk, KV, dh) keys and values:
-    kernel K7 or ``flash_attention_ref``."""
-    return _pick(q, flash_attention_cuda, flash_attention_ref,
-                 "flash_attention")(q, k, v, causal=causal, window=window,
-                                    q_offset=q_offset)
+    kernel K7 or ``flash_attention_ref``; its gradient kernel K7b or
+    ``flash_attention_bwd_ref``."""
+    return _FlashAttention.apply(q, k, v, causal, window, q_offset)
+
+
+class _MambaScan(torch.autograd.Function):
+    """K8 forward, K8b backward (the plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, x, delta, Bv, Cv, A, h0, return_state, y_dtype):
+        ctx.set_materialize_grads(False)
+        out = _pick(x, mamba1_scan_cuda, mamba1_scan_ref, "mamba1_scan")(
+            x, delta, Bv, Cv, A, h0, return_state=return_state,
+            y_dtype=y_dtype)
+        ctx.save_for_backward(x, delta, Bv, Cv, A, h0)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy, dh_last=None):
+        x, delta, Bv, Cv, A, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        dx, dd, dB, dC, dA, dh0 = _pick(
+            x, mamba1_scan_bwd_cuda, mamba1_scan_bwd_ref,
+            "mamba1_scan_bwd")(x, delta, Bv, Cv, A, h0, dy.contiguous(),
+                               None if dh_last is None
+                               else dh_last.contiguous())
+        return dx, dd, dB, dC, dA, dh0, None, None
 
 
 def mamba1_scan(x: torch.Tensor, delta: torch.Tensor, Bv: torch.Tensor,
@@ -90,10 +147,9 @@ def mamba1_scan(x: torch.Tensor, delta: torch.Tensor, Bv: torch.Tensor,
                 y_dtype: Optional[torch.dtype] = None):
     """The Mamba1 selective scan from state ``h0`` (zeros when None), y
     (B, L, D) in x's dtype or ``y_dtype``, and with ``return_state`` the
-    final state (B, D, N) float32: kernel K8 or ``mamba1_scan_ref``."""
-    return _pick(x, mamba1_scan_cuda, mamba1_scan_ref,
-                 "mamba1_scan")(x, delta, Bv, Cv, A, h0,
-                                return_state=return_state, y_dtype=y_dtype)
+    final state (B, D, N) float32: kernel K8 or ``mamba1_scan_ref``; its
+    gradient kernel K8b or ``mamba1_scan_bwd_ref``."""
+    return _MambaScan.apply(x, delta, Bv, Cv, A, h0, return_state, y_dtype)
 
 
 # ---------------- the serving sweeps: two-bin ELL over Q vectors -----------

@@ -9,9 +9,12 @@
 The dense family runs on ``models.transformer`` (K7 in every prefill
 layer), the ssm family (falcon-mamba) on ``models.ssm`` (K8 in every
 prefill layer); every other family raises ``NotImplementedError`` naming
-the ROADMAP item that brings it. ``init_params(mesh=)`` keeps each rank's
-block of the parameters; the other calls run on the mesh whose rules are
-active (``models.sharding.use``).
+the ROADMAP item that brings it. ``forward`` is the one the training loss
+uses: it records a graph once the parameters require gradients
+(``training.optimizer.init_state``), its backward reaching K7b or K8b.
+``init_params(mesh=)`` keeps each rank's block of the parameters; the
+other calls run on the mesh whose rules are active
+(``models.sharding.use``).
 """
 from __future__ import annotations
 

@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import layers as L
@@ -80,13 +81,24 @@ def init_params(cfg, generator: Optional[torch.Generator] = None, *,
         return SSM(cfg, generator, device, mesh)
 
 
+def _remat_layer(x, p: Block, cfg):
+    return x + L.mamba1_mixer(L.rms_norm(x, p.ln, cfg.norm_eps), p.mixer,
+                              cfg)[0]
+
+
 def _layers(params: SSM, inputs, cfg, on_state=None):
     """Embed, run every layer, final norm and unembed. ``on_state(i,
     state)`` receives each layer's final conv and ssm state (prefill's
-    cache)."""
+    cache). Where a gradient flows through the layers and ``cfg.remat`` is
+    set, each layer runs under ``torch.utils.checkpoint`` (the JAX
+    package's ``jax.checkpoint`` per layer): K8 twice a layer a train
+    step."""
     _check_family(cfg)
     x = L.embed(inputs, params.embed)
     for i, p in enumerate(params.blocks):
+        if cfg.remat and on_state is None and x.requires_grad:
+            x = checkpoint(_remat_layer, x, p, cfg, use_reentrant=False)
+            continue
         y, st = L.mamba1_mixer(L.rms_norm(x, p.ln, cfg.norm_eps), p.mixer,
                                cfg)
         x = x + y
@@ -96,10 +108,10 @@ def _layers(params: SSM, inputs, cfg, on_state=None):
     return L.unembed(x, params.embed, cfg)
 
 
-@torch.no_grad()
 def forward(params: SSM, inputs: torch.Tensor, cfg, positions=None):
     """inputs: (B, S) int tokens (``positions`` is unused: the family has
-    none). Returns (logits (B, S, V), aux_loss 0)."""
+    none). Returns (logits (B, S, V), aux_loss 0), with a graph where grad
+    mode is on and a parameter requires a gradient (the loss's forward)."""
     logits = _layers(params, inputs, cfg)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 

@@ -26,6 +26,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import layers as L
@@ -148,9 +149,17 @@ def _ffn_block(x, p: Block, cfg):
     return x + L.mlp(h, p.mlp, cfg.act).to(x.dtype)
 
 
+def _remat_layer(x, p: Block, cfg, pos, is_global: bool):
+    return _ffn_block(_attn_block(x, p, cfg, pos, is_global)[0], p, cfg)
+
+
 def _layers(params: Transformer, inputs, cfg, positions, on_kv=None):
     """Embed, run every layer, final norm and unembed. ``on_kv(seg, i, k,
-    v)`` receives each layer's keys and values (prefill's cache)."""
+    v)`` receives each layer's keys and values (prefill's cache). Where a
+    gradient flows through the layers (``x.requires_grad``) and
+    ``cfg.remat`` is set, each layer runs under ``torch.utils.checkpoint``,
+    as the JAX package's ``jax.checkpoint`` per layer: the backward runs
+    its forward again (K7 twice a layer a train step)."""
     _check_family(cfg)
     x = L.embed(inputs, params.embed)
     B, S = x.shape[0], x.shape[1]
@@ -159,6 +168,10 @@ def _layers(params: Transformer, inputs, cfg, positions, on_kv=None):
     for si, ((_, is_global), seg) in enumerate(zip(_plan(cfg),
                                                    params.segments)):
         for i, p in enumerate(seg):
+            if cfg.remat and on_kv is None and x.requires_grad:
+                x = checkpoint(_remat_layer, x, p, cfg, positions, is_global,
+                               use_reentrant=False)
+                continue
             x, k, v = _attn_block(x, p, cfg, positions, is_global)
             x = _ffn_block(x, p, cfg)
             if on_kv is not None:
@@ -167,11 +180,13 @@ def _layers(params: Transformer, inputs, cfg, positions, on_kv=None):
     return L.unembed(x, params.embed, cfg)
 
 
-@torch.no_grad()
 def forward(params: Transformer, inputs: torch.Tensor, cfg, positions=None):
     """inputs: (B, S) int tokens; positions: (B, S) (default 0..S-1).
     Returns (logits (B, S, V), aux_loss); the dense family has no auxiliary
-    loss, so it is 0."""
+    loss, so it is 0. It records a graph where grad mode is on and a
+    parameter requires a gradient (``training.optimizer.init_state``
+    turns that on): the loss's forward. Serving's prefill and decode run
+    without a graph."""
     logits = _layers(params, inputs, cfg, positions)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 

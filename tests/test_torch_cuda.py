@@ -1386,3 +1386,124 @@ def test_sentinel_validated_one_nccl_rank_compact_cc(cuda_device, tmp_path):
     finally:
         import torch.distributed as dist
         dist.destroy_process_group()
+
+
+def _rel_l2(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want).clamp(min=1e-30))
+
+
+def _grads_held(got, want, dtype, what):
+    """float32: allclose at rtol 1e-4, atol 1e-5; bf16: a relative L2
+    error of at most 1e-2 (each output rounded to bf16 once)."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if w is None:
+            assert g is None, f"{what}[{i}]"
+            continue
+        assert g.dtype == w.dtype, f"{what}[{i}]: {g.dtype} {w.dtype}"
+        if dtype == torch.float32:
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                       rtol=1e-4, atol=1e-5,
+                                       err_msg=f"{what}[{i}]")
+        else:
+            assert _rel_l2(g, w) <= 1e-2, (what, i, _rel_l2(g, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(K7_CUDA_CASES)))
+def test_k7b_flash_attention_bwd_matches_plain(cuda_device, case, dtype):
+    """K7b against ``flash_attention_bwd_ref`` on K7's cases: every head
+    width (16, 32, 64, 80, 128, 256), GQA up to g = 8, windows,
+    continuations, rows with no visible key, ragged tiles."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_ref)
+    B, Sq, Sk, H, KV, dh, causal, window, q_offset = K7_CUDA_CASES[case]
+    gen = torch.Generator(device=cuda_device).manual_seed(100 + case)
+    q, k, v, do = (torch.randn(s, generator=gen, device=cuda_device).to(dtype)
+                   for s in ((B, Sq, H, dh), (B, Sk, KV, dh), (B, Sk, KV, dh),
+                             (B, Sq, H, dh)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o = flash_attention_ref(q, k, v, **kw).contiguous()
+    before = _build.launches["flash_attention_bwd"]
+    got = flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+    want = flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    assert _build.launches["flash_attention_bwd"] == before + 1
+    _grads_held(got, want, dtype, f"K7b case {case}")
+    if q_offset < 0:
+        assert not got[0][:, :-q_offset].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,D,N,state", [
+    (2, 300, 200, 16, False), (1, 64, 64, 4, True), (3, 17, 130, 8, True),
+    (2, 33, 96, 16, True)])
+def test_k8b_mamba_scan_bwd_matches_plain(cuda_device, B, L, D, N, state,
+                                          dtype):
+    """K8b against ``mamba1_scan_bwd_ref``: N padded (4, 8) and full (16),
+    L at and off its chunk of steps, D off a block of channels, with and
+    without h0 and the final state's gradient, dy float32 (the ssm
+    mixer's form) and in the inputs' dtype."""
+    from repro_torch.kernels.mamba_scan import (mamba1_scan_bwd_cuda,
+                                                mamba1_scan_bwd_ref)
+    gen = torch.Generator(device=cuda_device).manual_seed(L + D)
+    x = torch.randn((B, L, D), generator=gen, device=cuda_device) * 0.5
+    dt = torch.rand((B, L, D), generator=gen, device=cuda_device) * 0.5 + 0.01
+    bv = torch.randn((B, L, N), generator=gen, device=cuda_device)
+    cv = torch.randn((B, L, N), generator=gen, device=cuda_device)
+    a = -(torch.rand((D, N), generator=gen, device=cuda_device) * 1.5 + 0.5)
+    h0 = (torch.randn((B, D, N), generator=gen, device=cuda_device)
+          if state else None)
+    dh = (torch.randn((B, D, N), generator=gen, device=cuda_device)
+          if state else None)
+    dy = torch.randn((B, L, D), generator=gen, device=cuda_device)
+    x, dt, bv, cv = (t.to(dtype) for t in (x, dt, bv, cv))
+    for dy_in in ([dy] if dtype == torch.float32 else [dy, dy.to(dtype)]):
+        before = _build.launches["mamba1_scan_bwd"]
+        got = mamba1_scan_bwd_cuda(x, dt, bv, cv, a, h0, dy_in, dh)
+        want = mamba1_scan_bwd_ref(x, dt, bv, cv, a, h0, dy_in, dh)
+        torch.cuda.synchronize()
+        assert _build.launches["mamba1_scan_bwd"] == before + 1
+        _grads_held(got, want, dtype, f"K8b dy {dy_in.dtype}")
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "falcon-mamba-7b"])
+def test_train_step_on_the_card_matches_the_cpu(cuda_device, arch):
+    """One reduced float32 train step with the same weights and batch on
+    the card (K7 and K7b, or K8 and K8b) and on the CPU (the plain
+    versions): the loss at rtol 1e-4, every gradient within a relative L2
+    error of 1e-3, and the kernels launched twice a layer forward (remat
+    recomputes each layer) and once backward."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_step as S
+    cfg = get_config(arch).reduced()
+    model = M.init_params(cfg, seed=0, device=cuda_device)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    opt = O.OptCfg(mixed_precision=False)
+    O.init_state(model, opt)
+    O.init_state(cpu_model, opt)
+    toks = torch.randint(0, cfg.vocab, (2, 33),
+                         generator=torch.Generator().manual_seed(0))
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    _build.reset_launches()
+    loss, _ = S.make_loss_fn(cfg)(
+        model, {k: t.to(cuda_device) for k, t in batch.items()})
+    grads = S._grads(loss, model)
+    torch.cuda.synchronize()
+    fwd, bwd = (("flash_attention", "flash_attention_bwd")
+                if cfg.family == "dense" else
+                ("mamba1_scan", "mamba1_scan_bwd"))
+    assert _build.launches[fwd] == 2 * cfg.n_layers
+    assert _build.launches[bwd] == cfg.n_layers
+    want_loss, _ = S.make_loss_fn(cfg)(cpu_model, batch)
+    want = S._grads(want_loss, cpu_model)
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss.detach()),
+                               rtol=1e-4)
+    for n, g in grads.items():
+        assert _rel_l2(g.cpu(), want[n]) <= 1e-3, n

@@ -55,8 +55,9 @@ def test_every_new_module_is_covered():
     """The modules of the staged route, of the tier plans, of LM serving
     (dense and ssm), of the store and incremental analytics, of graph
     serving, of checkpointing and resilience, of observability, of the
-    multi-device backend (its graph and LM halves) and of the sentinel
-    (with its tool) are among the files checked above."""
+    multi-device backend (its graph and LM halves), of the sentinel (with
+    its tool) and of training (the optimizer, the data stream and the
+    train launcher, with its tool) are among the files checked above."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("core/messages.py", "core/subgraph.py", "kernels/flat.py",
                 "kernels/outbox_compact.py", "core/tiers.py",
@@ -77,6 +78,9 @@ def test_every_new_module_is_covered():
                 "models/sharding.py", "training/shardspec.py",
                 "core/wire.py", "analysis/__init__.py", "analysis/report.py",
                 "analysis/semiring.py", "analysis/collectives.py",
-                "analysis/kernel_lint.py", "launch/sentinel.py"):
+                "analysis/kernel_lint.py", "launch/sentinel.py",
+                "training/optimizer.py", "training/data.py",
+                "launch/train.py"):
         assert f"src/repro_torch/{mod}" in names, mod
     assert "tools/sentinel_phase.py" in names
+    assert "tools/training_phase.py" in names

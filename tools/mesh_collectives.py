@@ -84,7 +84,7 @@ def pagerank(dev, mesh) -> dict:
         torch.cuda.synchronize()
         secs[backend].append(time.perf_counter() - t)
     return {b: {"warm_s": s, "profile": cs.device_breakdown(
-        lambda: run(b), sum(s) / len(s) * 1e3, ("nccl", "nccl"))}
+        lambda: run(b), sum(s) / len(s) * 1e3, [("nccl", "nccl")])}
         for b, s in secs.items()}
 
 

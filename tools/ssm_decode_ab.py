@@ -237,7 +237,7 @@ def main() -> None:
                 if r < 2:
                     bd = cs.device_breakdown(
                         lambda: decode(model, tok, cache), times[name][-1],
-                        ("k8", "scan_kernel"))
+                        [("k8", "scan_kernel")])
                     step_ms[name].append({"device_ms": bd["device_ms"],
                                           "gemm_ms": bd["by_kind_ms"]["gemm"],
                                           "launches": bd["kernel_launches"]})

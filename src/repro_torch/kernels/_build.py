@@ -158,14 +158,14 @@ def _declare(lib) -> None:
     # (cluster_blocks, blocks, threads, iters, ns, device, stream)
     lib.barrier_probe_launch.argtypes = [i32] * 4 + [vp, i32, vp]
     lib.barrier_probe_launch.restype = i32
-    # (q, k, v, o, B, Sq, Sk, H, KV, dh, causal, window, q_offset, bf16,
-    #  scale, device, stream)
-    lib.flash_attention_launch.argtypes = ([vp] * 4 + [i32] * 10
+    # (q, k, v, o, lse or NULL, B, Sq, Sk, H, KV, dh, causal, window,
+    #  q_offset, bf16, scale, device, stream)
+    lib.flash_attention_launch.argtypes = ([vp] * 5 + [i32] * 10
                                            + [ctypes.c_float, i32, vp])
     lib.flash_attention_launch.restype = i32
-    # (q, k, v, o, B, Sq, Sk, H, KV, dh, causal, window, q_offset, scale,
-    #  device, stream)
-    lib.flash_attention_sm90_launch.argtypes = ([vp] * 4 + [i32] * 9
+    # (q, k, v, o, lse or NULL, B, Sq, Sk, H, KV, dh, causal, window,
+    #  q_offset, scale, device, stream)
+    lib.flash_attention_sm90_launch.argtypes = ([vp] * 5 + [i32] * 9
                                                 + [ctypes.c_float, i32, vp])
     lib.flash_attention_sm90_launch.restype = i32
     # (x, delta, Bv, Cv, A, h0 or NULL, y, h_last or NULL, B, L, D, N,
@@ -180,6 +180,12 @@ def _declare(lib) -> None:
     lib.flash_attention_bwd_launch.argtypes = ([vp] * 9 + [i32] * 10
                                                + [ctypes.c_float, i32, vp])
     lib.flash_attention_bwd_launch.restype = i32
+    # (q, k, v, o, do, lse, dq, dk, dv, dq_acc, lse2, dsum, B, Sq, Sk, H, KV,
+    #  dh, causal, window, q_offset, scale, device, stream)
+    lib.flash_attention_bwd_sm90_launch.argtypes = ([vp] * 12 + [i32] * 9
+                                                    + [ctypes.c_float, i32,
+                                                       vp])
+    lib.flash_attention_bwd_sm90_launch.restype = i32
     # (x, delta, Bv, Cv, A, h0 or NULL, dy, dh_last or NULL, dx, ddelta,
     #  dB, dC, dA, dh0 or NULL, scratch, B, L, D, N, bf16, dy_f32, device,
     #  stream)

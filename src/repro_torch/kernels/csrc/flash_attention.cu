@@ -60,9 +60,9 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-             int H, int KV, int g, int bq, int causal, int window,
-             int q_offset, float scale) {
+             const T* __restrict__ v, T* __restrict__ o,
+             float* __restrict__ lse, int Sq, int Sk, int H, int KV, int g,
+             int bq, int causal, int window, int q_offset, float scale) {
   constexpr int kLd = DH + 1;               // padded: no bank conflicts
   // p·V: threads across columns (16 where 32 does not divide dh, as 80)
   constexpr int kTc = DH < 32 ? DH : (DH % 32 ? 16 : 32);
@@ -237,11 +237,19 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int cc = 0; cc < kCpt; ++cc) store(dst + pc + kTc * cc, acc[rr][cc] / l);
   }
+  // each row's log-sum-exp of the scaled scores when asked (the backward's
+  // input): m + log(l), +inf on a row with no visible key
+  if (lse != nullptr && tid < rows) {
+    const int qi = q0 + tid / g;
+    if (qi < Sq)
+      lse[((int64_t)b * H + kvh * g + tid % g) * Sq + qi] =
+          m_s[tid] == -INFINITY ? INFINITY : m_s[tid] + logf(l_s[tid]);
+  }
 }
 
 template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Sk, int H, int KV, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Sk, int H, int KV, int causal, int window,
            int q_offset, float scale, cudaStream_t stream) {
   const int g = H / KV;
   const int bq = kRows / g;
@@ -254,34 +262,35 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + bq - 1) / bq, B * KV);
   flash_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Sk, H, KV, g, bq,
-      causal, window, q_offset, scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Sq, Sk, H, KV, g,
+      bq, causal, window, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_dh(const void* q, const void* k, const void* v, void* o, int B,
-              int Sq, int Sk, int H, int KV, int dh, int causal, int window,
-              int q_offset, float scale, cudaStream_t stream) {
+int launch_dh(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int Sq, int Sk, int H, int KV, int dh,
+              int causal, int window, int q_offset, float scale,
+              cudaStream_t stream) {
   switch (dh) {
     case 16:
-      return launch<T, 16>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                           q_offset, scale, stream);
+      return launch<T, 16>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal,
+                           window, q_offset, scale, stream);
     case 32:
-      return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                           q_offset, scale, stream);
+      return launch<T, 32>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal,
+                           window, q_offset, scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                           q_offset, scale, stream);
+      return launch<T, 64>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal,
+                           window, q_offset, scale, stream);
     case 80:
-      return launch<T, 80>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                           q_offset, scale, stream);
+      return launch<T, 80>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal,
+                           window, q_offset, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                            q_offset, scale, stream);
+      return launch<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal,
+                            window, q_offset, scale, stream);
     case 256:
-      return launch<T, 256>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                            q_offset, scale, stream);
+      return launch<T, 256>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal,
+                            window, q_offset, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -290,21 +299,23 @@ int launch_dh(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // window <= 0: no window. bf16 = 1: q, k, v and o are __nv_bfloat16, else
-// float. The wrapper has checked shapes, H % KV == 0, H / KV <= 64 and dh.
+// float. lse: NULL, or float32 (B, H, Sq) for each row's log-sum-exp. The
+// wrapper has checked shapes, H % KV == 0, H / KV <= 64 and dh.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int Sq,
-                                      int Sk, int H, int KV, int dh,
-                                      int causal, int window, int q_offset,
-                                      int bf16, float scale, int device,
-                                      void* stream) {
+                                      const void* v, void* o, void* lse,
+                                      int B, int Sq, int Sk, int H, int KV,
+                                      int dh, int causal, int window,
+                                      int q_offset, int bf16, float scale,
+                                      int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || Sq == 0) return 0;
   if (KV <= 0 || H % KV != 0 || H / KV > kRows)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? launch_dh<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KV, dh,
+  float* const f = static_cast<float*>(lse);
+  return bf16 ? launch_dh<__nv_bfloat16>(q, k, v, o, f, B, Sq, Sk, H, KV, dh,
                                          causal, window, q_offset, scale, s)
-              : launch_dh<float>(q, k, v, o, B, Sq, Sk, H, KV, dh, causal,
+              : launch_dh<float>(q, k, v, o, f, B, Sq, Sk, H, KV, dh, causal,
                                  window, q_offset, scale, s);
 }

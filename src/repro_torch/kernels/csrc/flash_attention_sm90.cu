@@ -518,9 +518,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
-                      const __grid_constant__ CUtensorMap to, int B, int Sq,
-                      int Sk, int H, int g, int causal, int window,
-                      int q_offset, float scale_log2) {
+                      const __grid_constant__ CUtensorMap to,
+                      float* __restrict__ lse, int B, int Sq, int Sk, int H,
+                      int g, int causal, int window, int q_offset,
+                      float scale_log2) {
   using C = Cfg<DH>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (smem_addr(smem_raw) + 1023u) & ~1023u;  // Q buffers
@@ -706,8 +707,24 @@ __global__ void __launch_bounds__(kThreads, 1)
       // epilogue: O / l in bf16 into this warpgroup's rows of the Q buffer,
       // swizzled as TMA reads them, then one TMA store a chunk; the buffer
       // is free for the next Q once the store has read it
-      const float inv0 = 1.f / fmaxf(quad_sum(l[0]), 1e-30f);
-      const float inv1 = 1.f / fmaxf(quad_sum(l[1]), 1e-30f);
+      const float l0 = quad_sum(l[0]), l1 = quad_sum(l[1]);
+      const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+      const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+      if (lse != nullptr && quad == 0) {
+        // each row's log-sum-exp of the scaled scores, natural log: the
+        // exp2 form's m·c + log2(l), times ln 2; +inf on a row with no
+        // visible key, so that the backward's exp(s - lse) is 0 there
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int qi = it.q0 + row + 8 * half;
+          if (qi < Sq)
+            lse[((int64_t)it.b * H + it.h) * Sq + qi] =
+                m[half] == -INFINITY
+                    ? INFINITY
+                    : (m[half] * scale_log2 + log2f(half ? l1 : l0)) *
+                          0.6931471805599453f;
+        }
+      }
 #pragma unroll
       for (int j = 0; j < C::kDHP / 8; ++j) {
 #pragma unroll
@@ -794,8 +811,8 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, int dh,
 }
 
 template <int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Sk, int H, int KV, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Sk, int H, int KV, int causal, int window,
            int q_offset, float scale, cudaStream_t stream) {
   using C = Cfg<DH>;
   const EncodeTiled enc = encode_tiled();
@@ -819,39 +836,43 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const long items = (long)((Sq + kBM - 1) / kBM) * H * B;
   const int grid = (int)(items < sms ? items : sms);
   flash_kernel_sm90<DH><<<grid, kThreads, C::kSmem, stream>>>(
-      tq, tk, tv, to, B, Sq, Sk, H, H / KV, causal, window, q_offset,
+      tq, tk, tv, to, lse, B, Sq, Sk, H, H / KV, causal, window, q_offset,
       scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// bf16 q, k, v and o; window <= 0: no window. The wrapper has checked
-// shapes, dh in {64, 80, 128, 256}, H % KV == 0, H / KV <= 64, Sk >= 1 and
-// 16-byte aligned base pointers.
+// bf16 q, k, v and o; lse: NULL, or float32 (B, H, Sq) for each row's
+// log-sum-exp (what the backward needs; the serving path passes NULL and
+// the kernel writes nothing more). window <= 0: no window. The wrapper has
+// checked shapes, dh in {64, 80, 128, 256}, H % KV == 0, H / KV <= 64,
+// Sk >= 1 and 16-byte aligned base pointers.
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
-                                           const void* v, void* o, int B,
-                                           int Sq, int Sk, int H, int KV,
-                                           int dh, int causal, int window,
-                                           int q_offset, float scale,
-                                           int device, void* stream) {
+                                           const void* v, void* o, void* lse,
+                                           int B, int Sq, int Sk, int H,
+                                           int KV, int dh, int causal,
+                                           int window, int q_offset,
+                                           float scale, int device,
+                                           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || Sq == 0) return 0;
   if (KV <= 0 || H % KV != 0 || Sk <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  float* const f = static_cast<float*>(lse);
   switch (dh) {
     case 64:
-      return launch<64>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+      return launch<64>(q, k, v, o, f, B, Sq, Sk, H, KV, causal, window,
                         q_offset, scale, s);
     case 80:
-      return launch<80>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+      return launch<80>(q, k, v, o, f, B, Sq, Sk, H, KV, causal, window,
                         q_offset, scale, s);
     case 128:
-      return launch<128>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+      return launch<128>(q, k, v, o, f, B, Sq, Sk, H, KV, causal, window,
                          q_offset, scale, s);
     case 256:
-      return launch<256>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+      return launch<256>(q, k, v, o, f, B, Sq, Sk, H, KV, causal, window,
                          q_offset, scale, s);
     default:
       return (int)cudaErrorInvalidValue;

@@ -84,25 +84,30 @@ def outbox_compact_plan(active: torch.Tensor):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K7 forward, K7b backward (the plain versions on the CPU)."""
+    """K7 forward, K7b backward (the plain versions on the CPU). When a
+    gradient is wanted the forward also returns each row's log-sum-exp,
+    saved beside the output for the backward; otherwise the forward is
+    the serving launch, which writes no lse."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset):
-        o = _pick(q, flash_attention_cuda, flash_attention_ref,
-                  "flash_attention")(q, k, v, causal=causal, window=window,
-                                     q_offset=q_offset)
-        ctx.save_for_backward(q, k, v, o)
-        ctx.mask = (causal, window, q_offset)
+        fwd = _pick(q, flash_attention_cuda, flash_attention_ref,
+                    "flash_attention")
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        if any(ctx.needs_input_grad):
+            o, lse = fwd(q, k, v, return_lse=True, **kw)
+            ctx.save_for_backward(q, k, v, o, lse)
+        else:
+            o = fwd(q, k, v, **kw)
+        ctx.mask = kw
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        causal, window, q_offset = ctx.mask
+        q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = _pick(q, flash_attention_bwd_cuda,
                            flash_attention_bwd_ref, "flash_attention_bwd")(
-            q, k, v, o, do.contiguous(), causal=causal, window=window,
-            q_offset=q_offset)
+            q, k, v, o, do.contiguous(), lse, **ctx.mask)
         return dq, dk, dv, None, None, None
 
 
@@ -111,7 +116,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int = 0) -> torch.Tensor:
     """(B, Sq, H, dh) attention of q over (B, Sk, KV, dh) keys and values:
     kernel K7 or ``flash_attention_ref``; its gradient kernel K7b or
-    ``flash_attention_bwd_ref``."""
+    ``flash_attention_bwd_ref``. With gradients off (``torch.no_grad``,
+    the serving steps) it is the forward alone, which writes no lse."""
+    if not torch.is_grad_enabled():
+        return _pick(q, flash_attention_cuda, flash_attention_ref,
+                     "flash_attention")(q, k, v, causal=causal, window=window,
+                                        q_offset=q_offset)
     return _FlashAttention.apply(q, k, v, causal, window, q_offset)
 
 

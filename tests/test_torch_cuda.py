@@ -875,6 +875,33 @@ def test_k7_flash_attention_matches_plain(cuda_device, case, dtype):
         assert not got[:, :-q_offset].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(K7_CUDA_CASES)))
+def test_k7_lse_matches_plain(cuda_device, case, dtype):
+    """K7's ``return_lse``: the same output as without it, and each row's
+    log-sum-exp against the plain version's (rtol 1e-5; atol 1e-5 for
+    rows whose lse is near 0), +inf on the rows with no visible key."""
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_ref)
+    B, Sq, Sk, H, KV, dh, causal, window, q_offset = K7_CUDA_CASES[case]
+    gen = torch.Generator(device=cuda_device).manual_seed(case)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda_device).to(dtype)
+               for s in ((B, Sq, H, dh), (B, Sk, KV, dh), (B, Sk, KV, dh)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    _, want = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, flash_attention_cuda(q, k, v, **kw))
+    assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+    got, want = lse.cpu(), want.cpu()
+    empty = torch.isinf(want)
+    assert torch.equal(torch.isinf(got), empty) and (got[empty] > 0).all()
+    np.testing.assert_allclose(got[~empty].numpy(), want[~empty].numpy(),
+                               rtol=1e-5, atol=1e-5)
+    if q_offset < 0:
+        assert empty[:, :, :-q_offset].all()
+
+
 @pytest.mark.parametrize("dtype,dh,instantiation", [
     (torch.bfloat16, 128, "flash_kernel_sm90"),
     (torch.bfloat16, 80, "flash_kernel_sm90"),
@@ -1410,30 +1437,61 @@ def _grads_held(got, want, dtype, what):
             assert _rel_l2(g, w) <= 1e-2, (what, i, _rel_l2(g, w))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", range(len(K7_CUDA_CASES)))
-def test_k7b_flash_attention_bwd_matches_plain(cuda_device, case, dtype):
-    """K7b against ``flash_attention_bwd_ref`` on K7's cases: every head
-    width (16, 32, 64, 80, 128, 256), GQA up to g = 8, windows,
-    continuations, rows with no visible key, ragged tiles."""
-    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
-                                                     flash_attention_bwd_ref,
-                                                     flash_attention_ref)
+def _k7b_inputs(cuda_device, case, dtype):
+    """q, k, v, do of K7's case ``case``, and o and lse from K7."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     B, Sq, Sk, H, KV, dh, causal, window, q_offset = K7_CUDA_CASES[case]
     gen = torch.Generator(device=cuda_device).manual_seed(100 + case)
     q, k, v, do = (torch.randn(s, generator=gen, device=cuda_device).to(dtype)
                    for s in ((B, Sq, H, dh), (B, Sk, KV, dh), (B, Sk, KV, dh),
                              (B, Sq, H, dh)))
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    o = flash_attention_ref(q, k, v, **kw).contiguous()
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    return q, k, v, do, o, lse, kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(K7_CUDA_CASES)))
+def test_k7b_flash_attention_bwd_matches_plain(cuda_device, case, dtype):
+    """K7b against ``flash_attention_bwd_ref`` on K7's cases, o and lse
+    from K7: every head width (16, 32, 64, 80, 128, 256), GQA up to g = 8,
+    windows, continuations, rows with no visible key, ragged tiles. bf16
+    at dh 64-256 takes the tensor-core route (held given the same lse,
+    and refused without one); the rest the SIMT kernel (lse unused)."""
+    from repro_torch.kernels.flash_attention import (SM90_HEAD_DIMS,
+                                                     flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_ref)
+    q, k, v, do, o, lse, kw = _k7b_inputs(cuda_device, case, dtype)
+    sm90 = dtype == torch.bfloat16 and q.shape[3] in SM90_HEAD_DIMS
     before = _build.launches["flash_attention_bwd"]
-    got = flash_attention_bwd_cuda(q, k, v, o, do, **kw)
-    want = flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    got = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    want = flash_attention_bwd_ref(q, k, v, o, do, lse if sm90 else None,
+                                   **kw)
     torch.cuda.synchronize()
     assert _build.launches["flash_attention_bwd"] == before + 1
     _grads_held(got, want, dtype, f"K7b case {case}")
-    if q_offset < 0:
-        assert not got[0][:, :-q_offset].any()
+    if kw["q_offset"] < 0:
+        assert not got[0][:, :-kw["q_offset"]].any()
+    if sm90:
+        with pytest.raises(ValueError, match="lse"):
+            flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+
+
+@pytest.mark.parametrize("case", [6, 10, 14])
+def test_k7b_tensor_core_route_is_deterministic_in_dk_dv(cuda_device, case):
+    """Two calls of the tensor-core K7b: dk and dv (summed over the group
+    in registers) bit-equal, dq (float32 reductions in any order) allclose;
+    danube's group (g 4, dh 80), g 8 at dh 128, dh 256 with a window."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    q, k, v, do, o, lse, kw = _k7b_inputs(cuda_device, case, torch.bfloat16)
+    first = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    second = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2],
+                                                            second[2])
+    np.testing.assert_allclose(first[0].float().cpu().numpy(),
+                               second[0].float().cpu().numpy(),
+                               rtol=1e-2, atol=1e-2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

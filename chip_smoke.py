@@ -303,7 +303,8 @@ failure exits non-zero and prints no result:
       call, dq allclose; only ``flash_bwd_kernel_sm90`` launched), and (v)
       K8b against ``mamba1_scan_bwd_ref`` at falcon-mamba-7b's layer (B 4,
       L 2048, D 8192, N 16), in float32 (rtol 1e-4, atol 1e-5 of dB's, dC's
-      and dA's scale) and bf16 (relative L2 1e-2). The timed steps'
+      and dA's scale) and bf16 (relative L2 1e-2), and two calls bit-equal
+      in every output (K8b sums without atomics). The timed steps'
       launches are ``train_launches``;
 5. kernel times at the paths' shapes: one ``{"kernels": [...]}`` line.
    ``launches`` counts phase 4's timed runs but 4f's, 4g's, 4h's, 4i's,
@@ -323,8 +324,11 @@ failure exits non-zero and prints no result:
    (pre, main, post); its bound is the visible pairs' 5 products of 2·dh
    FLOP at the bf16 tensor-core peak or its bytes, its library call
    ``torch.autograd.grad`` through SDPA (the backward alone). K8b's row is at falcon-mamba-7b's training layer
-   (bf16 in, float32 dy); its bound is the largest of its exps (one a
-   (b, l, d, n)) over the SFU, its FLOP and its bytes (``k8b_ops``).
+   (bf16 in, float32 dy); ``ms`` is a call's two launches (the scan and
+   the partials' sums), ``kernel_ms`` the scan alone; its bound is the
+   largest of its exps (one a (b, l, d, n)) over the SFU, its FLOP and its
+   bytes (``k8b_bound``); ``layout`` what was built
+   (``mamba_scan.k8b_layout``), ``decay`` how exp(δ·A) is taken.
    K3 is also held at the main path's CC superstep 0 with each walk
    forced. Its ``bound_ms`` counts only the rows with an active
    in-neighbour, summed over the plain version's sweeps, over the lanes
@@ -937,15 +941,21 @@ def held(got, want, tol: float, what: str) -> float:
 
 def kernel_names(fn, kernel: str, traces: int = 5) -> list:
     """The names of the kernels holding ``kernel`` that one call of ``fn``
-    launched, by torch.profiler; a trace that lost them is taken again, up
-    to ``traces`` times (:func:`device_ms`)."""
+    launched, by torch.profiler, recorded in a second window after a
+    warm-up window the profiler runs but discards (it lost launches at the
+    start of a window, :func:`device_ms`); a trace that lost them all is
+    taken again, up to ``traces`` times."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(traces):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            for window in range(2):
+                fn()
+                torch.cuda.synchronize()
+                if window == 0:
+                    prof.step()         # the warm-up window ends here
         names = sorted({e.key for e in prof.key_averages()
                         if e.device_type == DeviceType.CUDA
                         and kernel in e.key})
@@ -3987,7 +3997,8 @@ def scan_backward_inputs(dev, dtype):
 
 def check_k8b(dev) -> float:
     """Phase 4n (v): K8b against ``mamba1_scan_bwd_ref`` at falcon-mamba-
-    7b's layer, float32 and bf16 inputs. Returns the float32 error."""
+    7b's layer, float32 and bf16 inputs, and a second call bit-equal to
+    the first in every output. Returns the float32 error."""
     import torch
     from repro_torch.kernels.mamba_scan import (mamba1_scan_bwd_cuda,
                                                 mamba1_scan_bwd_ref)
@@ -3996,11 +4007,17 @@ def check_k8b(dev) -> float:
         args = scan_backward_inputs(dev, dt)
         got = mamba1_scan_bwd_cuda(*args)
         want = mamba1_scan_bwd_ref(*args)
+        again = mamba1_scan_bwd_cuda(*args)
         torch.cuda.synchronize()
         errs.append(grads_held(got, want, dt, f"K8b {dt}", scaled=(2, 3, 4)))
+        for i, (g, a) in enumerate(zip(got, again)):
+            if (g is None) != (a is None) or (
+                    g is not None and not torch.equal(g, a)):
+                fail(f"K8b {dt}: output {i} differs between two calls")
         log(f"K8b mamba1_scan_bwd {tuple(args[0].shape)} N="
-            f"{args[4].shape[1]} {dt} agrees (max_abs_err {errs[-1]})")
-        del args, got, want
+            f"{args[4].shape[1]} {dt} agrees (max_abs_err {errs[-1]}), "
+            f"two calls bit-equal")
+        del args, got, want, again
         torch.cuda.empty_cache()
     return errs[0]
 
@@ -4896,22 +4913,42 @@ def k7b_times(dev, train_launches, f32_err: float) -> dict:
 
 def k8b_ops(B: int, L: int, D: int, N: int) -> tuple:
     """The operations K8's gradient needs, not those K8b's code does (it
-    takes exp(δ·A) three times and the forward recurrence twice, to
-    keep its stored states few): (exps, FLOP). One exp(δ·A[d, n]) a (b, l,
+    takes exp(δ·A) twice and the forward recurrence twice, to keep its
+    stored states few): (exps, FLOP). One exp(δ·A[d, n]) a (b, l,
     d, n), as :func:`k8_ops` counts for K8; 19 FLOP a (b, l, d, n) (the
     forward recurrence's 4 once, the reverse step's 13, 2 in the sums of
     dB and dC over D) and 6 a (b, l, d) (δ·x twice, e·δ, e·x + Σ)."""
     return B * L * D * N, 19 * B * L * D * N + 6 * B * L * D
 
 
+def k8b_bound(B: int, L: int, D: int, N: int, clock_hz: float) -> dict:
+    """K8b's bound at bf16 in and float32 dy: the largest of its exps over
+    the SFU's rate, its FLOP (:func:`k8b_ops`) and its bytes (x, δ, B, C,
+    A and dy read, dx, dδ, dB, dC and dA written once), in ms, with the
+    three beside it and what sets it."""
+    exps, flop = k8b_ops(B, L, D, N)
+    nbytes = (4 * B * L * D * 2 + B * L * D * 4 + 4 * B * L * N * 2
+              + 2 * D * N * 4)
+    ms = {"exps": exps / (SFU_EXPS_PER_CLOCK * SM_COUNT * clock_hz) * 1e3,
+          "operations": flop / FP32_OPS_PER_S * 1e3,
+          "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    by = max(ms, key=ms.get)
+    return {"bound_ms": ms[by],
+            "bound_by": "bytes" if by == "bytes" else "operations",
+            "bound_set_by": by, "bound_exps_ms": ms["exps"],
+            "bound_flop_ms": ms["operations"], "bound_bytes_ms": ms["bytes"],
+            "exps": exps, "flop": flop, "bytes": nbytes,
+            "sm_clock_hz": clock_hz}
+
+
 def k8b_times(dev, train_launches, f32_err: float, clock_hz: float) -> dict:
     """K8b at falcon-mamba-7b's training layer (B 4, L 2048, D 8192, N
     16): bf16 x, δ, B and C, float32 dy, no initial state (the mixer's
-    form). Its bound is the largest of its exps over the SFU's rate, its
-    FLOP (:func:`k8b_ops`) and its bytes: x, δ, B, C, A and dy read, dx,
-    dδ, dB, dC and dA written once."""
+    form). ``ms`` covers a call's two launches, ``kernel_ms`` the scan
+    alone; its bound is :func:`k8b_bound`."""
     import torch
-    from repro_torch.kernels.mamba_scan import (mamba1_scan_bwd_cuda,
+    from repro_torch.kernels.mamba_scan import (k8b_layout,
+                                                mamba1_scan_bwd_cuda,
                                                 mamba1_scan_bwd_ref)
     args = scan_backward_inputs(dev, "bfloat16")
     B, L, D = args[0].shape
@@ -4921,18 +4958,14 @@ def k8b_times(dev, train_launches, f32_err: float, clock_hz: float) -> dict:
     torch.cuda.synchronize()
     err = grads_held(got, want, "bfloat16", "K8b at falcon-mamba-7b's layer")
     del got, want
-    dev_ms = device_ms(kernel, "scan_bwd_kernel", reps=5)
+    dev_ms = device_ms(kernel, None, reps=5)
+    kernel_ms = device_ms(kernel, "scan_bwd_kernel<", reps=5)
     call_ms = cuda_ms(kernel, reps=3)
     plain_ms = cuda_ms(lambda: mamba1_scan_bwd_ref(*args), reps=1)
-    exps, flop = k8b_ops(B, L, D, N)
-    nbytes = (4 * B * L * D * 2 + B * L * D * 4 + 4 * B * L * N * 2
-              + 2 * D * N * 4)
-    ms = {"exps": exps / (SFU_EXPS_PER_CLOCK * SM_COUNT * clock_hz) * 1e3,
-          "operations": flop / FP32_OPS_PER_S * 1e3,
-          "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
-    by = max(ms, key=ms.get)
-    if dev_ms < ms[by]:
-        fail(f"K8b took {dev_ms} ms, under its bound of {ms[by]} ms ({by})")
+    bound = k8b_bound(B, L, D, N, clock_hz)
+    if dev_ms < bound["bound_ms"]:
+        fail(f"K8b took {dev_ms} ms, under its bound of {bound['bound_ms']} "
+             f"ms ({bound['bound_set_by']})")
     row = {"name": "mamba1_scan_bwd", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/mamba_scan_bwd.cu",
            "replaces": "src/repro/kernels/mamba_scan.py:48",
@@ -4940,13 +4973,11 @@ def k8b_times(dev, train_launches, f32_err: float, clock_hz: float) -> dict:
                             "forward-only; K8b is K8's gradient",
            "launches": train_launches["mamba1_scan_bwd"],
            "max_abs_err": err, "float32_max_abs_err": f32_err,
-           "ms": dev_ms, "call_ms": call_ms, "plain_ms": plain_ms,
-           "bound_ms": ms[by],
-           "bound_by": "bytes" if by == "bytes" else "operations",
-           "bound_set_by": by, "bound_exps_ms": ms["exps"],
-           "bound_flop_ms": ms["operations"], "bound_bytes_ms": ms["bytes"],
-           "exps": exps, "flop": flop, "bytes": nbytes,
-           "sm_clock_hz": clock_hz, "library_ms": None,
+           "ms": dev_ms, "kernel_ms": kernel_ms, "call_ms": call_ms,
+           "plain_ms": plain_ms, **bound,
+           "share_of_bound": bound["bound_ms"] / dev_ms,
+           "layout": k8b_layout(), "decay": "ex2.approx.ftz of δ·(A·log2 e)",
+           "library_ms": None,
            "library_note": "no PyTorch call computes a selective scan's "
                            "gradient",
            "shape": "falcon-mamba-7b training layer: B 4, L 2048, D 8192, "

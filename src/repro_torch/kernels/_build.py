@@ -188,11 +188,16 @@ def _declare(lib) -> None:
     lib.flash_attention_bwd_sm90_launch.restype = i32
     # (x, delta, Bv, Cv, A, h0 or NULL, dy, dh_last or NULL, dx, ddelta,
     #  dB, dC, dA, dh0 or NULL, scratch, B, L, D, N, bf16, dy_f32, device,
-    #  stream)
+    #  stream): two launches, the scan and the partials' sums
     lib.mamba1_scan_bwd_launch.argtypes = [vp] * 15 + [i32] * 7 + [vp]
     lib.mamba1_scan_bwd_launch.restype = i32
-    lib.mamba1_scan_bwd_steps.argtypes = []
-    lib.mamba1_scan_bwd_steps.restype = i32
+    # (B, L, D, N): the float32 scratch a call takes
+    lib.mamba1_scan_bwd_scratch.argtypes = [i32] * 4
+    lib.mamba1_scan_bwd_scratch.restype = ctypes.c_longlong
+    # (out[8]: lanes, channels, steps, stages, blocks asked, shared
+    #  bytes, registers, resident blocks an SM)
+    lib.mamba1_scan_bwd_layout.argtypes = [ip]
+    lib.mamba1_scan_bwd_layout.restype = i32
     lib.kernel_error_string.argtypes = [i32]
     lib.kernel_error_string.restype = ctypes.c_char_p
 

@@ -27,7 +27,9 @@ another order, which the tests hold at float32's tolerance.
 The backward, K8b, has no TPU counterpart (the Pallas kernel is
 forward-only): ``mamba1_scan_bwd_cuda`` launches
 ``csrc/mamba_scan_bwd.cu``, a reverse sweep over L from states that a
-forward pass in the same launch stores every chunk, and
+forward pass in the same launch stores every chunk (each chunk's states
+and decays recomputed once into shared memory), then a small launch that
+sums its per-block partials of dB, dC and dA in a fixed order, and
 ``mamba1_scan_bwd_ref`` is its plain version, the reverse recurrence
 written out in torch ops. ``kernels.ops.mamba1_scan`` is a
 ``torch.autograd.Function`` whose backward picks between them by device.
@@ -166,6 +168,26 @@ def k8_layout() -> dict:
                      "fused"), out))
 
 
+def k8b_layout() -> dict:
+    """The layout K8b was built with (``csrc/mamba_scan_bwd.cu``): lanes a
+    channel, channels a block, steps a chunk, raw chunks in the ring, the
+    blocks an SM its launch bounds ask for, and for the training path's
+    instantiation (bf16 in, float32 dy) its shared bytes a block,
+    registers a thread and resident blocks an SM."""
+    return k8b_layout_of(_build.library())
+
+
+K8B_LAYOUT_KEYS = ("lanes", "channels", "steps", "stages", "blocks",
+                   "smem_bytes", "registers", "resident_blocks")
+
+
+def k8b_layout_of(lib) -> dict:
+    """:func:`k8b_layout` of a loaded library of K8b's source."""
+    out = (ctypes.c_int * len(K8B_LAYOUT_KEYS))()
+    _build.check(lib.mamba1_scan_bwd_layout(out), "mamba1_scan_bwd_layout")
+    return dict(zip(K8B_LAYOUT_KEYS, out))
+
+
 def mamba1_scan_cuda(x: torch.Tensor, delta: torch.Tensor, Bv: torch.Tensor,
                      Cv: torch.Tensor, A: torch.Tensor,
                      h0: Optional[torch.Tensor] = None, *,
@@ -220,9 +242,10 @@ def mamba1_scan_bwd_cuda(x: torch.Tensor, delta: torch.Tensor,
     """:func:`mamba1_scan_bwd_ref` by kernel K8b, for contiguous CUDA
     tensors: x, delta, Bv and Cv of one dtype (float32 or bfloat16), A,
     h0 and dh_last float32, dy in x's dtype or float32, N <=
-    ``MAX_STATE``. dB, dC and dA are float32 sums by atomics (allclose,
-    not bit-equal, to the plain version); dB and dC come back in Bv's
-    dtype."""
+    ``MAX_STATE``. dB, dC and dA are float32 sums taken in a fixed order
+    (two calls give the same bits; allclose, not bit-equal, to the plain
+    version); dB and dC come back in Bv's dtype. Two launches a call, one
+    count."""
     if not x.is_cuda:
         raise ValueError(f"kernel K8b needs CUDA tensors, got {x.device}")
     B, L, D, N = _check_shapes(x, delta, Bv, Cv, A, h0)
@@ -244,9 +267,6 @@ def mamba1_scan_bwd_cuda(x: torch.Tensor, delta: torch.Tensor,
     if dh_last is not None:
         _build.need(dh_last, "dh_last", torch.float32, dev, (B, D, N))
     dx, dd = torch.empty_like(x), torch.empty_like(delta)
-    dB = torch.zeros((B, L, N), dtype=torch.float32, device=dev)
-    dC = torch.zeros((B, L, N), dtype=torch.float32, device=dev)
-    dA = torch.zeros((D, N), dtype=torch.float32, device=dev)
     dh0 = (None if h0 is None
            else torch.empty((B, D, N), dtype=torch.float32, device=dev))
     if L == 0 or B * D == 0:
@@ -254,10 +274,12 @@ def mamba1_scan_bwd_cuda(x: torch.Tensor, delta: torch.Tensor,
             dh0.zero_()
             if dh_last is not None:
                 dh0.copy_(dh_last)
-        return dx, dd, dB.to(Bv.dtype), dC.to(Cv.dtype), dA, dh0
+        return (dx, dd, Bv.new_zeros((B, L, N)), Cv.new_zeros((B, L, N)),
+                torch.zeros((D, N), dtype=torch.float32, device=dev), dh0)
+    dB, dC = torch.empty_like(Bv), torch.empty_like(Cv)
+    dA = torch.empty((D, N), dtype=torch.float32, device=dev)
     lib = _build.library()
-    steps = lib.mamba1_scan_bwd_steps()
-    scratch = torch.empty((B, -(-L // steps), MAX_STATE, D),
+    scratch = torch.empty(lib.mamba1_scan_bwd_scratch(B, L, D, N),
                           dtype=torch.float32, device=dev)
     err = lib.mamba1_scan_bwd_launch(
         x.data_ptr(), delta.data_ptr(), Bv.data_ptr(), Cv.data_ptr(),
@@ -270,4 +292,4 @@ def mamba1_scan_bwd_cuda(x: torch.Tensor, delta: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mamba1_scan_bwd")
     _build.launches["mamba1_scan_bwd"] += 1
-    return dx, dd, dB.to(Bv.dtype), dC.to(Cv.dtype), dA, dh0
+    return dx, dd, dB, dC, dA, dh0

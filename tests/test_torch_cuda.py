@@ -1494,18 +1494,18 @@ def test_k7b_tensor_core_route_is_deterministic_in_dk_dv(cuda_device, case):
                                rtol=1e-2, atol=1e-2)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,L,D,N,state", [
-    (2, 300, 200, 16, False), (1, 64, 64, 4, True), (3, 17, 130, 8, True),
-    (2, 33, 96, 16, True)])
-def test_k8b_mamba_scan_bwd_matches_plain(cuda_device, B, L, D, N, state,
-                                          dtype):
-    """K8b against ``mamba1_scan_bwd_ref``: N padded (4, 8) and full (16),
-    L at and off its chunk of steps, D off a block of channels, with and
-    without h0 and the final state's gradient, dy float32 (the ssm
-    mixer's form) and in the inputs' dtype."""
-    from repro_torch.kernels.mamba_scan import (mamba1_scan_bwd_cuda,
-                                                mamba1_scan_bwd_ref)
+# (B, L, D, N, h0 and dh_last): L 47, 48, 49 sit one under, at and just
+# off a multiple of K8b's steps × stages (4 × 3, and 8 × 2); D 130 is off
+# a block of channels and not 16-byte aligned in bf16, D 136 is aligned
+# but off a block
+K8B_CASES = [(2, 300, 200, 16, False), (1, 64, 64, 4, True),
+             (3, 17, 130, 8, True), (2, 33, 96, 16, True),
+             (1, 48, 64, 16, False), (1, 47, 136, 1, True),
+             (2, 49, 130, 16, True), (1, 1, 8, 16, True)]
+
+
+def _k8b_inputs(cuda_device, B, L, D, N, state, dtype):
+    """x, δ, B, C, A, h0 (or None), dy (float32) and dh_last (or None)."""
     gen = torch.Generator(device=cuda_device).manual_seed(L + D)
     x = torch.randn((B, L, D), generator=gen, device=cuda_device) * 0.5
     dt = torch.rand((B, L, D), generator=gen, device=cuda_device) * 0.5 + 0.01
@@ -1518,6 +1518,22 @@ def test_k8b_mamba_scan_bwd_matches_plain(cuda_device, B, L, D, N, state,
           if state else None)
     dy = torch.randn((B, L, D), generator=gen, device=cuda_device)
     x, dt, bv, cv = (t.to(dtype) for t in (x, dt, bv, cv))
+    return x, dt, bv, cv, a, h0, dy, dh
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,D,N,state", K8B_CASES)
+def test_k8b_mamba_scan_bwd_matches_plain(cuda_device, B, L, D, N, state,
+                                          dtype):
+    """K8b against ``mamba1_scan_bwd_ref``: N 1, padded (4, 8) and full
+    (16), L of 1 and at, off and one under its chunks and ring, D off a
+    block of channels and unaligned, B 1 to 3, with and without h0 and
+    the final state's gradient, dy float32 (the ssm mixer's form) and in
+    the inputs' dtype."""
+    from repro_torch.kernels.mamba_scan import (mamba1_scan_bwd_cuda,
+                                                mamba1_scan_bwd_ref)
+    x, dt, bv, cv, a, h0, dy, dh = _k8b_inputs(cuda_device, B, L, D, N,
+                                               state, dtype)
     for dy_in in ([dy] if dtype == torch.float32 else [dy, dy.to(dtype)]):
         before = _build.launches["mamba1_scan_bwd"]
         got = mamba1_scan_bwd_cuda(x, dt, bv, cv, a, h0, dy_in, dh)
@@ -1525,6 +1541,22 @@ def test_k8b_mamba_scan_bwd_matches_plain(cuda_device, B, L, D, N, state,
         torch.cuda.synchronize()
         assert _build.launches["mamba1_scan_bwd"] == before + 1
         _grads_held(got, want, dtype, f"K8b dy {dy_in.dtype}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [0, 6])
+def test_k8b_two_calls_are_bit_equal(cuda_device, case, dtype):
+    """K8b sums dB and dC over the channels and dA over B and L in a fixed
+    order, without atomics: two calls give the same bits in all six
+    outputs (dh0 with h0, None without)."""
+    from repro_torch.kernels.mamba_scan import mamba1_scan_bwd_cuda
+    args = _k8b_inputs(cuda_device, *K8B_CASES[case], dtype)
+    first = mamba1_scan_bwd_cuda(*args)
+    second = mamba1_scan_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert (first[5] is None) == (args[5] is None)
+    for i, (f, g) in enumerate(zip(first, second)):
+        assert (f is None and g is None) or torch.equal(f, g), i
 
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "falcon-mamba-7b"])

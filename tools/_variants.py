@@ -63,7 +63,7 @@ def build(variants, subdir: str, launches, sass: bool = False) -> None:
         for name in launches:
             fn = getattr(v.lib, name)
             fn.argtypes = getattr(shipped, name).argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = getattr(shipped, name).restype
             v.launch[name] = fn
         if sass:
             v.sass = subprocess.run(
